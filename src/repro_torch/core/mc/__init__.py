@@ -1,3 +1,3 @@
 """The Monte Carlo engine (port of `repro.core.mc`): problems, sampling,
-slots, plan, exec and engine. Import `run_mc` from
+slots, exec and engine. Import `run_mc` from
 `repro_torch.core.mc.engine`."""

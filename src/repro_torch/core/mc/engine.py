@@ -3,10 +3,9 @@
 
 The paper's figures reproduce the expectation in Eq. (14) by averaging
 excess-risk curves over seeds. A batch row is a (problem, channel, algo,
-stepsize) tuple; `run_mc` stacks the rows, resolves the execution plan and
-the OTA route, and hands the sweep to `exec.run_core`, which runs every
-(row, seed) trajectory as one batch on the device. Arguments keep the
-reference's names.
+stepsize) tuple; `run_mc` stacks the rows and hands the sweep to
+`exec.run_core`, which runs every (row, seed) trajectory as one batch on
+the device. Arguments keep the reference's names.
 
 This first slice covers single-node-count, single-antenna, single-algo
 calls of `gbma`, `centralized`, `momentum` and `nesterov` on quadratic
@@ -24,7 +23,6 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.mc import exec as exec_mod
-from repro_torch.core.mc.plan import ExecPlan, validate_plan
 from repro_torch.core.mc.problems import MCProblem, MCProblemBatch
 from repro_torch.core.mc.slots import ALGO_REGISTRY
 from repro_torch.core.theory import ProblemConstants, theorem1_bound
@@ -32,6 +30,7 @@ from repro_torch.core.theory import ProblemConstants, theorem1_bound
 # reference algorithms that are registered in `repro` but not ported yet
 _LATER_ALGOS = {"fdm": "P4", "power_control": "P4", "blind": "P4",
                 "blind_ec": "P4"}
+_OTA_IMPLS = ("auto", "kernel", "ref")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -79,7 +78,6 @@ class MCResult:
                 or None under `keep_seed_curves=False`.
     bounds:     (C, steps+1) Theorem-1 bound per row (None unless problem
                 constants were given and every row is single-antenna gbma).
-    plan:       the resolved ExecPlan.
     device:     the device the sweep ran on.
     """
 
@@ -88,40 +86,25 @@ class MCResult:
     ci95: np.ndarray
     cum_energy: Optional[np.ndarray]
     bounds: Optional[np.ndarray]
-    plan: Optional[ExecPlan] = None
     device: Optional[str] = None
-
-
-def _resolve_ota_impl(ota_impl: str, n_sizes: tuple,
-                      device: torch.device) -> str:
-    """'auto' → 'kernel' on CUDA when the call has one node count, the
-    inline einsum on the CPU; 'kernel' / 'ref' force the
-    `repro_torch.kernels.ota` route (one node count only: the kernel
-    normalizes by the call's N)."""
-    if ota_impl not in ("auto", "kernel", "ref"):
-        raise ValueError(
-            f"ota_impl must be 'auto', 'kernel' or 'ref', got {ota_impl!r}")
-    eligible = len(n_sizes) == 1
-    if ota_impl == "auto":
-        return "kernel" if (eligible and device.type == "cuda") else "inline"
-    if not eligible:
-        raise ValueError(f"ota_impl={ota_impl!r} needs a single node count "
-                         f"per call (got n_sizes={n_sizes})")
-    return ota_impl
 
 
 def _is_scalar(v) -> bool:
     return isinstance(v, (int, float, np.integer, np.floating))
 
 
-def _reject_out_of_slice(*, n_antennas, invert_channel, power_budget,
-                         shard_seeds, batch_frac, participation, seed_chunk,
-                         plan, resume_dir, memory_budget_bytes) -> None:
+def _reject_out_of_slice(*, n_antennas, invert_channel, h_min,
+                         power_budget, shard_seeds, batch_frac,
+                         participation, seed_chunk, rng_plan, plan,
+                         resume_dir, memory_budget_bytes) -> None:
     if n_antennas is not None:
         raise _not_ported("n_antennas (multi-antenna edge, MRC)",
                           "P3: antennas and MRC")
     if invert_channel:
         raise _not_ported("invert_channel (fdm)",
+                          "P4: fdm, power_control, blind and blind_ec")
+    if h_min is not None:
+        raise _not_ported("h_min (power_control)",
                           "P4: fdm, power_control, blind and blind_ec")
     if power_budget is not None:
         raise _not_ported("power_budget (blind_ec)",
@@ -144,11 +127,14 @@ def _reject_out_of_slice(*, n_antennas, invert_channel, power_budget,
     if resume_dir is not None:
         raise _not_ported("resume_dir", "P8: seed_chunk, Chan merge and "
                           "resume")
-    if isinstance(plan, str):
-        raise _not_ported(f"plan={plan!r}", "P9: auto_plan")
+    if rng_plan is not None:
+        raise _not_ported(f"rng_plan={rng_plan!r} (the port draws per step)",
+                          "P9: execution plans")
+    if plan is not None:
+        raise _not_ported(f"plan={plan!r}", "P9: execution plans")
     if memory_budget_bytes is not None:
         raise _not_ported("memory_budget_bytes (plan='auto')",
-                          "P9: auto_plan")
+                          "P9: execution plans")
 
 
 def run_mc(
@@ -163,17 +149,17 @@ def run_mc(
     seed0: int = 0,
     n_antennas=None,
     invert_channel: bool = False,
-    h_min: float = 0.3,
+    h_min: Optional[float] = None,
     pc: Optional[Union[ProblemConstants, Sequence[ProblemConstants]]] = None,
     momentum: float = 0.9,
     power_budget=None,
     shard_seeds: Optional[bool] = None,
     batch_frac: Union[float, Sequence[float]] = 1.0,
-    ota_impl: Optional[str] = None,
+    ota_impl: str = "auto",
     rng_plan: Optional[str] = None,
     seed_chunk: Optional[int] = None,
-    keep_seed_curves: Optional[bool] = None,
-    plan: Union[ExecPlan, str, None] = None,
+    keep_seed_curves: bool = True,
+    plan: Optional[str] = None,
     resume_dir: Optional[str] = None,
     memory_budget_bytes: Optional[int] = None,
     participation: Union[float, Sequence[float]] = 1.0,
@@ -190,22 +176,24 @@ def run_mc(
     `device`: None runs on the CUDA card and raises without one; pass
     `device="cpu"` for the CPU. The problem data moves to this device.
 
-    `ota_impl`: 'auto' (the CUDA kernel on the card, the inline einsum on
-    the CPU), 'kernel' or 'ref' (the plain version through the kernel's
-    wrapper). `rng_plan` ('hoisted' | 'inscan') is accepted for parity
-    with the reference; both give the same streams (see `exec`).
+    `ota_impl`: the route of `kernels.ota.ota_edge_aggregate` — 'auto'
+    (the CUDA kernel on the card, the plain version on the CPU), 'kernel'
+    or 'ref' (the plain version on either device).
     `keep_seed_curves=False` reduces curves to (mean, ci95) on the device.
-    `plan=` an `ExecPlan` instead of the loose knobs. `h_min` is read by
-    `power_control` only (not ported yet). The other arguments exist for
-    the reference's signature; values outside this slice raise
-    `NotImplementedError`.
+    The other arguments keep the reference's names; any value but their
+    defaults is outside this slice and raises `NotImplementedError`.
     """
     _reject_out_of_slice(
-        n_antennas=n_antennas, invert_channel=invert_channel,
+        n_antennas=n_antennas, invert_channel=invert_channel, h_min=h_min,
         power_budget=power_budget, shard_seeds=shard_seeds,
         batch_frac=batch_frac, participation=participation,
-        seed_chunk=seed_chunk, plan=plan, resume_dir=resume_dir,
-        memory_budget_bytes=memory_budget_bytes)
+        seed_chunk=seed_chunk, rng_plan=rng_plan, plan=plan,
+        resume_dir=resume_dir, memory_budget_bytes=memory_budget_bytes)
+    if ota_impl not in _OTA_IMPLS:
+        raise ValueError(f"ota_impl must be one of {_OTA_IMPLS}, got "
+                         f"{ota_impl!r}")
+    if seeds < 1:
+        raise ValueError(f"need seeds >= 1, got {seeds}")
     dev = resolve_device(device)
 
     ch_batch = channels if isinstance(channels, ChannelBatch) \
@@ -231,26 +219,6 @@ def run_mc(
                           "rows")
     spec = ALGO_REGISTRY[algo_set[0]]
 
-    if plan is not None:
-        clash = [name for name, v in (
-            ("rng_plan", rng_plan), ("keep_seed_curves", keep_seed_curves),
-            ("ota_impl", ota_impl), ("shard_seeds", shard_seeds))
-            if v is not None]
-        if clash:
-            raise ValueError(
-                f"plan= already pins the execution strategy; drop the "
-                f"conflicting legacy knob(s) {clash} or encode them in "
-                "the ExecPlan")
-        eff_plan = plan
-    else:
-        eff_plan = ExecPlan(
-            rng_plan="hoisted" if rng_plan is None else rng_plan,
-            n_shards=0 if shard_seeds is False else None,
-            keep_seed_curves=(True if keep_seed_curves is None
-                              else keep_seed_curves),
-            ota_impl="auto" if ota_impl is None else ota_impl)
-    validate_plan(eff_plan, seeds=seeds, n_rows=n_rows)
-
     # ---- the problem axis: always the row formulation -------------------
     if isinstance(problem, MCProblemBatch):
         batch_prob = problem
@@ -269,9 +237,6 @@ def run_mc(
                          f"C={n_rows}")
     batch_prob = batch_prob.to(dev)
     n_nodes = batch_prob.n_nodes
-    n_sizes = tuple(sorted(set(n_nodes)))
-
-    ota_resolved = _resolve_ota_impl(eff_plan.ota_impl, n_sizes, dev)
     # the gain draw skips its phase stream when every row's phase error
     # is 0: value-identical (cos(0) == 1, and the stream has its own key)
     phase_zero = all(float(c.phase_error_max) == 0.0
@@ -292,10 +257,9 @@ def run_mc(
         params, betas_t, t0, seed_ints, batch_prob.data,
         grad_fn=batch_prob.grad_fn, risk_fn=batch_prob.risk_fn,
         algo=algo_set[0], fading=ch_batch.fading, steps=steps,
-        ota_impl=ota_resolved, rng_plan=eff_plan.rng_plan,
-        phase_zero=phase_zero,
-        reduce_moments=not eff_plan.keep_seed_curves)
-    if eff_plan.keep_seed_curves:
+        ota_impl=ota_impl, phase_zero=phase_zero,
+        reduce_moments=not keep_seed_curves)
+    if keep_seed_curves:
         risks, cum_e = (x.cpu().numpy() for x in out)
         mean, ci95 = exec_mod.host_seed_stats(risks)
     else:
@@ -316,7 +280,7 @@ def run_mc(
                     betas_t.cpu().numpy(), ch_batch.configs, pcs, n_nodes)])
     return MCResult(risks=risks, mean=mean.astype(np.float32),
                     ci95=ci95.astype(np.float32), cum_energy=cum_e,
-                    bounds=bounds, plan=eff_plan, device=str(dev))
+                    bounds=bounds, device=str(dev))
 
 
 def slice_result(res: MCResult, rows: Union[slice, Sequence[int]]
@@ -327,8 +291,7 @@ def slice_result(res: MCResult, rows: Union[slice, Sequence[int]]
     pick = lambda a: None if a is None else a[idx]
     return MCResult(risks=pick(res.risks), mean=pick(res.mean),
                     ci95=pick(res.ci95), cum_energy=pick(res.cum_energy),
-                    bounds=pick(res.bounds), plan=res.plan,
-                    device=res.device)
+                    bounds=pick(res.bounds), device=res.device)
 
 
 def energy_to_target(res: MCResult, target: float) -> np.ndarray:

@@ -11,12 +11,11 @@ kernel launch per step covers all B trajectories.
 Randomness: trajectory b starts from `key(seed0 + s)`, its step keys are
 `split(key, steps)`, and step t splits its key into (k_h, k_w) for the
 gains and the edge noise — exactly the reference's streams. The
-reference's two RNG plans coincide here: its 'hoisted' plan materializes
-the `(steps, …)` draws of those same keys before the scan and its
-'inscan' plan draws them inside; the streams are identical by design
-(`repro/core/mc/exec.py`, module docstring). The port draws per step
-under both values of `rng_plan`, which keeps device memory at O(B·N)
-instead of O(B·steps·N).
+reference's 'hoisted' plan materializes the `(steps, …)` draws of those
+same keys before its scan and its 'inscan' plan draws them inside; the
+streams are identical by design (`repro/core/mc/exec.py`, module
+docstring). The port draws per step, which keeps device memory at
+O(B·N) instead of O(B·steps·N).
 
 Seed reduction: `keep_seed_curves=False` reduces the `(C, S, steps+1)`
 curves to (mean, ci95) on the device with exact two-pass moments
@@ -35,9 +34,8 @@ from repro_torch.core.mc.slots import ALGO_REGISTRY, SlotCtx
 
 def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
              seed_ints: np.ndarray, data: dict, *, grad_fn, risk_fn,
-             algo: str, fading: str, steps: int, ota_impl: str = "inline",
-             rng_plan: str = "hoisted", phase_zero: bool = False,
-             reduce_moments: bool = False):
+             algo: str, fading: str, steps: int, ota_impl: str = "auto",
+             phase_zero: bool = False, reduce_moments: bool = False):
     """Run C rows × S seeds × `steps` slots of one algorithm.
 
     params: per-row `(C,)` tensors (channel scalars, n_nodes, gamma,
@@ -52,9 +50,6 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
     Returns per-seed `(risks (C, S, steps+1), cum_energy (C, S, steps))`,
     or `(mean, ci95)` of shape `(C, steps+1)` when `reduce_moments`.
     """
-    if rng_plan not in ("hoisted", "inscan"):
-        raise ValueError(
-            f"rng_plan must be 'hoisted' or 'inscan', got {rng_plan!r}")
     spec = ALGO_REGISTRY[algo]
     n_rows, n_seeds = betas.shape[0], len(seed_ints)
     batch = n_rows * n_seeds

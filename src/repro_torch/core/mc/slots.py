@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import rng
 from repro_torch.core.mc.sampling import _sample_gains
+from repro_torch.kernels.ota.ops import ota_edge_aggregate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +31,9 @@ class SlotCtx:
     p:          per-trajectory params, each `(B,)` (channel scalars,
                 n_nodes, gamma, nest).
     mask:       `(B, N)` validity mask of the node axis (all ones here).
-    ota_impl:   'inline' (the engine's einsum) or 'kernel' / 'ref' to route
-                the OTA superposition through `repro_torch.kernels.ota`.
+    ota_impl:   the `repro_torch.kernels.ota.ota_edge_aggregate` route:
+                'auto' (the kernel for CUDA tensors, the plain version for
+                CPU tensors), 'kernel' or 'ref'.
     phase_zero: promise that every row's phase_error_max is 0 — the gain
                 draw skips the precoded-phase stream (value-identical).
     """
@@ -39,7 +41,7 @@ class SlotCtx:
     fading: str
     p: dict
     mask: torch.Tensor
-    ota_impl: str = "inline"
+    ota_impl: str = "auto"
     phase_zero: bool = False
 
 
@@ -113,8 +115,8 @@ def _ota_slot(g: torch.Tensor, key: torch.Tensor,
     """Single-antenna OTA superposition (Eq. 8): v = (1/N) Σ h_n g_n + w,
     with w ~ N(0, std²), std = σ_w / (N √E_N).
 
-    With `ctx.ota_impl != 'inline'` the superposition and noise add go
-    through `repro_torch.kernels.ota.ota_edge_aggregate` — one kernel
+    The superposition and noise add go through
+    `repro_torch.kernels.ota.ota_edge_aggregate` — on the card one kernel
     launch for all B trajectories; the per-trajectory noise std folds
     into the noise operand."""
     p = ctx.p
@@ -125,14 +127,9 @@ def _ota_slot(g: torch.Tensor, key: torch.Tensor,
     if h is None:  # deterministic gains were (rightly) not drawn
         h = _deterministic_gains(ctx, n)
     std = p["noise_std"] / (p["n_nodes"] * torch.sqrt(p["energy"]))
-    if ctx.ota_impl != "inline":
-        from repro_torch.kernels.ota.ops import ota_edge_aggregate
-
-        return ota_edge_aggregate(
-            g, h, std[:, None] * w, noise_scale=1.0, impl=ctx.ota_impl,
-            out_dtype=torch.promote_types(g.dtype, torch.float32))
-    v = torch.einsum("bn,bnd->bd", h, g) / p["n_nodes"][:, None]
-    return v + std[:, None] * w
+    return ota_edge_aggregate(
+        g, h, std[:, None] * w, noise_scale=1.0, impl=ctx.ota_impl,
+        out_dtype=torch.promote_types(g.dtype, torch.float32))
 
 
 def _gbma_slot(g: torch.Tensor, key: torch.Tensor,

@@ -129,15 +129,23 @@ def bits_to_u01(bits: torch.Tensor) -> torch.Tensor:
     return fb.view(torch.float32) - 1.0
 
 
-def _as_f32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+def _as_f32(v):
+    """A float32 tensor, or a Python float rounded to float32: scalars stay
+    on the host, so a draw copies nothing to the device."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
+    return float(np.float32(v))
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor) -> torch.Tensor:
+def _f64(v):
+    return v.double() if isinstance(v, torch.Tensor) else v
+
+
+def _fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     """f32 `a * b + c` with one rounding, as XLA's contracted multiply-add:
-    the f32 product is exact in f64."""
-    return (a.double() * b.double() + c.double()).float()
+    the f32 product is exact in f64. `b` and `c` are f32 tensors or
+    f32-representable Python floats."""
+    return (a.double() * _f64(b) + _f64(c)).float()
 
 
 def u01_to_uniform(u01: torch.Tensor, minval, maxval) -> torch.Tensor:
@@ -148,9 +156,12 @@ def u01_to_uniform(u01: torch.Tensor, minval, maxval) -> torch.Tensor:
     (one rounding). The f32 product is exact in f64, and for the ranges
     the engine draws from the f64 sum is exact too, so evaluating in f64
     and rounding once to f32 reproduces the fused result bit for bit."""
-    lo = _as_f32(minval, u01)
-    hi = _as_f32(maxval, u01)
-    return torch.maximum(lo, _fma_f32(u01, hi - lo, lo))
+    lo, hi = _as_f32(minval), _as_f32(maxval)
+    if isinstance(lo, float) and isinstance(hi, float):
+        span = float(np.float32(hi) - np.float32(lo))  # the f32 difference
+    else:
+        span = hi - lo
+    return torch.clamp(_fma_f32(u01, span, lo), min=lo)
 
 
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
@@ -159,12 +170,10 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     w = -torch.log1p(-x * x)
     lt = w < 5.0
     arg = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    table = torch.tensor(_ERFINV_COEFFS, dtype=torch.float32,
-                         device=x.device)
-    row = lt.long()
-    p = table[:, 0][row]
-    for i in range(1, table.shape[1]):
-        p = _fma_f32(p, arg, table[:, i][row])
+    tail, body = _ERFINV_COEFFS
+    p = torch.where(lt, body[0], tail[0])  # f32 coefficients, no copies
+    for c_tail, c_body in zip(tail[1:], body[1:]):
+        p = _fma_f32(p, arg, torch.where(lt, c_body, c_tail))
     return p * x
 
 

@@ -80,7 +80,7 @@ def fmt_curve(name: str, ks: np.ndarray, values: np.ndarray,
 
 def run_msd_figure(fading: str, prefix: str, n_grid, eps_grid, steps: int,
                    seeds: int, *, device: DeviceLike = None,
-                   ota_impl: str | None = None) -> list:
+                   ota_impl: str = "auto") -> list:
     """Shared body of Figs. 2 (equal gains) and 3 (Rayleigh): the CSV rows
     of (a) the node-count sweep and (b) the energy sweep."""
     dev = resolve_device(device)

@@ -31,7 +31,7 @@ from repro.core.mc.engine import energy_to_target as jax_energy  # noqa: E402
 from repro.core.mc.engine import run_mc as jax_run_mc  # noqa: E402
 from repro.core.theory import stepsize_theorem1  # noqa: E402
 from repro_torch.core.mc import engine  # noqa: E402
-from repro_torch.core.mc.plan import ExecPlan  # noqa: E402
+from repro_torch.kernels.ota import ops  # noqa: E402
 from repro_torch.figures import run_fig2, run_fig3  # noqa: E402
 
 N, D, STEPS, SEEDS = 48, 16, 40, 2
@@ -114,26 +114,34 @@ def test_run_mc_matches_pallas_reference(msd):
     _assert_parity(out, ref)
 
 
-def test_plan_and_rng_plan_routes_agree(msd):
-    """An ExecPlan and the loose knobs build the same run; the two RNG
-    plans draw the same streams; slice_result views rows."""
+def test_auto_route_on_the_cpu_is_the_plain_version(msd):
+    """Under 'auto' a CPU run goes through the OTA wrapper's plain version
+    (no kernel launch): bit for bit the explicit 'ref' route."""
+    prob, _, tp = msd
+    cfgs, betas = _rows(prob, "rayleigh", 0.0)
+    chs = [port_channel(c) for c in cfgs]
+    before = ops.launch_count
+    auto = engine.run_mc(tp, chs, "gbma", betas, 12, 3, device="cpu")
+    ref = engine.run_mc(tp, chs, "gbma", betas, 12, 3, ota_impl="ref",
+                        device="cpu")
+    assert ops.launch_count == before
+    np.testing.assert_array_equal(auto.risks, ref.risks)
+    np.testing.assert_array_equal(auto.cum_energy, ref.cum_energy)
+    with pytest.raises(ValueError, match="ota_impl"):
+        engine.run_mc(tp, chs, "gbma", betas, 12, 3, ota_impl="inline",
+                      device="cpu")
+
+
+def test_slice_result_views_rows(msd):
     prob, _, tp = msd
     cfgs, betas = _rows(prob, "rayleigh", 0.0)
     chs = [port_channel(c) for c in cfgs]
     base = engine.run_mc(tp, chs, "gbma", betas, 12, 3,
                          keep_seed_curves=False, device="cpu")
-    planned = engine.run_mc(tp, chs, "gbma", betas, 12, 3,
-                            plan=ExecPlan(keep_seed_curves=False),
-                            device="cpu")
-    inscan = engine.run_mc(tp, chs, "gbma", betas, 12, 3,
-                           rng_plan="inscan", keep_seed_curves=False,
-                           device="cpu")
-    for other in (planned, inscan):
-        np.testing.assert_array_equal(other.mean, base.mean)
-        np.testing.assert_array_equal(other.ci95, base.ci95)
     row1 = engine.slice_result(base, [1])
     np.testing.assert_array_equal(row1.mean, base.mean[1:])
-    assert row1.risks is None and row1.plan == base.plan
+    np.testing.assert_array_equal(row1.ci95, base.ci95[1:])
+    assert row1.risks is None and row1.device == base.device
 
 
 def _parse(row: str):

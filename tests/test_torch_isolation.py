@@ -20,7 +20,6 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core.channel import ChannelConfig  # noqa: E402
 from repro_torch.core.mc.engine import run_mc  # noqa: E402
-from repro_torch.core.mc.plan import ExecPlan  # noqa: E402
 from repro_torch.core.mc.problems import (problem_from_arrays,  # noqa: E402
                                           quadratic_mc_problem)
 
@@ -79,10 +78,10 @@ OUT_OF_SLICE = [
     ({"plan": "auto"}, "P9"),
     ({"memory_budget_bytes": 2**30}, "P9"),
     ({"shard_seeds": True}, "M8"),
-    ({"plan": ExecPlan(seed_chunk=1)}, "P8"),
-    ({"plan": ExecPlan(n_shards=2)}, "M8"),
-    ({"plan": ExecPlan(row_shards=2)}, "M8"),
-    ({"plan": ExecPlan(retry=object())}, "P8"),
+    ({"h_min": 0.3}, "P4"),
+    ({"rng_plan": "hoisted"}, "P9"),
+    ({"rng_plan": "inscan"}, "P9"),
+    ({"plan": "hoisted"}, "P9"),
 ]
 
 
