@@ -4,14 +4,23 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-src DIR   # step profile of DIR/src only
 
-Builds the hand-written CUDA kernel from the checkout's sources, holds it
-against its plain PyTorch version on the card at every shape the main path
-gives it, drives the port's main path (the GBMA Monte Carlo engine
-`run_mc` -> fig3 rows) at the paper's operating point and at the engine's
-LARGE throughput workload, checks the results, and profiles a step of
-each (kernel launches, host synchronizations and device busy time per
-step, from `torch.profiler`). Any failed phase raises, so the script
-exits non-zero; it also exits non-zero, printing no result, when CUDA is
+Builds the two hand-written CUDA kernels from the checkout's sources (one
+nvcc per source, started together) and holds each against its plain
+PyTorch version on the card at the reference tests' shapes and at every
+shape its main path gives it. Then it drives the port's two main paths:
+
+* the GBMA Monte Carlo engine (`run_mc` -> fig3 rows) through the OTA
+  kernel, at the paper's operating point and at the engine's LARGE
+  throughput workload, with a step profile of each;
+* serving (`Engine.generate`: prefill, then decode) through the
+  flash-attention kernel: olmo-1b at full width and depth in bf16 at a
+  32- and a 2048-token prompt, and repro-100m in f32 at 2048, with the
+  kernel route held to the plain route, decode held to prefill, and the
+  prefill and a decode step timed and profiled.
+
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after. Any failed phase raises, so the script exits
+non-zero; it also exits non-zero, printing no result, when CUDA is
 unavailable.
 
 Output: one line per phase; then a JSON `{"kernels": [...]}` line (times
@@ -26,6 +35,7 @@ JSON line: two trees are compared in one call on one card.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -37,8 +47,35 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores
 REPLACES = "src/repro/kernels/ota/kernel.py:31"  # _ota_kernel
 SOURCE = "src/repro_torch/kernels/ota/csrc/ota_aggregate.cu"
+ATTN_REPLACES = "src/repro/kernels/attention/kernel.py:29"  # _attn_kernel
+ATTN_SOURCE = "src/repro_torch/kernels/attention/csrc/flash_attention.cu"
+# tests/test_kernels.py's attention cases (b, hq, hkv, s, d, options)
+ATTN_TEST_SHAPES = (
+    (2, 4, 4, 256, 64, {}),
+    (1, 8, 2, 256, 64, {}),
+    (1, 4, 4, 384, 128, {"window": 100}),
+    (1, 4, 4, 256, 64, {"softcap": 30.0}),
+    (1, 2, 2, 200, 64, {}),
+    (1, 2, 2, 256, 32, {"causal": False}),
+    (1, 4, 4, 512, 256, {"window": 128, "softcap": 50.0}),
+)
+# the serving slice's prefill shapes (B, heads, S, head_dim, dtype name):
+# olmo-1b at the launcher's 32-token prompt and at its 2048-token context,
+# repro-100m at 2048; the olmo 2048 shape is the one timed as primary
+SERVE_BATCH = 4
+ATTN_SLICE_SHAPES = ((4, 16, 2048, 128, "bfloat16"),
+                     (4, 16, 32, 128, "bfloat16"),
+                     (4, 10, 2048, 64, "float32"))
+SERVE_PROMPTS = (32, 2048)
+SERVE_NEW_TOKENS = 32
+# kernel route vs plain route and decode vs prefill, olmo-1b in bf16: the
+# two attention routes round to bf16 at different elements, and 16 layers
+# carry such 1-ulp (0.4 %) flips into the logits; the bar is 5 % of the
+# largest logit (f32 routes are held exactly, by their greedy tokens)
+BF16_LOGIT_BAR = 5e-2
 LARGE = {"n": 4096, "dim": 24, "steps": 150, "seeds": 1024}
 FIG3_DIM = 90  # figures.MSDProblem's default width
 # main-path shapes (B trajectories, N nodes, d) the kernel is launched at,
@@ -407,11 +444,12 @@ _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaEventSynchronize")
 
 
-def _profile_counts(fn) -> dict:
+def _profile_counts(fn, kernel: str = "ota_aggregate") -> dict:
     """Run `fn` under torch.profiler: kernel launches, host synchronizing
     calls and copies issued, the device's busy time (the sum of its
     kernel, copy and fill intervals, one stream), its host-to-device
-    copies, and the OTA kernel's own launches and device time."""
+    copies, and the launches and device time of the kernels whose name
+    holds `kernel`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -420,16 +458,16 @@ def _profile_counts(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     counts = {"launches": 0, "syncs": 0, "memcpy": 0, "device_us": 0.0,
-              "device_events": 0, "h2d": 0, "ota_us": 0.0, "ota": 0}
+              "device_events": 0, "h2d": 0, "kernel_us": 0.0, "kernel": 0}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             counts["device_us"] += us
             counts["device_events"] += 1
             counts["h2d"] += "HtoD" in e.name
-            if "ota_aggregate" in e.name:
-                counts["ota_us"] += us
-                counts["ota"] += 1
+            if kernel in e.name:
+                counts["kernel_us"] += us
+                counts["kernel"] += 1
         elif e.name.startswith(("cudaLaunch", "cuLaunch")):
             counts["launches"] += 1
         elif e.name in _SYNC_CALLS:
@@ -486,13 +524,330 @@ def step_profile() -> dict:
             "syncs_per_step": per["syncs"],
             "memcpy_per_step": per["memcpy"],
             "h2d_copies_per_step": per["h2d"],
-            "ota_device_us_per_launch": per["ota_us"] / per["ota"]
-            if per["ota"] else None,
+            "ota_device_us_per_launch": per["kernel_us"] / per["kernel"]
+            if per["kernel"] else None,
             "device_busy_ms_per_step": busy_ms if hi["device_events"]
             else None,
             "device_idle_share": 1.0 - busy_ms / wall_ms
             if hi["device_events"] else None}
         log(f"step profile {name}: {json.dumps(out[name])}")
+    return out
+
+
+# ---------------------------------------------------------------- serving
+def build_kernels() -> dict:
+    """Build both CUDA sources at once (one nvcc each) and print what
+    ptxas reports (registers, spills) and each attention variant's
+    dynamic shared memory."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.ota import kernel as ota_kernel
+
+    mods = {"ota_aggregate": ota_kernel, "flash_attention": attn_kernel}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        futs = {name: pool.submit(m.build) for name, m in mods.items()}
+        infos = {name: f.result() for name, f in futs.items()}
+    log(f"build: {len(mods)} sources in {time.perf_counter() - t0:.2f} s "
+        "wall")
+    for name, info in infos.items():
+        log(f"build: {mods[name].SOURCE.name} -> {info.path.name} in "
+            f"{info.seconds:.2f} s")
+        for line in info.log.splitlines():
+            if "ptxas" in line:
+                log(f"  {line.strip()}")
+    smem = {d: attn_kernel.smem_bytes(d) for d in attn_kernel.HEAD_DIMS}
+    log(f"flash_attention dynamic shared memory per block by head_dim: "
+        f"{smem}")
+    return infos
+
+
+def attention_bound(b, h, s, d, dtype_name) -> tuple:
+    """(least ms, what bounds it) for one causal self-attention call: q, k,
+    v read once and o written once, against 4·d flops (the QKᵀ and PV
+    products) for each of the s(s + 1)/2 live (query, key) pairs, at the
+    peak rate of the inputs' type (bf16: tensor cores; f32: the CUDA
+    cores, since TF32 cannot meet the kernel's bar)."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elt * b * h * d * 4 * s
+    flops = 4.0 * b * h * d * (s * (s + 1) // 2)
+    peak = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_inputs(b, hq, hkv, s, d, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((b, h, s, d), generator=gen, device="cuda")
+                 .to(dtype) for h in (hq, hkv, hkv))
+
+
+def check_attention_vs_plain() -> dict:
+    """The attention kernel against its plain version on the card: at the
+    reference tests' shapes (f32 atol 5e-5 + rtol 1e-4; bf16 atol 3e-2)
+    and at the serving slice's shapes. Returns the max abs error per
+    slice shape."""
+    import torch
+
+    from repro_torch.kernels.attention.ops import multi_head_attention
+
+    def compare(label, q, k, v, kw, atol, rtol):
+        scale = q.shape[-1] ** -0.5
+        ker = multi_head_attention(q, k, v, scale=scale, impl="kernel", **kw)
+        ref = multi_head_attention(q, k, v, scale=scale, impl="ref", **kw)
+        torch.cuda.synchronize()
+        err = (ker.float() - ref.float()).abs()
+        ok = bool(torch.all(torch.isfinite(ker.float()))) and bool(
+            torch.all(err <= atol + rtol * ref.float().abs()))
+        log(f"attention kernel-vs-plain {label} q{tuple(q.shape)} "
+            f"kv{tuple(k.shape)} {q.dtype} {kw}: max_abs_err="
+            f"{err.max().item():.3e} atol={atol} rtol={rtol} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"attention kernel disagrees with its "
+                                 f"plain version at {label}")
+        return err.max().item()
+
+    for i, (b, hq, hkv, s, d, kw) in enumerate(ATTN_TEST_SHAPES):
+        q, k, v = attn_inputs(b, hq, hkv, s, d, torch.float32, 100 + i)
+        compare("test shape", q, k, v, kw, 5e-5, 1e-4)
+    q, k, v = attn_inputs(1, 4, 4, 256, 64, torch.bfloat16, 9)
+    compare("test shape", q, k, v, {}, 3e-2, 0.0)
+    errs = {}
+    for b, h, s, d, dt in ATTN_SLICE_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = attn_inputs(b, h, h, s, d, dtype, s + d)
+        atol, rtol = (5e-5, 1e-4) if dt == "float32" else (3e-2, 0.0)
+        errs[(b, h, s, d, dt)] = compare("slice shape", q, k, v, {}, atol,
+                                         rtol)
+    return errs
+
+
+def time_attention(errs: dict) -> list:
+    """Kernel (bare launch and wrapper call), plain version and the SDPA
+    library call at the slice's shapes, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.kernels.attention.ops import multi_head_attention
+
+    rows = []
+    for b, h, s, d, dt in ATTN_SLICE_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = attn_inputs(b, h, h, s, d, dtype, 7)
+        scale = d ** -0.5
+        out = torch.empty_like(q)
+        reps = 20 if s > 512 else 200
+        ker = cuda_ms(lambda: kernel.launch(q, k, v, out, scale=scale,
+                                            causal=True, window=None,
+                                            softcap=None), reps)
+        wrapped = cuda_ms(lambda: multi_head_attention(
+            q, k, v, scale=scale, impl="kernel"), reps)
+        plain = cuda_ms(lambda: multi_head_attention(
+            q, k, v, scale=scale, impl="ref"), reps)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), reps)
+        bound, bound_by = attention_bound(b, h, s, d, dt)
+        rows.append({"shape": [b, h, s, d], "dtype": dt, "ms": ker,
+                     "wrapper_ms": wrapped, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": bound,
+                     "bound_by": bound_by,
+                     "max_abs_err": errs[(b, h, s, d, dt)]})
+        log(f"attention timing B={b} H={h} S={s} d={d} {dt}: kernel "
+            f"{ker:.6f} ms (wrapper call {wrapped:.6f} ms), plain "
+            f"{plain:.6f} ms, SDPA {lib:.6f} ms, bound {bound:.6f} ms "
+            f"({bound_by}), kernel at {bound / ker:.1%} of bound")
+    return rows
+
+
+def _serve_model(arch: str, attn_impl: str = "auto", params=None):
+    """(model, params) at full width and depth; weights from a generator
+    seeded 0 on the card unless `params` is given."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+
+    model = build_model(get_config(arch), attn_impl=attn_impl)
+    return model, params if params is not None else model.init_params(
+        device="cuda")
+
+
+def _prompt(vocab: int, s: int, seed: int = 1):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, (SERVE_BATCH, s), generator=gen,
+                         device="cuda")
+
+
+def _rel_to_max(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def run_serve_main_path(attn_ops, model, params) -> dict:
+    """olmo-1b served by `Engine.generate` at each prompt length, after
+    one untimed warm-up run: the kernel's launch count is set to 0 before
+    and read after the timed run (one prefill: one launch per layer), and
+    the tokens are checked to lie in the vocabulary. A further run under
+    torch.profiler counts launches, syncs, copies and device busy time
+    (idle share against the timed run's wall)."""
+    import torch
+
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    cfg = model.cfg
+    eng = Engine(model, params, ServeConfig(max_new_tokens=SERVE_NEW_TOKENS))
+    out = {}
+    for s in SERVE_PROMPTS:
+        tokens = _prompt(cfg.vocab_size, s)
+        # warm-up at this prompt length (cuBLAS plans, allocator growth),
+        # so the timed run below is the steady state
+        eng.generate({"tokens": tokens})
+        torch.cuda.synchronize()
+        attn_ops.launch_count = 0
+        t0 = time.perf_counter()
+        gen = eng.generate({"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = attn_ops.launch_count
+        ok_vocab = bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
+        log(f"serve {cfg.arch_id} (full: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.dtype}) B={SERVE_BATCH} prompt={s} "
+            f"new={SERVE_NEW_TOKENS}: wall {wall:.4f} s, "
+            f"{SERVE_BATCH * SERVE_NEW_TOKENS / wall:.1f} tok/s, "
+            f"{launches} attention kernel launches, tokens in vocabulary: "
+            f"{ok_vocab}; first row {gen[0, :8].tolist()}")
+        if launches != cfg.n_layers:
+            raise AssertionError(f"expected {cfg.n_layers} attention kernel "
+                                 f"launches per generate, got {launches}")
+        if gen.shape != (SERVE_BATCH, SERVE_NEW_TOKENS) or not ok_vocab:
+            raise AssertionError("generated ids out of shape or vocabulary")
+        prof = _profile_counts(lambda: eng.generate({"tokens": tokens}),
+                               kernel="flash_attention")
+        busy = prof["device_us"] / 1e6
+        out[s] = {"wall_s": wall, "launches": launches,
+                  "tok_per_s": SERVE_BATCH * SERVE_NEW_TOKENS / wall,
+                  "generate_profile": {
+                      "launches": prof["launches"], "syncs": prof["syncs"],
+                      "memcpy": prof["memcpy"], "device_busy_s": busy,
+                      "device_idle_share": 1.0 - busy / wall}}
+        log(f"serve {cfg.arch_id} prompt={s} generate profile: "
+            f"{json.dumps(out[s]['generate_profile'])}")
+    return out
+
+
+def check_serve_routes(model, params) -> dict:
+    """olmo-1b in bf16 at each prompt length: prefill logits finite and
+    within the bar between the kernel route and the plain route, and
+    prefill(S) + one decode step against prefill(S + 1)."""
+    import torch
+
+    cfg = model.cfg
+    plain, _ = _serve_model(cfg.arch_id, "ref", params)
+    out = {}
+    for s in SERVE_PROMPTS:
+        tokens = _prompt(cfg.vocab_size, s + 1, seed=2)
+        ker_logits, cache = model.prefill(params, {"tokens": tokens[:, :s]},
+                                          s + 1)
+        ref_logits, _ = plain.prefill(params, {"tokens": tokens[:, :s]},
+                                      s + 1)
+        finite = bool(torch.isfinite(ker_logits).all())
+        routes = _rel_to_max(ker_logits, ref_logits)
+        inc, _ = model.decode_step(params, cache, tokens[:, s], s)
+        full, _ = model.prefill(params, {"tokens": tokens}, s + 1)
+        decode = _rel_to_max(inc, full)
+        agree = (ker_logits.argmax(-1) == ref_logits.argmax(-1)).sum().item()
+        log(f"serve {cfg.arch_id} prompt={s}: logits finite {finite}, "
+            f"max |logit| {ref_logits.abs().max().item():.4f}; kernel vs "
+            f"plain route max|diff|/max|logit| {routes:.3e} (bar "
+            f"{BF16_LOGIT_BAR}), argmax agree {agree}/{SERVE_BATCH}; "
+            f"prefill({s})+decode vs prefill({s + 1}) {decode:.3e} (bar "
+            f"{BF16_LOGIT_BAR})")
+        if not (finite and routes <= BF16_LOGIT_BAR
+                and decode <= BF16_LOGIT_BAR):
+            raise AssertionError(f"serve {cfg.arch_id} prompt={s}: route "
+                                 "or decode consistency check failed")
+        out[s] = {"routes_rel": routes, "decode_rel": decode}
+    return out
+
+
+def serve_repro_100m(attn_ops) -> int:
+    """repro-100m (f32, 14 layers) at a 2048-token prompt: greedy tokens
+    through the kernel route and through the plain route are identical."""
+    import torch
+
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    model, params = _serve_model("repro-100m")
+    plain, _ = _serve_model("repro-100m", "ref", params)
+    tokens = _prompt(model.cfg.vocab_size, SERVE_PROMPTS[-1], seed=3)
+    scfg = ServeConfig(max_new_tokens=SERVE_NEW_TOKENS)
+    attn_ops.launch_count = 0
+    ker = Engine(model, params, scfg).generate({"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = attn_ops.launch_count
+    ref = Engine(plain, params, scfg).generate({"tokens": tokens})
+    same = bool(torch.equal(ker, ref))
+    log(f"serve repro-100m (full, f32) B={SERVE_BATCH} prompt="
+        f"{SERVE_PROMPTS[-1]} new={SERVE_NEW_TOKENS}: {launches} attention "
+        f"kernel launches; greedy tokens kernel route == plain route: "
+        f"{same}")
+    if launches != model.cfg.n_layers or not same:
+        raise AssertionError("repro-100m: launches or greedy tokens differ")
+    return launches
+
+
+def serve_timing(model, params) -> dict:
+    """Prefill ms and decode ms per step (host clock around work that ends
+    in a synchronize; best of 3 after a warm-up) at each prompt length,
+    and a torch.profiler count of one prefill and one decode step
+    (launches, host syncs, device busy time, idle share against the
+    profiler-free wall time)."""
+    import torch
+
+    out = {}
+    for s in SERVE_PROMPTS:
+        tokens = _prompt(model.cfg.vocab_size, s)
+        max_len = s + SERVE_NEW_TOKENS
+        tok = tokens[:, -1]
+
+        def prefill():
+            return model.prefill(params, {"tokens": tokens}, max_len)
+
+        _, cache = prefill()
+
+        def decode():
+            model.decode_step(params, cache, tok, s)
+
+        def best(fn, reps=3):
+            fn()
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return min(times) * 1e3
+
+        pre_ms, dec_ms = best(prefill), best(decode)
+        prof = {name: _profile_counts(fn, kernel="flash_attention")
+                for name, fn in (("prefill", prefill), ("decode", decode))}
+        row = {"prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+               "decode_tok_per_s": SERVE_BATCH / dec_ms * 1e3}
+        for name, wall in (("prefill", pre_ms), ("decode", dec_ms)):
+            p = prof[name]
+            busy = p["device_us"] / 1e3
+            row[name] = {"launches": p["launches"], "syncs": p["syncs"],
+                         "memcpy": p["memcpy"], "device_busy_ms": busy,
+                         "device_idle_share": 1.0 - busy / wall,
+                         "attention_kernels": p["kernel"],
+                         "attention_device_ms": p["kernel_us"] / 1e3}
+        log(f"serve timing {model.cfg.arch_id} B={SERVE_BATCH} prompt={s}: "
+            f"{json.dumps(row)}")
+        out[s] = row
     return out
 
 
@@ -514,20 +869,16 @@ def main() -> int:
         print(json.dumps({"profile_src": src_root, "steps": prof}),
               flush=True)
         return 0
-    from repro_torch.kernels.ota import kernel, ops
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ota import ops
 
     smi = smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    build_kernels()
 
-    info = kernel.build()
-    log(f"build: {kernel.SOURCE.name} -> {info.path.name} in "
-        f"{info.seconds:.2f} s")
-    for line in info.log.splitlines():
-        if "ptxas" in line:
-            log(f"  {line.strip()}")
-
+    # K1 and the Monte Carlo path
     errs = check_kernel_vs_plain()
     torch.cuda.synchronize()
     timings = time_kernel(errs)
@@ -545,8 +896,20 @@ def main() -> int:
     prof = step_profile()
     torch.cuda.synchronize()
 
+    # K2 and the serving path
+    attn_errs = check_attention_vs_plain()
+    attn_timings = time_attention(attn_errs)
+    olmo, olmo_params = _serve_model("olmo-1b")
+    served = run_serve_main_path(attn_ops, olmo, olmo_params)
+    routes = check_serve_routes(olmo, olmo_params)
+    serve_times = serve_timing(olmo, olmo_params)
+    del olmo, olmo_params
+    torch.cuda.empty_cache()
+    repro_launches = serve_repro_100m(attn_ops)
+    torch.cuda.synchronize()
+
     primary = timings[0]  # the LARGE shape
-    entry = {
+    ota_entry = {
         "name": "ota_aggregate", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
         "launches": fig3_launches + large_launches,
@@ -560,7 +923,26 @@ def main() -> int:
         "large_ms_per_step": large_step_s * 1e3,
         "shapes": timings, "step_profile": prof,
     }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    attn_primary = attn_timings[0]  # olmo-1b prefill at 2048, bf16
+    attn_entry = {
+        "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES,
+        "launches": sum(r["launches"] for r in served.values()),
+        "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
+        "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes",
+        "ms": attn_primary["ms"], "plain_ms": attn_primary["plain_ms"],
+        "bound_ms": attn_primary["bound_ms"],
+        "bound_by": attn_primary["bound_by"],
+        "library_ms": attn_primary["library_ms"],
+        "launches_by_run": {f"olmo-1b prompt {s}": r["launches"]
+                            for s, r in served.items()}
+        | {"repro-100m prompt 2048 (route check)": repro_launches},
+        "shapes": attn_timings,
+        "serve": {"olmo-1b": {str(s): {**served[s], **routes[s],
+                                       **serve_times[s]}
+                              for s in SERVE_PROMPTS}},
+    }
+    print(json.dumps({"kernels": [ota_entry, attn_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

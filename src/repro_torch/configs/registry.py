@@ -1,0 +1,43 @@
+"""Architecture registry: `--arch <id>` resolution (port of
+`repro.configs.registry`).
+
+The port knows the dense decoders it serves, olmo-1b and repro-100m.
+Every other architecture of the reference raises `NotImplementedError`
+naming the ROADMAP item that ports it; an unknown id raises `KeyError`,
+as in the reference.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "olmo-1b": "olmo_1b",
+    "repro-100m": "repro_100m",
+}
+
+# the reference's other architectures -> the ROADMAP item that ports them
+PENDING = {
+    "rwkv6-7b": "S1",
+    "gemma2-9b": "S2",
+    "gemma-7b": "S2",
+    "minitron-4b": "S2",
+    "llama4-maverick-400b-a17b": "S4",
+    "deepseek-v3-671b": "S5",
+    "hymba-1.5b": "S6",
+    "whisper-small": "S7",
+    "pixtral-12b": "S7",
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id in PENDING:
+        raise NotImplementedError(
+            f"arch '{arch_id}' is not ported yet (ROADMAP "
+            f"{PENDING[arch_id]}); the port serves {sorted(_MODULES)}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch '{arch_id}'; known: "
+                       f"{sorted({*_MODULES, *PENDING})}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG

@@ -1,0 +1,168 @@
+"""Attention for the dense decoder: projections, RoPE, the flash-attention
+kernel for prefill, and the KV cache for decode (port of the dense,
+unsharded part of `repro.models.attention`).
+
+`sdpa` is the kernel on CUDA tensors and its plain version on CPU tensors
+(`kernels.attention.ops.multi_head_attention`); `full_attention` is the
+materializing oracle. The KV cache is a dict of tensors updated IN PLACE
+(the reference returns a new pytree): at full width a copy per decoded
+token would move the whole cache (1.1 GB for olmo-1b at B = 4 and 2080
+positions) once per token.
+
+Out of this slice, and refused by `transformer.check_slice`: sliding
+windows, softcaps and qk-norm (ROADMAP S2), the int8 cache and head
+padding (S3), the runtime `is_global` flag (hymba, S6), the blockwise
+and custom-VJP training paths (T2) and the sharding calls (M8).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.attention.ops import multi_head_attention
+from repro_torch.kernels.attention.ref import NEG_INF
+from repro_torch.models.layers import dense_init, dtype_of, rope
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+def attention_params(gen: torch.Generator, cfg: ModelConfig,
+                     lead=()) -> dict:
+    dt = dtype_of(cfg)
+    return {
+        "wq": dense_init(gen, cfg.d_model, (*lead, cfg.d_model, cfg.q_dim),
+                         dt),
+        "wk": dense_init(gen, cfg.d_model, (*lead, cfg.d_model, cfg.kv_dim),
+                         dt),
+        "wv": dense_init(gen, cfg.d_model, (*lead, cfg.d_model, cfg.kv_dim),
+                         dt),
+        "wo": dense_init(gen, cfg.q_dim, (*lead, cfg.q_dim, cfg.d_model),
+                         dt),
+    }
+
+
+# --------------------------------------------------------------------------
+# scaled dot-product attention
+# --------------------------------------------------------------------------
+def _mask(q_idx: torch.Tensor, k_idx: torch.Tensor, *, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    mask = torch.ones((q_idx.shape[0], k_idx.shape[0]), dtype=torch.bool,
+                      device=q_idx.device)
+    if causal:
+        mask &= q_idx[:, None] >= k_idx[None, :]
+    if window is not None:
+        mask &= (q_idx[:, None] - k_idx[None, :]) < window
+    return mask
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   scale: float, causal: bool = True,
+                   window: Optional[int] = None,
+                   softcap: Optional[float] = None,
+                   q_offset: int = 0) -> torch.Tensor:
+    """Materializing oracle over q (B, Hq, Sq, d), k, v (B, Hkv, Skv, d)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, sq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = _mask(q_offset + torch.arange(sq, device=q.device),
+                 torch.arange(skv, device=q.device), causal=causal,
+                 window=window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+def sdpa(q, k, v, cfg: ModelConfig, *, impl: str = "auto") -> torch.Tensor:
+    """Causal attention for prefill: the flash-attention kernel on CUDA
+    tensors, its plain version on CPU tensors (`impl` as in
+    `multi_head_attention`)."""
+    return multi_head_attention(q, k, v, scale=cfg.head_dim ** -0.5,
+                                causal=True, impl=impl)
+
+
+# --------------------------------------------------------------------------
+# KV cache
+# --------------------------------------------------------------------------
+def init_kv_cache(batch: int, cache_len: int, cfg: ModelConfig, lead=(),
+                  device=None) -> dict:
+    shape = (*lead, batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
+    return {
+        "pos_ids": torch.full((*lead, cache_len), -1, dtype=torch.int32,
+                              device=device),
+        "k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+        "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+    }
+
+
+def cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                pos: int) -> dict:
+    """Write one token (B, Hkv, 1, d) at absolute position `pos` into its
+    ring-buffer slot, in place."""
+    slot = pos % cache["k"].shape[-2]
+    cache["k"][:, :, slot] = k_new[:, :, 0]
+    cache["v"][:, :, slot] = v_new[:, :, 0]
+    # a fill on a one-element slice: `pos_ids[slot] = pos` would copy a
+    # host scalar to the card and synchronize, once per layer and token
+    cache["pos_ids"][slot:slot + 1].fill_(pos)
+    return cache
+
+
+def decode_attention(q: torch.Tensor, cache: dict, pos: int,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """One query token (B, Hq, 1, d) against the cache, in f32."""
+    b, hq, _, d = q.shape
+    hkv = cache["k"].shape[1]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, cache["k"].float()) \
+        * cfg.head_dim ** -0.5
+    pid = cache["pos_ids"]
+    valid = (pid >= 0) & (pid <= pos)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, cache["v"].float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention sub-layer (projections + rope + sdpa / decode)
+# --------------------------------------------------------------------------
+def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+               positions: torch.Tensor, cache: Optional[dict] = None,
+               decode_pos: Optional[int] = None,
+               impl: str = "auto") -> tuple:
+    """x (B, S, D) -> (out (B, S, D), cache). With a cache and S == 1 this
+    is a decode step at `decode_pos`; otherwise a prefill, which writes
+    the last min(S, cache_len) keys and values into cache slots 0.. when a
+    cache is given. `impl` selects the prefill attention as in `sdpa`."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, d) views
+
+    if cache is not None and s == 1:
+        cache = cache_write(cache, k, v, decode_pos)
+        out = decode_attention(q, cache, decode_pos, cfg)
+    else:
+        out = sdpa(q, k, v, cfg, impl=impl)
+        if cache is not None:  # prefill into the cache
+            cache_len = cache["k"].shape[-2]
+            take = min(s, cache_len)
+            cache["k"][:, :, :take] = k[:, :, s - take:]
+            cache["v"][:, :, :take] = v[:, :, s - take:]
+            cache["pos_ids"][:take] = positions[s - take:]
+            cache["pos_ids"][take:] = -1
+    out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    return out @ p["wo"], cache

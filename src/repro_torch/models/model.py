@@ -1,0 +1,101 @@
+"""Model API for serving (port of the transformer part of
+`repro.models.model`):
+
+    model = build_model(cfg)                       # raises outside the slice
+    params = model.init_params()                   # seed 0, on the card
+    logits, cache = model.prefill(params, batch, max_len)
+    logits, cache = model.decode_step(params, cache, token, pos)
+
+Only `kind == "transformer"` (the dense decoder) is ported. The KV cache
+is updated in place: `decode_step` writes into the cache it is given and
+returns that same object.
+
+`attn_impl` picks prefill attention: 'auto' (the CUDA kernel on the card,
+its plain version on the CPU), 'kernel' or 'ref' (the plain version, on
+any device) — the last lets the card compare the two routes.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+
+
+class Model:
+    """The dense decoder behind the reference's family-dispatching
+    façade; the other families raise naming their ROADMAP item."""
+
+    def __init__(self, cfg: ModelConfig, attn_impl: str = "auto"):
+        if cfg.family == "ssm":
+            raise NotImplementedError(
+                f"{cfg.arch_id}: the RWKV6 model and its WKV kernel (K3) "
+                "are not ported yet (ROADMAP S1)")
+        if cfg.family == "hybrid":
+            raise NotImplementedError(
+                f"{cfg.arch_id}: the hymba hybrid model is not ported yet "
+                "(ROADMAP S6)")
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                f"{cfg.arch_id}: encoder-decoder models are not ported yet "
+                "(ROADMAP S7)")
+        if attn_impl not in ("auto", "kernel", "ref"):
+            raise ValueError(f"attn_impl must be 'auto', 'kernel' or 'ref', "
+                             f"got {attn_impl!r}")
+        tfm.check_slice(cfg)
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+
+    def init_params(self, generator: Optional[torch.Generator] = None, *,
+                    device: DeviceLike = None) -> dict:
+        """Random parameters drawn from `generator`, on its device; by
+        default from a generator seeded 0 on `device` (None: the CUDA
+        card, raising without one)."""
+        if generator is None:
+            generator = torch.Generator(
+                device=resolve_device(device)).manual_seed(0)
+        return tfm.init_decoder(generator, self.cfg)
+
+    def train_loss_per_example(self, params, batch):
+        raise NotImplementedError("training is not ported yet (ROADMAP T1)")
+
+    def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
+        return tfm.init_decoder_cache(batch, cache_len, self.cfg,
+                                      device=device)
+
+    @torch.no_grad()
+    def prefill(self, params: dict, batch: dict,
+                max_len: Optional[int] = None) -> tuple:
+        """Processes the prompt `batch["tokens"]` (B, S); returns
+        (last-position logits (B, V) f32, cache). `max_len` sizes the KV
+        cache beyond the prompt for later decode steps."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        cache = self.init_cache(b, max(max_len or 0, s),
+                                device=tokens.device)
+        x = tfm.embed_tokens(params, tokens, self.cfg)
+        h, cache = tfm.decoder_forward(
+            params, x, self.cfg,
+            positions=torch.arange(s, device=tokens.device), cache=cache,
+            impl=self.attn_impl)
+        return tfm.logits_fn(params, h[:, -1:], self.cfg)[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
+                    pos: int) -> tuple:
+        """One-token decode: token (B,), `pos` the absolute position (an
+        int). Returns (logits (B, V) f32, the cache, updated in place)."""
+        x = tfm.embed_tokens(params, token[:, None], self.cfg)
+        h, cache = tfm.decoder_forward(
+            params, x, self.cfg,
+            positions=torch.full((1,), pos, device=token.device),
+            cache=cache,
+            decode_pos=int(pos), impl=self.attn_impl)
+        return tfm.logits_fn(params, h, self.cfg)[:, 0], cache
+
+
+def build_model(cfg: ModelConfig, attn_impl: str = "auto") -> Model:
+    return Model(cfg, attn_impl=attn_impl)

@@ -1,0 +1,178 @@
+"""Dense decoder-only transformer stack (port of the dense part of
+`repro.models.transformer`).
+
+Parameters keep the reference's nested layout — `segments/seg0/sub0/...`
+with every per-layer leaf stacked on a leading layer dimension — so the
+names map one to one (`models.convert`). The reference scans over that
+dimension; the port loops over it in Python, slicing each layer's
+weights and KV cache as views.
+
+The slice is one dense global segment: `check_slice` raises
+`NotImplementedError` naming the ROADMAP item of every other structure.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers
+from repro_torch.models.layers import (apply_norm, dtype_of, embed_init,
+                                       norm_param)
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLayer:
+    kind: str  # 'dense' (the reference also has 'moe', ROADMAP S4)
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    n_steps: int
+    subs: tuple
+
+
+def check_slice(cfg: ModelConfig) -> None:
+    """Raise for every structure outside the dense global decoder."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: MoE layers are not ported yet (ROADMAP S4)")
+    if cfg.use_mla or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: MLA attention and the MTP head are not ported "
+            "yet (ROADMAP S5)")
+    if cfg.n_patches or cfg.n_enc_layers or not cfg.use_rope:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: encoder-decoder and VLM stacks are not ported "
+            "yet (ROADMAP S7)")
+    if (cfg.layer_pattern != "global" or cfg.sliding_window is not None
+            or cfg.attn_softcap is not None or cfg.final_softcap is not None
+            or cfg.norm_style != "pre" or cfg.embed_scale or cfg.qk_norm):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: sliding-window layers, logit softcaps, "
+            "sandwich norms, embedding scale and qk-norm are not ported yet "
+            "(ROADMAP S2)")
+    if cfg.opt_int8_cache or cfg.opt_pad_heads:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the int8 KV cache and head padding "
+            "(opt_int8_cache, opt_pad_heads) are not ported yet "
+            "(ROADMAP S3)")
+    if cfg.opt_flash_vjp:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the custom-VJP flash attention (opt_flash_vjp) "
+            "belongs to training, not ported yet (ROADMAP T2)")
+
+
+def build_segments(cfg: ModelConfig) -> tuple:
+    check_slice(cfg)
+    return (Segment(cfg.n_layers, (SubLayer("dense"),)),)
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def sublayer_params(gen: torch.Generator, cfg: ModelConfig,
+                    lead=()) -> dict:
+    return {"ln1": norm_param(cfg, *lead, device=gen.device),
+            "ln2": norm_param(cfg, *lead, device=gen.device),
+            "attn": attn_mod.attention_params(gen, cfg, lead=lead),
+            "mlp": layers.mlp_params(gen, cfg, lead=lead)}
+
+
+def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random parameters on `gen`'s device, in the reference's layout."""
+    segs = build_segments(cfg)
+    dt = dtype_of(cfg)
+    params: dict = {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
+        "final_norm": norm_param(cfg, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_init(
+            gen, cfg.d_model, (cfg.d_model, cfg.vocab_size), dt)
+    params["segments"] = {
+        f"seg{i}": {f"sub{j}": sublayer_params(gen, cfg, lead=(seg.n_steps,))
+                    for j, _ in enumerate(seg.subs)}
+        for i, seg in enumerate(segs)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# embedding / logits
+# ---------------------------------------------------------------------------
+def embed_tokens(params: dict, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"][tokens].to(dtype_of(cfg))
+
+
+def logits_fn(params: dict, h: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (h @ w).float()
+
+
+def chunked_xent(params: dict, h: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    raise NotImplementedError("the chunked cross-entropy belongs to "
+                              "training, not ported yet (ROADMAP T1)")
+
+
+# ---------------------------------------------------------------------------
+# sublayer / stack forward
+# ---------------------------------------------------------------------------
+def _layer(tree, i: int):
+    """Layer `i`'s slice of a tree whose leaves are stacked on dim 0."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return None if tree is None else tree[i]
+
+
+def sublayer_apply(x: torch.Tensor, sp: dict, cfg: ModelConfig, *,
+                   positions: torch.Tensor, cache: Optional[dict] = None,
+                   decode_pos: Optional[int] = None,
+                   impl: str = "auto") -> torch.Tensor:
+    """One decoder layer; its KV cache, when given, is updated in place."""
+    h = apply_norm(x, sp["ln1"], cfg)
+    a, _ = attn_mod.attn_apply(
+        h, sp["attn"], cfg, positions=positions,
+        cache=None if cache is None else cache["kv"],
+        decode_pos=decode_pos, impl=impl)
+    x = x + a
+    h = apply_norm(x, sp["ln2"], cfg)
+    return x + layers.mlp_apply(h, sp["mlp"], cfg)
+
+
+def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor, cache: Optional[dict] = None,
+                    decode_pos: Optional[int] = None,
+                    impl: str = "auto") -> tuple:
+    """x (B, S, D) embedded inputs -> (final-normed hidden, cache). The
+    cache, when given, is updated in place and returned."""
+    for i, seg in enumerate(build_segments(cfg)):
+        seg_params = params["segments"][f"seg{i}"]
+        seg_cache = None if cache is None else cache[f"seg{i}"]
+        for step in range(seg.n_steps):
+            for j, _ in enumerate(seg.subs):
+                x = sublayer_apply(
+                    x, _layer(seg_params[f"sub{j}"], step), cfg,
+                    positions=positions,
+                    cache=None if seg_cache is None
+                    else _layer(seg_cache[f"sub{j}"], step),
+                    decode_pos=decode_pos, impl=impl)
+    return apply_norm(x, params.get("final_norm"), cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# cache init
+# ---------------------------------------------------------------------------
+def init_decoder_cache(batch: int, cache_len: int, cfg: ModelConfig,
+                       device=None) -> dict:
+    """Cache tree matching the parameter layout: per segment and sublayer
+    a KV cache stacked on the layer dimension."""
+    return {f"seg{i}": {f"sub{j}": {"kv": attn_mod.init_kv_cache(
+        batch, cache_len, cfg, lead=(seg.n_steps,), device=device)}
+        for j, _ in enumerate(seg.subs)}
+        for i, seg in enumerate(build_segments(cfg))}

@@ -1,0 +1,67 @@
+"""Serving engine: batched prefill + greedy/temperature decode (port of
+`repro.serving.engine`).
+
+`Engine.generate` runs one prefill over the prompt, then
+`max_new_tokens` decode steps at positions prompt_len, prompt_len + 1, …,
+exactly as the reference does (its last step's token is drawn and
+dropped, so the key schedule matches). Greedy decoding is `argmax`. With
+`temperature > 0` a token is `jax.random.categorical(key, logits / T)`
+reproduced on the port's threefry (`core.rng`): JAX's default "low"
+Gumbel mode, -log(-log(u)) with u uniform in [tiny, 1), added to the
+scaled logits, then `argmax`; the key starts at `key(seed)` and is
+folded with the step index after every decode step (skipped when
+greedy: the key is then never read, and a fold is ~180 launches of the
+eager threefry).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import rng
+from repro_torch.models.model import Model
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0  # 0 = greedy
+    seed: int = 0
+
+
+class Engine:
+    def __init__(self, model: Model, params: dict, serve_cfg: ServeConfig):
+        self.model = model
+        self.params = params
+        self.cfg = serve_cfg
+
+    def generate(self, batch: dict) -> torch.Tensor:
+        """batch: {"tokens": (B, S) prompt ids}. Returns (B, max_new_tokens)
+        generated ids (int64, on the prompt's device)."""
+        cfg, m = self.cfg, self.model
+        tokens = batch["tokens"]
+        prompt_len = tokens.shape[1]
+        logits, cache = m.prefill(self.params, batch,
+                                  prompt_len + cfg.max_new_tokens)
+        key = rng.key(cfg.seed, device=tokens.device)
+        out = []
+        tok = self._sample(logits, key)
+        for i in range(cfg.max_new_tokens):
+            out.append(tok)
+            logits, cache = m.decode_step(self.params, cache, tok,
+                                          prompt_len + i)
+            if cfg.temperature > 0.0:  # greedy decoding reads no key
+                key = rng.fold_in(key, i)
+            tok = self._sample(logits, key)
+        return torch.stack(out, dim=1)
+
+    def _sample(self, logits: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+        if self.cfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        u = rng.uniform(key, logits.shape, minval=_F32_TINY, maxval=1.0)
+        gumbel = -torch.log(-torch.log(u))
+        return torch.argmax(gumbel + logits / self.cfg.temperature, dim=-1)

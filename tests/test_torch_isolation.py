@@ -2,10 +2,10 @@
 
 * Importing every `repro_torch` module loads neither `jax` nor any module
   of the reference package `repro` (checked in a fresh interpreter).
-* `run_mc` with no `device` raises where CUDA is absent instead of
-  running on the CPU.
-* Every argument or value outside the ported slice raises
-  `NotImplementedError` naming its ROADMAP item.
+* `run_mc`, `Model.init_params` and the serve launcher with no `device`
+  raise where CUDA is absent instead of running on the CPU.
+* Every argument, value, architecture or model option outside the ported
+  slices raises `NotImplementedError` naming its ROADMAP item.
 """
 import os
 import pathlib
@@ -45,7 +45,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
     n_modules, loaded = int(out[0]), out[1].strip()
-    assert n_modules >= 15
+    assert n_modules >= 30
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
@@ -110,3 +110,63 @@ def test_mixed_algo_rows_and_node_counts_raise():
                device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP P5"):
         problem_from_arrays("logistic", {}, 4, 2, device="cpu")
+
+
+# ----------------------------------------------------------- serving slice
+from repro_torch.configs.registry import PENDING, get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+
+
+def test_serving_entry_points_without_device_raise_where_cuda_is_absent(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_config("olmo-1b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--new-tokens", "1", "--prompt-len", "2"])
+
+
+@pytest.mark.parametrize("arch", sorted(PENDING))
+def test_unported_architectures_raise(arch):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {PENDING[arch]}"):
+        get_config(arch)
+
+
+OUT_OF_SLICE_CONFIG = [
+    ({"family": "ssm"}, "S1"),
+    ({"sliding_window": 16, "layer_pattern": "alt_local_global"}, "S2"),
+    ({"attn_softcap": 50.0}, "S2"),
+    ({"final_softcap": 30.0}, "S2"),
+    ({"norm_style": "sandwich"}, "S2"),
+    ({"embed_scale": True}, "S2"),
+    ({"qk_norm": True}, "S2"),
+    ({"opt_int8_cache": True}, "S3"),
+    ({"opt_pad_heads": True}, "S3"),
+    ({"n_experts": 4}, "S4"),
+    ({"use_mla": True}, "S5"),
+    ({"family": "hybrid"}, "S6"),
+    ({"family": "encdec"}, "S7"),
+    ({"n_patches": 8}, "S7"),
+    ({"use_rope": False}, "S7"),
+    ({"opt_flash_vjp": True}, "T2"),
+]
+
+
+@pytest.mark.parametrize("overrides,item", OUT_OF_SLICE_CONFIG)
+def test_out_of_slice_config_raises(overrides, item):
+    cfg = get_config("olmo-1b").reduced().with_(**overrides)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        build_model(cfg)
+
+
+def test_training_entry_points_raise():
+    cfg = get_config("repro-100m").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP T1"):
+        build_model(cfg).train_loss_per_example({}, {})
+    with pytest.raises(NotImplementedError, match="ROADMAP T1"):
+        transformer.chunked_xent({}, None, None, None, cfg)
