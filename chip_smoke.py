@@ -4,10 +4,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-src DIR   # step profile of DIR/src only
 
-Builds the two hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, started together) and holds each against its plain
+Builds the three hand-written CUDA kernels from the checkout's sources
+(one nvcc per source, started together) and holds each against its plain
 PyTorch version on the card at the reference tests' shapes and at every
-shape its main path gives it. Then it drives the port's two main paths:
+shape its main path gives it. Then it drives the port's main paths:
 
 * the GBMA Monte Carlo engine (`run_mc` -> fig3 rows) through the OTA
   kernel, at the paper's operating point and at the engine's LARGE
@@ -16,7 +16,10 @@ shape its main path gives it. Then it drives the port's two main paths:
   flash-attention kernel: olmo-1b at full width and depth in bf16 at a
   32- and a 2048-token prompt, and repro-100m in f32 at 2048, with the
   kernel route held to the plain route, decode held to prefill, and the
-  prefill and a decode step timed and profiled.
+  prefill and a decode step timed and profiled;
+* serving rwkv6-7b through the WKV6 kernel, at full width and depth in
+  bf16 at a 32- and a 2048-token prompt, with the same checks (the plain
+  route at the 32-token prompt) and the weights' initialization peak.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Any failed phase raises, so the script exits
@@ -52,6 +55,30 @@ REPLACES = "src/repro/kernels/ota/kernel.py:31"  # _ota_kernel
 SOURCE = "src/repro_torch/kernels/ota/csrc/ota_aggregate.cu"
 ATTN_REPLACES = "src/repro/kernels/attention/kernel.py:29"  # _attn_kernel
 ATTN_SOURCE = "src/repro_torch/kernels/attention/csrc/flash_attention.cu"
+WKV_REPLACES = "src/repro/kernels/wkv/kernel.py:30"  # _wkv_kernel
+WKV_SOURCE = "src/repro_torch/kernels/wkv/csrc/wkv6.cu"
+# tests/test_kernels.py's WKV cases (b, h, t, d), all f32
+WKV_TEST_SHAPES = ((2, 2, 128, 64), (1, 4, 100, 32), (2, 1, 64, 64),
+                   (1, 2, 256, 16))
+# rwkv6-7b's shapes on the serving path (B, heads, T, head_dim): the prefill
+# of the 2048-token prompt (timed as primary) and a decode step
+WKV_SLICE_SHAPES = ((4, 64, 2048, 64), (4, 64, 1, 64))
+# the kernel against its plain version in bf16: o rounds the same f32 sum
+# (taken in another order) to bf16, so 1-ulp flips (2^-8 relative) pass
+# within atol 2e-2 + rtol 1e-2; the f32 state within 1e-4 relative
+WKV_BF16_O_BAR = (2e-2, 1e-2)
+WKV_STATE_BAR = (1e-4, 1e-4)
+# rwkv6-7b's whole-model checks (`check_rwkv_routes`). In f32: the kernel
+# route against the plain route within 1e-4 of the largest logit or state
+# (the two differ only in the WKV sums' order); prefill(S) + decode against
+# prefill(S + 1) within 5e-3, the reference's own f32 decode-consistency
+# bar (tests/test_decode_consistency.py): there every matrix product runs
+# at another row count, which cuBLAS sums in another order, and 32
+# recurrent layers amplify those roundings. In bf16: a route at most this
+# many times as far from the f32 model as its counterpart.
+RWKV_F32_ROUTE_BAR = 1e-4
+RWKV_F32_DECODE_BAR = 5e-3
+RWKV_BF16_RATIO = 2.0
 # tests/test_kernels.py's attention cases (b, hq, hkv, s, d, options)
 ATTN_TEST_SHAPES = (
     (2, 4, 4, 256, 64, {}),
@@ -536,13 +563,15 @@ def step_profile() -> dict:
 
 # ---------------------------------------------------------------- serving
 def build_kernels() -> dict:
-    """Build both CUDA sources at once (one nvcc each) and print what
+    """Build every CUDA source at once (one nvcc each) and print what
     ptxas reports (registers, spills) and each attention variant's
     dynamic shared memory."""
     from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.ota import kernel as ota_kernel
+    from repro_torch.kernels.wkv import kernel as wkv_kernel
 
-    mods = {"ota_aggregate": ota_kernel, "flash_attention": attn_kernel}
+    mods = {"ota_aggregate": ota_kernel, "flash_attention": attn_kernel,
+            "wkv6": wkv_kernel}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         futs = {name: pool.submit(m.build) for name, m in mods.items()}
@@ -663,13 +692,189 @@ def time_attention(errs: dict) -> list:
     return rows
 
 
-def _serve_model(arch: str, attn_impl: str = "auto", params=None):
+def wkv_bound(b, h, t, d, dtype_name) -> tuple:
+    """(least ms, what bounds it) for one WKV6 call: r, k, v, w read once
+    and o written once (model dtype), u read once, the f32 state read
+    once and written once, against 7 flops (a multiply and three FMAs)
+    for each (t, i, j) at the f32 rate outside the tensor cores (the
+    recurrence has no matrix product for them)."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elt * 5 * b * h * t * d + 4 * h * d + 4 * 2 * b * h * d * d
+    flops = 7.0 * b * h * t * d * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wkv_inputs(b, h, t, d, dtype, seed, layout="bhtd"):
+    """r, k, v, w in `dtype` (w = exp(-exp(N(0, 1))) in (0, 1)), as
+    (B, H, T, D) tensors or, for layout 'bthd', as (B, H, T, D) views of
+    (B, T, H, D) memory (the model's projections); u and s0 f32."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(shape, generator=gen,
+                                         device="cuda")))
+    rkvw = [x.to(dtype) for x in (r, k, v, w)]
+    if layout == "bthd":
+        rkvw = [x.transpose(1, 2) for x in rkvw]
+    u = 0.5 * torch.randn((h, d), generator=gen, device="cuda")
+    s0 = 0.1 * torch.randn((b, h, d, d), generator=gen, device="cuda")
+    return (*rkvw, u, s0)
+
+
+def check_wkv_vs_plain() -> dict:
+    """The WKV kernel against its plain version on the card: at the
+    reference tests' shapes in f32 (o and state atol 1e-4 + rtol 1e-4),
+    and at rwkv6-7b's prefill and decode shapes in bf16 with f32 state
+    (WKV_BF16_O_BAR, WKV_STATE_BAR), as the model hands them over
+    ((B, T, H, D) views). Also: two halves chained through the state equal
+    one pass, the state written over s0 equals the state written to a new
+    buffer, and strided views equal contiguous copies, bit for bit.
+    Returns the max abs error of o per slice shape."""
+    import torch
+
+    from repro_torch.kernels.wkv.ops import wkv6
+
+    def compare(label, args, o_bar, s_bar):
+        ker_o, ker_s = wkv6(*args, impl="kernel")
+        ref_o, ref_s = wkv6(*args, impl="ref")
+        torch.cuda.synchronize()
+        errs = []
+        ok = True
+        for ker, ref, (atol, rtol) in ((ker_o.float(), ref_o.float(), o_bar),
+                                       (ker_s, ref_s, s_bar)):
+            err = (ker - ref).abs()
+            ok = ok and bool(torch.all(torch.isfinite(ker))) and bool(
+                torch.all(err <= atol + rtol * ref.abs()))
+            errs.append(err.max().item())
+        log(f"wkv kernel-vs-plain {label} r{tuple(args[0].shape)} "
+            f"{args[0].dtype}: max_abs_err o={errs[0]:.3e} (atol {o_bar[0]} "
+            f"rtol {o_bar[1]}), state={errs[1]:.3e} (atol {s_bar[0]} rtol "
+            f"{s_bar[1]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"WKV kernel disagrees with its plain "
+                                 f"version at {label}")
+        return errs[0]
+
+    for i, (b, h, t, d) in enumerate(WKV_TEST_SHAPES):
+        compare("test shape", wkv_inputs(b, h, t, d, torch.float32, 200 + i),
+                (1e-4, 1e-4), (1e-4, 1e-4))
+    errs = {}
+    for b, h, t, d in WKV_SLICE_SHAPES:
+        args = wkv_inputs(b, h, t, d, torch.bfloat16, 300 + t,
+                          layout="bthd")
+        errs[(b, h, t, d)] = compare("slice shape", args, WKV_BF16_O_BAR,
+                                     WKV_STATE_BAR)
+    # bit-for-bit properties at the prefill shape, strided bf16 inputs
+    b, h, t, d = WKV_SLICE_SHAPES[0]
+    r, k, v, w, u, s0 = wkv_inputs(b, h, t, d, torch.bfloat16, 400,
+                                   layout="bthd")
+    o, s = wkv6(r, k, v, w, u, s0, impl="kernel")
+    half = t // 2
+    o1, s1 = wkv6(r[:, :, :half], k[:, :, :half], v[:, :, :half],
+                  w[:, :, :half], u, s0, impl="kernel")
+    o2, s2 = wkv6(r[:, :, half:], k[:, :, half:], v[:, :, half:],
+                  w[:, :, half:], u, s1, impl="kernel")
+    state = s0.clone()
+    o_in, s_in = wkv6(r, k, v, w, u, state, impl="kernel", s_out=state)
+    o_dense, s_dense = wkv6(*(x.contiguous() for x in (r, k, v, w)), u, s0,
+                            impl="kernel")
+    torch.cuda.synchronize()
+    checks = {
+        "two halves chained == one pass":
+            torch.equal(torch.cat([o1, o2], dim=2), o) and torch.equal(s2, s),
+        "state in place == out of place":
+            s_in is state and torch.equal(o_in, o) and torch.equal(s_in, s),
+        "strided views == contiguous copies":
+            torch.equal(o_dense, o) and torch.equal(s_dense, s),
+    }
+    for name, ok in checks.items():
+        log(f"wkv {name} at {(b, h, t, d)} bf16: bitwise "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"WKV kernel: {name} failed")
+    return errs
+
+
+def time_wkv(errs: dict) -> list:
+    """Kernel (bare launch and wrapper call) and plain version at
+    rwkv6-7b's prefill and decode shapes, beside the bound. No single
+    PyTorch call computes WKV6: no library time."""
+    import torch
+
+    from repro_torch.kernels.wkv import kernel
+    from repro_torch.kernels.wkv.ops import wkv6
+
+    rows = []
+    for b, h, t, d in WKV_SLICE_SHAPES:
+        r, k, v, w, u, s0 = wkv_inputs(b, h, t, d, torch.bfloat16, 7,
+                                       layout="bthd")
+        o = torch.empty((b, t, h, d), dtype=torch.bfloat16,
+                        device="cuda").transpose(1, 2)
+        s_out = torch.empty_like(s0)
+        reps = 20 if t > 1 else 500
+        ker = cuda_ms(lambda: kernel.launch(r, k, v, w, u, s0, s_out, o),
+                      reps)
+        wrapped = cuda_ms(lambda: wkv6(r, k, v, w, u, s0, impl="kernel"),
+                          reps)
+        plain = cuda_ms(lambda: wkv6(r, k, v, w, u, s0, impl="ref"),
+                        2 if t > 1 else 50, warmup=1)
+        bound, bound_by = wkv_bound(b, h, t, d, "bfloat16")
+        rows.append({"shape": [b, h, t, d], "dtype": "bfloat16", "ms": ker,
+                     "wrapper_ms": wrapped, "plain_ms": plain,
+                     "library_ms": None, "bound_ms": bound,
+                     "bound_by": bound_by,
+                     "max_abs_err": errs[(b, h, t, d)]})
+        log(f"wkv timing B={b} H={h} T={t} D={d} bfloat16: kernel "
+            f"{ker:.6f} ms (wrapper call {wrapped:.6f} ms), plain "
+            f"{plain:.6f} ms, no library call, bound {bound:.6f} ms "
+            f"({bound_by}), kernel at {bound / ker:.1%} of bound")
+    return rows
+
+
+def build_rwkv() -> tuple:
+    """rwkv6-7b at full width and depth with seeded random weights on the
+    card, and the peak device memory of their initialization (each leaf
+    is drawn in f32 before its cast to bf16)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, params = _serve_model("rwkv6-7b")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"rwkv6-7b weights: {n_params / 1e9:.4f} B parameters, "
+        f"{weights / 2**30:.3f} GiB on the card; initialization took "
+        f"{wall:.2f} s with a peak of {peak / 2**30:.3f} GiB")
+    return model, params, {"params": n_params, "weights_bytes": weights,
+                           "init_peak_bytes": peak, "init_s": wall}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _serve_model(arch: str, params=None, **impls):
     """(model, params) at full width and depth; weights from a generator
-    seeded 0 on the card unless `params` is given."""
+    seeded 0 on the card unless `params` is given. `impls` picks the
+    kernel routes (`attn_impl`, `wkv_impl`)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
 
-    model = build_model(get_config(arch), attn_impl=attn_impl)
+    model = build_model(get_config(arch), **impls)
     return model, params if params is not None else model.init_params(
         device="cuda")
 
@@ -686,10 +891,11 @@ def _rel_to_max(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def run_serve_main_path(attn_ops, model, params) -> dict:
-    """olmo-1b served by `Engine.generate` at each prompt length, after
-    one untimed warm-up run: the kernel's launch count is set to 0 before
-    and read after the timed run (one prefill: one launch per layer), and
+def run_serve_main_path(ops, model, params, *, kernel: str,
+                        per_generate: int) -> dict:
+    """`model` served by `Engine.generate` at each prompt length, after
+    one untimed warm-up run: the kernel's launch count (`ops`) is set to 0
+    before and read after the timed run and must be `per_generate`, and
     the tokens are checked to lie in the vocabulary. A further run under
     torch.profiler counts launches, syncs, copies and device busy time
     (idle share against the timed run's wall)."""
@@ -706,26 +912,26 @@ def run_serve_main_path(attn_ops, model, params) -> dict:
         # so the timed run below is the steady state
         eng.generate({"tokens": tokens})
         torch.cuda.synchronize()
-        attn_ops.launch_count = 0
+        ops.launch_count = 0
         t0 = time.perf_counter()
         gen = eng.generate({"tokens": tokens})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = attn_ops.launch_count
+        launches = ops.launch_count
         ok_vocab = bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
         log(f"serve {cfg.arch_id} (full: {cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, {cfg.dtype}) B={SERVE_BATCH} prompt={s} "
             f"new={SERVE_NEW_TOKENS}: wall {wall:.4f} s, "
             f"{SERVE_BATCH * SERVE_NEW_TOKENS / wall:.1f} tok/s, "
-            f"{launches} attention kernel launches, tokens in vocabulary: "
+            f"{launches} {kernel} kernel launches, tokens in vocabulary: "
             f"{ok_vocab}; first row {gen[0, :8].tolist()}")
-        if launches != cfg.n_layers:
-            raise AssertionError(f"expected {cfg.n_layers} attention kernel "
+        if launches != per_generate:
+            raise AssertionError(f"expected {per_generate} {kernel} kernel "
                                  f"launches per generate, got {launches}")
         if gen.shape != (SERVE_BATCH, SERVE_NEW_TOKENS) or not ok_vocab:
             raise AssertionError("generated ids out of shape or vocabulary")
         prof = _profile_counts(lambda: eng.generate({"tokens": tokens}),
-                               kernel="flash_attention")
+                               kernel=kernel)
         busy = prof["device_us"] / 1e6
         out[s] = {"wall_s": wall, "launches": launches,
                   "tok_per_s": SERVE_BATCH * SERVE_NEW_TOKENS / wall,
@@ -745,7 +951,7 @@ def check_serve_routes(model, params) -> dict:
     import torch
 
     cfg = model.cfg
-    plain, _ = _serve_model(cfg.arch_id, "ref", params)
+    plain, _ = _serve_model(cfg.arch_id, params, attn_impl="ref")
     out = {}
     for s in SERVE_PROMPTS:
         tokens = _prompt(cfg.vocab_size, s + 1, seed=2)
@@ -773,6 +979,101 @@ def check_serve_routes(model, params) -> dict:
     return out
 
 
+def check_rwkv_routes(model, params) -> dict:
+    """rwkv6-7b at full width and depth, on the served bf16 weights.
+
+    In f32 (the same weights upcast; TF32 off), where rounding cannot
+    hide a fault: at the first prompt the kernel route against the plain
+    route (`wkv_impl="ref"`), logits and WKV state, within
+    RWKV_F32_ROUTE_BAR of the largest magnitude; at each prompt length
+    prefill(S) + one decode step against prefill(S + 1) within
+    RWKV_F32_DECODE_BAR, through the kernel route and, at the first
+    prompt, through the plain route too (the same amplified rounding
+    whichever route runs the recurrence).
+
+    In bf16, the served model: logits finite, and each route held to the
+    f32 model rather than to the other route. Through 32 recurrent layers
+    a one-ulp flip in one route grows into logit differences of several
+    per cent (9 % of the largest logit on an H100), so the two bf16
+    routes are not held to each other; the kernel route must instead lie
+    no further than RWKV_BF16_RATIO times as far from the f32 logits as
+    the plain route does, and prefill(S) + decode no further than that
+    from the f32 prefill(S + 1) than the bf16 prefill(S + 1) does."""
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    cfg = model.cfg
+    cfg32 = cfg.with_(dtype="float32")
+    params32 = _tree_map(lambda x: x.float(), params)
+    f32 = {impl: build_model(cfg32, wkv_impl=impl) for impl in ("auto", "ref")}
+    plain = build_model(cfg, wkv_impl="ref")
+    out = {}
+    for i, s in enumerate(SERVE_PROMPTS):
+        tokens = _prompt(cfg.vocab_size, s + 1, seed=2)
+        head, nxt = {"tokens": tokens[:, :s]}, tokens[:, s]
+        row = {}
+        f_logits, f_state = f32["auto"].prefill(params32, head)
+        if i == 0:
+            p_logits, p_state = f32["ref"].prefill(params32, head)
+            row["f32_routes_rel"] = _rel_to_max(f_logits, p_logits)
+            row["f32_routes_state_rel"] = _rel_to_max(f_state["wkv"],
+                                                      p_state["wkv"])
+        f_inc, _ = f32["auto"].decode_step(params32, f_state, nxt, s)
+        f_full, _ = f32["auto"].prefill(params32, {"tokens": tokens})
+        row["f32_decode_rel"] = _rel_to_max(f_inc, f_full)
+        if i == 0:
+            p_inc, _ = f32["ref"].decode_step(params32, p_state, nxt, s)
+            p_full, _ = f32["ref"].prefill(params32, {"tokens": tokens})
+            row["f32_plain_decode_rel"] = _rel_to_max(p_inc, p_full)
+        ok = all(v <= (RWKV_F32_DECODE_BAR if "decode" in k
+                       else RWKV_F32_ROUTE_BAR) for k, v in row.items())
+
+        b_logits, b_state = model.prefill(params, head)
+        finite = bool(torch.isfinite(b_logits).all())
+        row["bf16_kernel_vs_f32"] = _rel_to_max(b_logits, f_logits)
+        msg = ""
+        if i == 0:
+            bp_logits, _ = plain.prefill(params, head)
+            row["bf16_plain_vs_f32"] = _rel_to_max(bp_logits, f_logits)
+            row["bf16_routes_rel"] = _rel_to_max(b_logits, bp_logits)
+            ok = ok and row["bf16_kernel_vs_f32"] <= (
+                RWKV_BF16_RATIO * row["bf16_plain_vs_f32"])
+            msg = (f"bf16 kernel route vs f32 {row['bf16_kernel_vs_f32']:.3e}"
+                   f", plain route vs f32 {row['bf16_plain_vs_f32']:.3e} "
+                   f"(bar: at most {RWKV_BF16_RATIO}x), kernel vs plain "
+                   f"{row['bf16_routes_rel']:.3e}; ")
+        b_inc, _ = model.decode_step(params, b_state, nxt, s)
+        b_full, _ = model.prefill(params, {"tokens": tokens})
+        row["bf16_decode_vs_f32"] = _rel_to_max(b_inc, f_full)
+        row["bf16_prefill_vs_f32"] = _rel_to_max(b_full, f_full)
+        row["bf16_decode_rel"] = _rel_to_max(b_inc, b_full)
+        ok = ok and finite and row["bf16_decode_vs_f32"] <= (
+            RWKV_BF16_RATIO * row["bf16_prefill_vs_f32"])
+        log(f"serve {cfg.arch_id} prompt={s}: bf16 logits finite {finite}, "
+            f"max |logit| {f_full.abs().max().item():.4f}; f32: "
+            + ", ".join(f"{k[4:]} {v:.3e}" for k, v in row.items()
+                        if k.startswith("f32_"))
+            + f" (bars: routes {RWKV_F32_ROUTE_BAR}, decode "
+            f"{RWKV_F32_DECODE_BAR}); {msg}bf16 prefill({s})+decode vs "
+            f"f32 {row['bf16_decode_vs_f32']:.3e}, bf16 prefill({s + 1}) vs "
+            f"f32 {row['bf16_prefill_vs_f32']:.3e} (bar: at most "
+            f"{RWKV_BF16_RATIO}x), decode vs prefill "
+            f"{row['bf16_decode_rel']:.3e} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"serve {cfg.arch_id} prompt={s}: route "
+                                 "or decode consistency check failed")
+        out[s] = row
+    del params32
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
 def serve_repro_100m(attn_ops) -> int:
     """repro-100m (f32, 14 layers) at a 2048-token prompt: greedy tokens
     through the kernel route and through the plain route are identical."""
@@ -781,7 +1082,7 @@ def serve_repro_100m(attn_ops) -> int:
     from repro_torch.serving.engine import Engine, ServeConfig
 
     model, params = _serve_model("repro-100m")
-    plain, _ = _serve_model("repro-100m", "ref", params)
+    plain, _ = _serve_model("repro-100m", params, attn_impl="ref")
     tokens = _prompt(model.cfg.vocab_size, SERVE_PROMPTS[-1], seed=3)
     scfg = ServeConfig(max_new_tokens=SERVE_NEW_TOKENS)
     attn_ops.launch_count = 0
@@ -799,12 +1100,13 @@ def serve_repro_100m(attn_ops) -> int:
     return launches
 
 
-def serve_timing(model, params) -> dict:
+def serve_timing(model, params, kernel: str) -> dict:
     """Prefill ms and decode ms per step (host clock around work that ends
     in a synchronize; best of 3 after a warm-up) at each prompt length,
     and a torch.profiler count of one prefill and one decode step
     (launches, host syncs, device busy time, idle share against the
-    profiler-free wall time)."""
+    profiler-free wall time, and the launches and device time of the
+    kernels named `kernel`)."""
     import torch
 
     out = {}
@@ -833,7 +1135,7 @@ def serve_timing(model, params) -> dict:
             return min(times) * 1e3
 
         pre_ms, dec_ms = best(prefill), best(decode)
-        prof = {name: _profile_counts(fn, kernel="flash_attention")
+        prof = {name: _profile_counts(fn, kernel=kernel)
                 for name, fn in (("prefill", prefill), ("decode", decode))}
         row = {"prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
                "decode_tok_per_s": SERVE_BATCH / dec_ms * 1e3}
@@ -843,8 +1145,8 @@ def serve_timing(model, params) -> dict:
             row[name] = {"launches": p["launches"], "syncs": p["syncs"],
                          "memcpy": p["memcpy"], "device_busy_ms": busy,
                          "device_idle_share": 1.0 - busy / wall,
-                         "attention_kernels": p["kernel"],
-                         "attention_device_ms": p["kernel_us"] / 1e3}
+                         f"{kernel}_kernels": p["kernel"],
+                         f"{kernel}_device_ms": p["kernel_us"] / 1e3}
         log(f"serve timing {model.cfg.arch_id} B={SERVE_BATCH} prompt={s}: "
             f"{json.dumps(row)}")
         out[s] = row
@@ -871,6 +1173,7 @@ def main() -> int:
         return 0
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.ota import ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
 
     smi = smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
@@ -900,12 +1203,28 @@ def main() -> int:
     attn_errs = check_attention_vs_plain()
     attn_timings = time_attention(attn_errs)
     olmo, olmo_params = _serve_model("olmo-1b")
-    served = run_serve_main_path(attn_ops, olmo, olmo_params)
+    served = run_serve_main_path(attn_ops, olmo, olmo_params,
+                                 kernel="flash_attention",
+                                 per_generate=olmo.cfg.n_layers)
     routes = check_serve_routes(olmo, olmo_params)
-    serve_times = serve_timing(olmo, olmo_params)
+    serve_times = serve_timing(olmo, olmo_params, "flash_attention")
     del olmo, olmo_params
     torch.cuda.empty_cache()
     repro_launches = serve_repro_100m(attn_ops)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # K3 and the RWKV6 serving path: one launch per layer in the prefill
+    # and in each decode step
+    wkv_errs = check_wkv_vs_plain()
+    wkv_timings = time_wkv(wkv_errs)
+    rwkv, rwkv_params, rwkv_init = build_rwkv()
+    rwkv_served = run_serve_main_path(
+        wkv_ops, rwkv, rwkv_params, kernel="wkv6",
+        per_generate=rwkv.cfg.n_layers * (1 + SERVE_NEW_TOKENS))
+    rwkv_routes = check_rwkv_routes(rwkv, rwkv_params)
+    rwkv_times = serve_timing(rwkv, rwkv_params, "wkv6")
+    del rwkv, rwkv_params
     torch.cuda.synchronize()
 
     primary = timings[0]  # the LARGE shape
@@ -942,7 +1261,27 @@ def main() -> int:
                                        **serve_times[s]}
                               for s in SERVE_PROMPTS}},
     }
-    print(json.dumps({"kernels": [ota_entry, attn_entry]}), flush=True)
+    wkv_primary = wkv_timings[0]  # rwkv6-7b prefill at 2048, bf16
+    wkv_entry = {
+        "name": "wkv6", "route": "cuda", "source": WKV_SOURCE,
+        "replaces": WKV_REPLACES,
+        "launches": sum(r["launches"] for r in rwkv_served.values()),
+        "max_abs_err": max(wkv_errs.values()), "tolerance": "bf16 o atol "
+        f"{WKV_BF16_O_BAR[0]} + rtol {WKV_BF16_O_BAR[1]}, f32 state atol "
+        f"{WKV_STATE_BAR[0]} + rtol {WKV_STATE_BAR[1]} at the slice's "
+        "shapes",
+        "ms": wkv_primary["ms"], "plain_ms": wkv_primary["plain_ms"],
+        "bound_ms": wkv_primary["bound_ms"],
+        "bound_by": wkv_primary["bound_by"], "library_ms": None,
+        "launches_by_run": {f"rwkv6-7b prompt {s}": r["launches"]
+                            for s, r in rwkv_served.items()},
+        "shapes": wkv_timings,
+        "serve": {"rwkv6-7b": {"init": rwkv_init} | {
+            str(s): {**rwkv_served[s], **rwkv_routes[s], **rwkv_times[s]}
+            for s in SERVE_PROMPTS}},
+    }
+    print(json.dumps({"kernels": [ota_entry, attn_entry, wkv_entry]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Architecture registry: `--arch <id>` resolution (port of
 `repro.configs.registry`).
 
-The port knows the dense decoders it serves, olmo-1b and repro-100m.
+The port knows the models it serves: the dense decoders olmo-1b and
+repro-100m, and the RWKV6 model rwkv6-7b.
 Every other architecture of the reference raises `NotImplementedError`
 naming the ROADMAP item that ports it; an unknown id raises `KeyError`,
 as in the reference.
@@ -15,11 +16,11 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "olmo-1b": "olmo_1b",
     "repro-100m": "repro_100m",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 # the reference's other architectures -> the ROADMAP item that ports them
 PENDING = {
-    "rwkv6-7b": "S1",
     "gemma2-9b": "S2",
     "gemma-7b": "S2",
     "minitron-4b": "S2",

@@ -95,7 +95,9 @@ def _counter_bits(k: torch.Tensor, n: int) -> torch.Tensor:
     i = torch.arange(m, dtype=torch.int64, device=k.device)
     x1 = i + m
     if n % 2:
-        x1[-1] = 0
+        # a fill on a one-element slice: `x1[-1] = 0` copies a host scalar
+        # into a 0-d view, which synchronizes with a CUDA device
+        x1[-1:].fill_(0)
     o0, o1 = threefry2x32(k[..., 0:1], k[..., 1:2], i, x1)
     return torch.cat([o0, o1], dim=-1)[..., :n]
 

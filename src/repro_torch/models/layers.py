@@ -47,6 +47,14 @@ def embed_init(gen: torch.Generator, shape,
     return (0.02 * truncated_normal(gen, shape)).to(dtype)
 
 
+def layer_slice(tree, i: int):
+    """Layer `i`'s slice of a tree whose leaves are stacked on dim 0: views,
+    so writes into a sliced cache or state update the stacked tensors."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return None if tree is None else tree[i]
+
+
 # --------------------------------------------------------------------------
 # norms
 # --------------------------------------------------------------------------

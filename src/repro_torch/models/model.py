@@ -1,4 +1,4 @@
-"""Model API for serving (port of the transformer part of
+"""Model API for serving (port of the serving part of
 `repro.models.model`):
 
     model = build_model(cfg)                       # raises outside the slice
@@ -6,13 +6,15 @@
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, cache, token, pos)
 
-Only `kind == "transformer"` (the dense decoder) is ported. The KV cache
-is updated in place: `decode_step` writes into the cache it is given and
-returns that same object.
+Two kinds are ported: "transformer" (the dense decoder) and "rwkv" (the
+RWKV6 model of `family == "ssm"`). The cache — the dense decoder's KV
+cache or RWKV's recurrent state — is updated in place: `decode_step`
+writes into the cache it is given and returns that same object.
 
-`attn_impl` picks prefill attention: 'auto' (the CUDA kernel on the card,
-its plain version on the CPU), 'kernel' or 'ref' (the plain version, on
-any device) — the last lets the card compare the two routes.
+`attn_impl` picks prefill attention and `wkv_impl` the WKV recurrence:
+'auto' (the CUDA kernel on the card, its plain version on the CPU),
+'kernel' or 'ref' (the plain version, on any device) — the last lets the
+card compare the two routes.
 """
 from __future__ import annotations
 
@@ -22,18 +24,19 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rwkv
 from repro_torch.models import transformer as tfm
+
+_IMPLS = ("auto", "kernel", "ref")
 
 
 class Model:
-    """The dense decoder behind the reference's family-dispatching
-    façade; the other families raise naming their ROADMAP item."""
+    """The dense decoder and RWKV6 behind the reference's
+    family-dispatching façade; the other families raise naming their
+    ROADMAP item."""
 
-    def __init__(self, cfg: ModelConfig, attn_impl: str = "auto"):
-        if cfg.family == "ssm":
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the RWKV6 model and its WKV kernel (K3) "
-                "are not ported yet (ROADMAP S1)")
+    def __init__(self, cfg: ModelConfig, attn_impl: str = "auto",
+                 wkv_impl: str = "auto"):
         if cfg.family == "hybrid":
             raise NotImplementedError(
                 f"{cfg.arch_id}: the hymba hybrid model is not ported yet "
@@ -42,12 +45,17 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.arch_id}: encoder-decoder models are not ported yet "
                 "(ROADMAP S7)")
-        if attn_impl not in ("auto", "kernel", "ref"):
-            raise ValueError(f"attn_impl must be 'auto', 'kernel' or 'ref', "
-                             f"got {attn_impl!r}")
-        tfm.check_slice(cfg)
+        for name, impl in (("attn_impl", attn_impl),
+                           ("wkv_impl", wkv_impl)):
+            if impl not in _IMPLS:
+                raise ValueError(f"{name} must be 'auto', 'kernel' or "
+                                 f"'ref', got {impl!r}")
+        self.kind = "rwkv" if cfg.family == "ssm" else "transformer"
+        if self.kind == "transformer":
+            tfm.check_slice(cfg)
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.wkv_impl = wkv_impl
 
     def init_params(self, generator: Optional[torch.Generator] = None, *,
                     device: DeviceLike = None) -> dict:
@@ -57,12 +65,18 @@ class Model:
         if generator is None:
             generator = torch.Generator(
                 device=resolve_device(device)).manual_seed(0)
+        if self.kind == "rwkv":
+            return rwkv.init_params(generator, self.cfg)
         return tfm.init_decoder(generator, self.cfg)
 
     def train_loss_per_example(self, params, batch):
         raise NotImplementedError("training is not ported yet (ROADMAP T1)")
 
     def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
+        """The KV cache of `cache_len` positions, or RWKV's O(1) state
+        (`cache_len` unused)."""
+        if self.kind == "rwkv":
+            return rwkv.init_state(batch, self.cfg, device=device)
         return tfm.init_decoder_cache(batch, cache_len, self.cfg,
                                       device=device)
 
@@ -71,9 +85,16 @@ class Model:
                 max_len: Optional[int] = None) -> tuple:
         """Processes the prompt `batch["tokens"]` (B, S); returns
         (last-position logits (B, V) f32, cache). `max_len` sizes the KV
-        cache beyond the prompt for later decode steps."""
+        cache beyond the prompt for later decode steps (RWKV's state has
+        no length)."""
         tokens = batch["tokens"]
         b, s = tokens.shape
+        if self.kind == "rwkv":
+            h, state = rwkv.forward(
+                params, tokens, self.cfg,
+                rwkv.init_state(b, self.cfg, device=tokens.device),
+                impl=self.wkv_impl)
+            return tfm.logits_fn(params, h[:, -1:], self.cfg)[:, 0], state
         cache = self.init_cache(b, max(max_len or 0, s),
                                 device=tokens.device)
         x = tfm.embed_tokens(params, tokens, self.cfg)
@@ -87,7 +108,12 @@ class Model:
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
                     pos: int) -> tuple:
         """One-token decode: token (B,), `pos` the absolute position (an
-        int). Returns (logits (B, V) f32, the cache, updated in place)."""
+        int; RWKV reads none). Returns (logits (B, V) f32, the cache,
+        updated in place)."""
+        if self.kind == "rwkv":
+            h, cache = rwkv.forward(params, token[:, None], self.cfg, cache,
+                                    impl=self.wkv_impl)
+            return tfm.logits_fn(params, h, self.cfg)[:, 0], cache
         x = tfm.embed_tokens(params, token[:, None], self.cfg)
         h, cache = tfm.decoder_forward(
             params, x, self.cfg,
@@ -97,5 +123,6 @@ class Model:
         return tfm.logits_fn(params, h, self.cfg)[:, 0], cache
 
 
-def build_model(cfg: ModelConfig, attn_impl: str = "auto") -> Model:
-    return Model(cfg, attn_impl=attn_impl)
+def build_model(cfg: ModelConfig, attn_impl: str = "auto",
+                wkv_impl: str = "auto") -> Model:
+    return Model(cfg, attn_impl=attn_impl, wkv_impl=wkv_impl)

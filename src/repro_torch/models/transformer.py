@@ -21,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models.layers import (apply_norm, dtype_of, embed_init,
-                                       norm_param)
+                                       layer_slice, norm_param)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,13 +123,6 @@ def chunked_xent(params: dict, h: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 # sublayer / stack forward
 # ---------------------------------------------------------------------------
-def _layer(tree, i: int):
-    """Layer `i`'s slice of a tree whose leaves are stacked on dim 0."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return None if tree is None else tree[i]
-
-
 def sublayer_apply(x: torch.Tensor, sp: dict, cfg: ModelConfig, *,
                    positions: torch.Tensor, cache: Optional[dict] = None,
                    decode_pos: Optional[int] = None,
@@ -157,10 +150,10 @@ def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         for step in range(seg.n_steps):
             for j, _ in enumerate(seg.subs):
                 x = sublayer_apply(
-                    x, _layer(seg_params[f"sub{j}"], step), cfg,
+                    x, layer_slice(seg_params[f"sub{j}"], step), cfg,
                     positions=positions,
                     cache=None if seg_cache is None
-                    else _layer(seg_cache[f"sub{j}"], step),
+                    else layer_slice(seg_cache[f"sub{j}"], step),
                     decode_pos=decode_pos, impl=impl)
     return apply_norm(x, params.get("final_norm"), cfg), cache
 

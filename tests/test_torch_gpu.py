@@ -6,8 +6,10 @@ CUDA toolkit, and skip without them. Run them on a machine with a card:
 This file imports torch and the port only (no JAX), so with
 `--noconftest` (tests/conftest.py imports JAX) it runs where JAX is not
 installed. Each kernel is held to its plain PyTorch version at the
-reference's bars (`tests/test_kernels.py`): the OTA aggregation (K1) and
-flash attention (K2), the latter also at the serving slice's shapes.
+reference's bars (`tests/test_kernels.py`): the OTA aggregation (K1),
+flash attention (K2) and the WKV6 recurrence (K3), the last two also at
+their serving slices' shapes. The port's threefry is checked to draw an
+odd count without a host-to-device copy.
 """
 import pytest
 
@@ -19,6 +21,8 @@ from repro_torch.kernels.attention.ops import \
 from repro_torch.kernels.ota import ops  # noqa: E402
 from repro_torch.kernels.ota.ops import ota_edge_aggregate  # noqa: E402
 from repro_torch.kernels.ota.ref import ota_edge_aggregate_ref  # noqa: E402
+from repro_torch.kernels.wkv import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.wkv.ops import wkv6  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -145,3 +149,111 @@ def test_attention_kernel_reads_strided_views(cuda):
     dense = multi_head_attention(q.contiguous(), k.contiguous(),
                                  v.contiguous(), **kw)
     assert torch.equal(strided, dense)
+
+
+# ------------------------------------------------------------------ WKV6 (K3)
+
+# the shapes of tests/test_kernels.py's WKV cases (b, h, t, d), all f32
+WKV_TEST_SHAPES = [(2, 2, 128, 64), (1, 4, 100, 32), (2, 1, 64, 64),
+                   (1, 2, 256, 16)]
+
+
+def _wkv_inputs(b, h, t, d, dtype, seed, device, layout="bhtd"):
+    """r, k, v, w in `dtype`, as (B, H, T, D) tensors or, for layout
+    'bthd', as (B, H, T, D) views of (B, T, H, D) memory; u and s0 f32."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
+    r, k, v = (torch.randn(shape, generator=gen, device=device)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(shape, generator=gen,
+                                         device=device)))
+    rkvw = [x.to(dtype) for x in (r, k, v, w)]
+    if layout == "bthd":
+        rkvw = [x.transpose(1, 2) for x in rkvw]
+    u = 0.5 * torch.randn((h, d), generator=gen, device=device)
+    s0 = 0.1 * torch.randn((b, h, d, d), generator=gen, device=device)
+    return (*rkvw, u, s0)
+
+
+def _wkv_pair(r, k, v, w, u, s0):
+    before = wkv_ops.launch_count
+    o, s = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.launch_count == before + 1
+    o_ref, s_ref = wkv6(r, k, v, w, u, s0, impl="ref")
+    return o.float(), s, o_ref.float(), s_ref
+
+
+@pytest.mark.parametrize("b,h,t,d", WKV_TEST_SHAPES)
+def test_wkv_kernel_matches_plain_version(cuda, b, h, t, d):
+    o, s, o_ref, s_ref = _wkv_pair(*_wkv_inputs(b, h, t, d, torch.float32,
+                                                t * d, cuda))
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, s_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("t", [1, 2048])
+def test_wkv_kernel_bf16_at_model_shape(cuda, t):
+    """rwkv6-7b's prefill (T = 2048) and decode (T = 1) shape: B = 4, 64
+    heads of 64, bf16 in and out, f32 state. o rounds to bf16 (the kernel
+    and the plain version round the same f32 sum, summed in another
+    order): atol 2e-2 + rtol 1e-2; the state 1e-4 relative."""
+    o, s, o_ref, s_ref = _wkv_pair(*_wkv_inputs(4, 64, t, 64,
+                                                torch.bfloat16, t, cuda))
+    torch.testing.assert_close(o, o_ref, atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(s, s_ref, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv_kernel_reads_strided_views_and_updates_state_in_place(cuda):
+    """(B, T, H, D) memory seen as (B, H, T, D) gives the bits of
+    contiguous copies; the state written over s0 equals the one written
+    to a new buffer; o comes back as a view of (B, T, H, D) memory; two
+    runs give the same bits; two halves chained equal one pass."""
+    r, k, v, w, u, s0 = _wkv_inputs(2, 4, 70, 64, torch.bfloat16, 3, cuda,
+                                    layout="bthd")
+    assert not r.is_contiguous()
+    o, s = wkv6(r, k, v, w, u, s0)
+    o_dense, s_dense = wkv6(*(x.contiguous() for x in (r, k, v, w)), u, s0)
+    assert torch.equal(o, o_dense) and torch.equal(s, s_dense)
+    assert o.transpose(1, 2).is_contiguous()
+    state = s0.clone()
+    o_in, s_in = wkv6(r, k, v, w, u, state, s_out=state)
+    assert s_in is state
+    assert torch.equal(o_in, o) and torch.equal(s_in, s)
+    o_again, s_again = wkv6(r, k, v, w, u, s0)
+    assert torch.equal(o_again, o) and torch.equal(s_again, s)
+    o1, s1 = wkv6(r[:, :, :35], k[:, :, :35], v[:, :, :35], w[:, :, :35],
+                  u, s0)
+    o2, s2 = wkv6(r[:, :, 35:], k[:, :, 35:], v[:, :, 35:], w[:, :, 35:],
+                  u, s1)
+    assert torch.equal(torch.cat([o1, o2], dim=2), o)
+    assert torch.equal(s2, s)
+
+
+def test_wkv_kernel_without_initial_state(cuda):
+    r, k, v, w, u, _ = _wkv_inputs(1, 2, 33, 32, torch.float32, 4, cuda)
+    o, s, o_ref, s_ref = _wkv_pair(r, k, v, w, u, None)
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, s_ref, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------------- threefry
+
+def test_odd_count_draw_copies_nothing_to_the_card(cuda):
+    """`random_bits` with an odd count fills its pad counter on the card
+    (no host scalar copied into a 0-d view, which would synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import rng
+
+    k = rng.key(torch.arange(4, device=cuda))
+    rng.random_bits(k, (7,))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bits = rng.random_bits(k, (7,))
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert not [n for n in names if "HtoD" in n
+                or n == "cudaStreamSynchronize"], names
+    assert bits.shape == (4, 7)

@@ -35,8 +35,12 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib") or m == "repro"
              or m.startswith("repro."))
-print(len(names), bad)
+print(",".join(names), bad)
 """
+# the RWKV6 slice's modules, which the walk above must reach
+RWKV_MODULES = {"repro_torch.configs.rwkv6_7b", "repro_torch.models.rwkv",
+                "repro_torch.kernels.wkv", "repro_torch.kernels.wkv.kernel",
+                "repro_torch.kernels.wkv.ops", "repro_torch.kernels.wkv.ref"}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -44,8 +48,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    n_modules, loaded = int(out[0]), out[1].strip()
-    assert n_modules >= 30
+    names, loaded = set(out[0].split(",")), out[1].strip()
+    assert len(names) >= 40
+    assert RWKV_MODULES <= names, RWKV_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
@@ -131,6 +136,17 @@ def test_serving_entry_points_without_device_raise_where_cuda_is_absent(
         serve.main(["--new-tokens", "1", "--prompt-len", "2"])
 
 
+def test_rwkv_entry_points_without_device_raise_where_cuda_is_absent(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_config("rwkv6-7b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "rwkv6-7b", "--new-tokens", "1",
+                    "--prompt-len", "2"])
+
+
 @pytest.mark.parametrize("arch", sorted(PENDING))
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {PENDING[arch]}"):
@@ -138,7 +154,6 @@ def test_unported_architectures_raise(arch):
 
 
 OUT_OF_SLICE_CONFIG = [
-    ({"family": "ssm"}, "S1"),
     ({"sliding_window": 16, "layer_pattern": "alt_local_global"}, "S2"),
     ({"attn_softcap": 50.0}, "S2"),
     ({"final_softcap": 30.0}, "S2"),

@@ -87,3 +87,17 @@ def test_batched_keys_equal_single_draws():
     batched = rng.normal(keys, (33,))
     single = torch.stack([rng.normal(keys[i], (33,)) for i in range(6)])
     assert torch.equal(batched, single)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 9, 33, 101, 2, 4, 34, 100])
+def test_odd_and_even_counts_bit_exact(n):
+    """Counts of either parity, batched over keys: an odd count hashes its
+    pad slot on counter 0, written as a fill on a one-element slice."""
+    with jax_original_layout():
+        bits = np.stack([np.asarray(jax.random.bits(_jax_key(s), (n,)))
+                         for s in SEEDS]).astype(np.int64)
+        u = np.stack([np.asarray(jax.random.uniform(_jax_key(s), (n,)))
+                      for s in SEEDS])
+    keys = rng.key(torch.tensor(SEEDS))
+    np.testing.assert_array_equal(rng.random_bits(keys, (n,)).numpy(), bits)
+    np.testing.assert_array_equal(rng.uniform(keys, (n,)).numpy(), u)
