@@ -10,13 +10,16 @@
 // the chunk (with w = 1) and broadcast of u over the batch (ops.py): the
 // loop runs exactly T steps, and each block reads u[head] itself.
 //
-// Bound: operations. Each (t, i, j) takes four f32 instructions -- the k v
-// product, an FMA for the bonus term, an FMA into o and an FMA for the
-// decay, 7 flops -- against five (T, D) rows of r, k, v, w and o per head
-// and one (D, D) state read and written. At the rwkv6-7b prefill
-// (B, H, T, D) = (4, 64, 2048, 64) in bf16 that is 15.0 GFLOP over 344 MB,
-// so the least time is the flops at the H100's f32 rate outside the tensor
-// cores (67 TFLOP/s): 0.22 ms, against 0.10 ms for the bytes. A decode step
+// Bound: operations. The function needs, for each (t, i, j), the k v
+// product, an FMA into o and an FMA for the decay: 5 flops. The bonus term
+// sum_i r_i u_i k_i v_j is v_j times one dot product per step, so it needs
+// 5 flops per (t, i) (the dot product, then one FMA into each o_j), not
+// per (t, i, j); this kernel spends one more FMA per (t, i, j) on it.
+// Against that: five (T, D) rows of r, k, v, w and o per head and one
+// (D, D) state read and written. At the rwkv6-7b prefill (B, H, T, D) =
+// (4, 64, 2048, 64) in bf16 that is 10.9 GFLOP over 344 MB, so the least
+// time is the flops at the H100's f32 rate outside the tensor cores (67
+// TFLOP/s): 0.163 ms, against 0.103 ms for the bytes. A decode step
 // (T = 1) moves only the state and is bound by its bytes (and in practice
 // by the launch).
 //

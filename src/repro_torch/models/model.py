@@ -11,10 +11,10 @@ RWKV6 model of `family == "ssm"`). The cache — the dense decoder's KV
 cache or RWKV's recurrent state — is updated in place: `decode_step`
 writes into the cache it is given and returns that same object.
 
-`attn_impl` picks prefill attention and `wkv_impl` the WKV recurrence:
-'auto' (the CUDA kernel on the card, its plain version on the CPU),
-'kernel' or 'ref' (the plain version, on any device) — the last lets the
-card compare the two routes.
+`impl` picks the route of the kind's own kernel (prefill attention for
+the dense decoder, the WKV recurrence for RWKV): 'auto' (the CUDA kernel
+on the card, its plain version on the CPU), 'kernel' or 'ref' (the plain
+version, on any device) — the last lets the card compare the two routes.
 """
 from __future__ import annotations
 
@@ -35,8 +35,7 @@ class Model:
     family-dispatching façade; the other families raise naming their
     ROADMAP item."""
 
-    def __init__(self, cfg: ModelConfig, attn_impl: str = "auto",
-                 wkv_impl: str = "auto"):
+    def __init__(self, cfg: ModelConfig, impl: str = "auto"):
         if cfg.family == "hybrid":
             raise NotImplementedError(
                 f"{cfg.arch_id}: the hymba hybrid model is not ported yet "
@@ -45,17 +44,14 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.arch_id}: encoder-decoder models are not ported yet "
                 "(ROADMAP S7)")
-        for name, impl in (("attn_impl", attn_impl),
-                           ("wkv_impl", wkv_impl)):
-            if impl not in _IMPLS:
-                raise ValueError(f"{name} must be 'auto', 'kernel' or "
-                                 f"'ref', got {impl!r}")
+        if impl not in _IMPLS:
+            raise ValueError(
+                f"impl must be 'auto', 'kernel' or 'ref', got {impl!r}")
         self.kind = "rwkv" if cfg.family == "ssm" else "transformer"
         if self.kind == "transformer":
             tfm.check_slice(cfg)
         self.cfg = cfg
-        self.attn_impl = attn_impl
-        self.wkv_impl = wkv_impl
+        self.impl = impl
 
     def init_params(self, generator: Optional[torch.Generator] = None, *,
                     device: DeviceLike = None) -> dict:
@@ -93,7 +89,7 @@ class Model:
             h, state = rwkv.forward(
                 params, tokens, self.cfg,
                 rwkv.init_state(b, self.cfg, device=tokens.device),
-                impl=self.wkv_impl)
+                impl=self.impl)
             return tfm.logits_fn(params, h[:, -1:], self.cfg)[:, 0], state
         cache = self.init_cache(b, max(max_len or 0, s),
                                 device=tokens.device)
@@ -101,7 +97,7 @@ class Model:
         h, cache = tfm.decoder_forward(
             params, x, self.cfg,
             positions=torch.arange(s, device=tokens.device), cache=cache,
-            impl=self.attn_impl)
+            impl=self.impl)
         return tfm.logits_fn(params, h[:, -1:], self.cfg)[:, 0], cache
 
     @torch.no_grad()
@@ -112,17 +108,16 @@ class Model:
         updated in place)."""
         if self.kind == "rwkv":
             h, cache = rwkv.forward(params, token[:, None], self.cfg, cache,
-                                    impl=self.wkv_impl)
+                                    impl=self.impl)
             return tfm.logits_fn(params, h, self.cfg)[:, 0], cache
         x = tfm.embed_tokens(params, token[:, None], self.cfg)
         h, cache = tfm.decoder_forward(
             params, x, self.cfg,
             positions=torch.full((1,), pos, device=token.device),
             cache=cache,
-            decode_pos=int(pos), impl=self.attn_impl)
+            decode_pos=int(pos), impl=self.impl)
         return tfm.logits_fn(params, h, self.cfg)[:, 0], cache
 
 
-def build_model(cfg: ModelConfig, attn_impl: str = "auto",
-                wkv_impl: str = "auto") -> Model:
-    return Model(cfg, attn_impl=attn_impl, wkv_impl=wkv_impl)
+def build_model(cfg: ModelConfig, impl: str = "auto") -> Model:
+    return Model(cfg, impl=impl)
