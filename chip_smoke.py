@@ -4,17 +4,19 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-src DIR   # step profile of DIR/src only
 
-Builds the three hand-written CUDA kernels from the checkout's sources
-(one nvcc per source, started together) and holds each against its plain
-PyTorch version on the card at the reference tests' shapes and at every
-shape its main path gives it. Then it drives the port's main paths:
+Builds the hand-written CUDA kernels from the checkout's sources (one
+nvcc per source, all started together: K1, K2's f32 and bf16 kernels, K3)
+and holds each against its plain PyTorch version on the card at the
+reference tests' shapes and at every shape its main path gives it. Then
+it drives the port's main paths:
 
 * the GBMA Monte Carlo engine (`run_mc` -> fig3 rows) through the OTA
   kernel, at the paper's operating point and at the engine's LARGE
   throughput workload, with a step profile of each;
 * serving (`Engine.generate`: prefill, then decode) through the
-  flash-attention kernel: olmo-1b at full width and depth in bf16 at a
-  32- and a 2048-token prompt, and repro-100m in f32 at 2048, with the
+  flash-attention kernels: olmo-1b at full width and depth in bf16 (the
+  Hopper kernel: wgmma fed by TMA) at a 32- and a 2048-token prompt, and
+  repro-100m in f32 (the CUDA-core kernel) at 2048, with the
   kernel route held to the plain route, decode held to prefill, and the
   prefill and a decode step timed and profiled;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
@@ -54,7 +56,10 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores
 REPLACES = "src/repro/kernels/ota/kernel.py:31"  # _ota_kernel
 SOURCE = "src/repro_torch/kernels/ota/csrc/ota_aggregate.cu"
 ATTN_REPLACES = "src/repro/kernels/attention/kernel.py:29"  # _attn_kernel
-ATTN_SOURCE = "src/repro_torch/kernels/attention/csrc/flash_attention.cu"
+# K2 has two kernels: bf16 on the tensor cores (olmo-1b; timed as primary)
+# and f32 on the CUDA cores (repro-100m)
+ATTN_SOURCE = "src/repro_torch/kernels/attention/csrc/flash_attention_sm90.cu"
+ATTN_F32_SOURCE = "src/repro_torch/kernels/attention/csrc/flash_attention.cu"
 WKV_REPLACES = "src/repro/kernels/wkv/kernel.py:30"  # _wkv_kernel
 WKV_SOURCE = "src/repro_torch/kernels/wkv/csrc/wkv6.cu"
 # tests/test_kernels.py's WKV cases (b, h, t, d), all f32
@@ -569,30 +574,76 @@ def step_profile() -> dict:
 # ---------------------------------------------------------------- serving
 def build_kernels() -> dict:
     """Build every CUDA source at once (one nvcc each) and print what
-    ptxas reports (registers, spills) and each attention variant's
-    dynamic shared memory."""
+    ptxas reports (registers, spills), the dynamic shared memory of each
+    attention kernel per head_dim, and the bf16 attention kernel's SASS
+    (`sass_summary`), which it returns."""
+    import torch
+
     from repro_torch.kernels.attention import kernel as attn_kernel
     from repro_torch.kernels.ota import kernel as ota_kernel
     from repro_torch.kernels.wkv import kernel as wkv_kernel
 
-    mods = {"ota_aggregate": ota_kernel, "flash_attention": attn_kernel,
-            "wkv6": wkv_kernel}
+    builds = {"ota_aggregate": (ota_kernel.build, ota_kernel.SOURCE),
+              "flash_attention": (attn_kernel.build, attn_kernel.SOURCE),
+              "flash_attention_sm90": (attn_kernel.build_sm90,
+                                       attn_kernel.SM90_SOURCE),
+              "wkv6": (wkv_kernel.build, wkv_kernel.SOURCE)}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        futs = {name: pool.submit(m.build) for name, m in mods.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        futs = {name: pool.submit(fn) for name, (fn, _) in builds.items()}
         infos = {name: f.result() for name, f in futs.items()}
-    log(f"build: {len(mods)} sources in {time.perf_counter() - t0:.2f} s "
+    log(f"build: {len(builds)} sources in {time.perf_counter() - t0:.2f} s "
         "wall")
     for name, info in infos.items():
-        log(f"build: {mods[name].SOURCE.name} -> {info.path.name} in "
+        log(f"build: {builds[name][1].name} -> {info.path.name} in "
             f"{info.seconds:.2f} s")
         for line in info.log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 log(f"  {line.strip()}")
-    smem = {d: attn_kernel.smem_bytes(d) for d in attn_kernel.HEAD_DIMS}
-    log(f"flash_attention dynamic shared memory per block by head_dim: "
-        f"{smem}")
-    return infos
+    for dtype in (torch.float32, torch.bfloat16):
+        smem = {d: attn_kernel.smem_bytes(d, dtype)
+                for d in attn_kernel.HEAD_DIMS}
+        log(f"flash_attention {dtype} dynamic shared memory per block by "
+            f"head_dim: {smem}")
+    return sass_summary(infos["flash_attention_sm90"].path)
+
+
+def sass_summary(lib) -> dict:
+    """Per kernel instantiation of the bf16 attention library, keyed
+    "d=<head_dim>" and "d=<head_dim> softcap", from its SASS
+    (`cuobjdump -sass`): the HGMMA (wgmma) instructions, the waits on
+    them (WARPGROUP.DEPBAR; one after every HGMMA means ptxas serialized
+    them) and the highest register. Raises if one has no HGMMA; logs and
+    returns None per head_dim where the tool is missing."""
+    import re
+    import shutil
+
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("flash_attention_sm90 SASS: cuobjdump not found, HGMMA count "
+            "skipped")
+        return {f"d={d}": None for d in attn_kernel.HEAD_DIMS}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"flash_attention_sm90_kernelILi(\d+)ELb(\d)E", fn)
+        if m:
+            key = f"d={m.group(1)}" + (" softcap" if m.group(2) == "1"
+                                       else "")
+            out[key] = {
+                "hgmma": len(re.findall(r"\bHGMMA\.", fn)),
+                "hgmma_waits": len(re.findall(r"WARPGROUP\.DEPBAR", fn)),
+                "max_register": max(int(r) for r in
+                                    re.findall(r"\bR(\d+)\b", fn))}
+    log(f"flash_attention_sm90 SASS per kernel: {out}")
+    if len(out) != 2 * len(attn_kernel.HEAD_DIMS) or not all(
+            v["hgmma"] for v in out.values()):
+        raise AssertionError("the bf16 attention kernel has no HGMMA "
+                             "(wgmma) instruction in some instantiation")
+    return out
 
 
 def attention_bound(b, h, s, d, dtype_name) -> tuple:
@@ -619,10 +670,12 @@ def attn_inputs(b, hq, hkv, s, d, dtype, seed):
 
 
 def check_attention_vs_plain() -> dict:
-    """The attention kernel against its plain version on the card: at the
-    reference tests' shapes (f32 atol 5e-5 + rtol 1e-4; bf16 atol 3e-2)
-    and at the serving slice's shapes. Returns the max abs error per
-    slice shape."""
+    """The attention kernels against their plain version on the card: at
+    the reference tests' seven cases in f32 (the CUDA-core kernel; atol
+    5e-5 + rtol 1e-4) and in bf16 (the Hopper kernel; atol 3e-2), at the
+    serving slice's shapes, and (bf16) on (B, S, H, d) views that TMA
+    reads in place, bit for bit against contiguous copies. Returns the
+    max abs error per slice shape."""
     import torch
 
     from repro_torch.kernels.attention.ops import multi_head_attention
@@ -644,11 +697,25 @@ def check_attention_vs_plain() -> dict:
                                  f"plain version at {label}")
         return err.max().item()
 
-    for i, (b, hq, hkv, s, d, kw) in enumerate(ATTN_TEST_SHAPES):
-        q, k, v = attn_inputs(b, hq, hkv, s, d, torch.float32, 100 + i)
-        compare("test shape", q, k, v, kw, 5e-5, 1e-4)
-    q, k, v = attn_inputs(1, 4, 4, 256, 64, torch.bfloat16, 9)
-    compare("test shape", q, k, v, {}, 3e-2, 0.0)
+    bars = {torch.float32: (5e-5, 1e-4), torch.bfloat16: (3e-2, 0.0)}
+    for dtype, (atol, rtol) in bars.items():
+        for i, (b, hq, hkv, s, d, kw) in enumerate(ATTN_TEST_SHAPES):
+            q, k, v = attn_inputs(b, hq, hkv, s, d, dtype, 100 + i)
+            compare("test shape", q, k, v, kw, atol, rtol)
+    # the projections' (B, S, H, d) memory seen as (B, H, S, d)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 100, h, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2) for h in (4, 2, 2))
+    compare("strided views", q, k, v, {"window": 30}, 3e-2, 0.0)
+    kw = {"scale": 0.125, "window": 30, "impl": "kernel"}
+    same = torch.equal(multi_head_attention(q, k, v, **kw),
+                       multi_head_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), **kw))
+    log(f"attention bf16 strided views == contiguous copies: bitwise "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("bf16 attention kernel: strided views differ "
+                             "from contiguous copies")
     errs = {}
     for b, h, s, d, dt in ATTN_SLICE_SHAPES:
         dtype = getattr(torch, dt)
@@ -661,7 +728,10 @@ def check_attention_vs_plain() -> dict:
 
 def time_attention(errs: dict) -> list:
     """Kernel (bare launch and wrapper call), plain version and the SDPA
-    library call at the slice's shapes, beside the bound."""
+    library call at the slice's shapes, in one call, beside the bound and
+    with the kernel's achieved TFLOP/s (the bound's operation count over
+    its time). The kernel K2 had before its bf16 path moved to the tensor
+    cores is not re-run: PERF.md quotes its times."""
     import torch
     import torch.nn.functional as F
 
@@ -685,15 +755,17 @@ def time_attention(errs: dict) -> list:
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale), reps)
         bound, bound_by = attention_bound(b, h, s, d, dt)
+        tflops = 4.0 * b * h * d * (s * (s + 1) // 2) / (ker * 1e-3) / 1e12
         rows.append({"shape": [b, h, s, d], "dtype": dt, "ms": ker,
                      "wrapper_ms": wrapped, "plain_ms": plain,
                      "library_ms": lib, "bound_ms": bound,
-                     "bound_by": bound_by,
+                     "bound_by": bound_by, "tflops": tflops,
                      "max_abs_err": errs[(b, h, s, d, dt)]})
         log(f"attention timing B={b} H={h} S={s} d={d} {dt}: kernel "
             f"{ker:.6f} ms (wrapper call {wrapped:.6f} ms), plain "
             f"{plain:.6f} ms, SDPA {lib:.6f} ms, bound {bound:.6f} ms "
-            f"({bound_by}), kernel at {bound / ker:.1%} of bound")
+            f"({bound_by}), kernel at {bound / ker:.1%} of bound, "
+            f"{tflops:.1f} TFLOP/s, {ker / lib:.2f}x SDPA")
     return rows
 
 
@@ -1186,7 +1258,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    build_kernels()
+    sass = build_kernels()
 
     # K1 and the Monte Carlo path
     errs = check_kernel_vs_plain()
@@ -1252,10 +1324,12 @@ def main() -> int:
     attn_primary = attn_timings[0]  # olmo-1b prefill at 2048, bf16
     attn_entry = {
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": ATTN_REPLACES,
+        "f32_source": ATTN_F32_SOURCE, "replaces": ATTN_REPLACES,
+        "sass": sass,
         "launches": sum(r["launches"] for r in served.values()),
         "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
         "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes",
+        "tflops": attn_primary["tflops"],
         "ms": attn_primary["ms"], "plain_ms": attn_primary["plain_ms"],
         "bound_ms": attn_primary["bound_ms"],
         "bound_by": attn_primary["bound_by"],

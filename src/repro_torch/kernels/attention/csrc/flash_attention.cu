@@ -1,26 +1,28 @@
-// Forward flash attention (online softmax) for NVIDIA Hopper (sm_90a).
+// Forward flash attention (online softmax) in f32 for NVIDIA Hopper (sm_90a).
 //
 //   o[b, h, i] = sum_j softmax_j(mask(cap * tanh(q_i . k_j * scale / cap))) v_j
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/attention/kernel.py::
-// _attn_kernel (pallas_call in flash_attention_kernel) together with the
-// head repeat and sequence padding of its wrapper (ops.py). Same semantics:
-// causal mask q >= k, sliding-window mask q - k < window, optional logit
-// softcap, masked logits set to NEG_INF = -1e30 (not -inf), f32 running max
-// / denominator / accumulator, kv tiles that are masked for the whole
-// q tile skipped, an l == 0 guard, output in the inputs' dtype.
+// Replaces, for f32 inputs, the Pallas TPU kernel src/repro/kernels/
+// attention/kernel.py::_attn_kernel (pallas_call in flash_attention_kernel)
+// together with the head repeat and sequence padding of its wrapper
+// (ops.py); bf16 inputs go to flash_attention_sm90.cu (tensor cores). Same
+// semantics: causal mask q >= k, sliding-window mask q - k < window,
+// optional logit softcap, masked logits set to NEG_INF = -1e30 (not -inf),
+// f32 running max / denominator / accumulator, kv tiles that are masked for
+// the whole q tile skipped, an l == 0 guard, f32 output.
 //
 // Bound: operations. Per (batch, head) the two products take 4 * Sq * Skv * d
 // flops over the live (unmasked) part of the score matrix, against
-// (2 * Skv + 2 * Sq) * d elements moved; at the serving shapes (S = 2048,
-// d = 128) that is ~1000 flops per byte, far above the H100's ~295 flop/byte
-// ridge, so the least time is flops / 989 TFLOP/s (bf16 tensor-core peak).
+// (2 * Skv + 2 * Sq) * d elements moved; at repro-100m's prefill (S = 2048,
+// d = 64) that is ~500 flops per f32 byte, and f32 products must stay off
+// the tensor cores (TF32 cannot meet the f32 bar), so the least time is
+// flops / 67 TFLOP/s (f32 outside the tensor cores).
 //
-// Design (simple and exact first; wgmma and TMA are later work):
+// Design (exact and simple):
 //   * one block of 256 threads per (batch * head, 64-query tile); it walks
 //     the kv tiles of 64 keys in order, keeping Q, K, V and the probability
-//     tile P in dynamic shared memory as f32 (bf16 inputs are widened on
-//     load), so every product is an f32 FMA on the CUDA cores -- no TF32;
+//     tile P in dynamic shared memory, so every product is an f32 FMA on
+//     the CUDA cores -- no TF32;
 //   * thread t owns query rows 4 * (t / 16) .. + 3 and, of each row, the
 //     score columns t % 16 + 16 j and the output columns t % 16 + 16 c; the
 //     16 threads of a row group sit in one half-warp, so the row max and
@@ -37,7 +39,6 @@
 // Shared memory: 4 * (64 * (d + 1) * 2 + 64 * d + 64 * 65) bytes, 213,760
 // at d = 256, above the 48 KB static limit, hence the dynamic-size
 // attribute set before each launch.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -73,15 +74,6 @@ struct Params {
   int window;     // <= 0: none
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1) {
@@ -104,7 +96,7 @@ constexpr int smem_bytes() {
               kBlockQ * kPStride);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const Params p) {
   constexpr int kQStride = D + 1;
@@ -123,19 +115,19 @@ __global__ void __launch_bounds__(kThreads)
   const int h = bh % p.heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k =
-      static_cast<const T*>(p.k) + b * p.k_sb + (h / p.group) * p.k_sh;
-  const T* v =
-      static_cast<const T*>(p.v) + b * p.v_sb + (h / p.group) * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.k_sb + (h / p.group) * p.k_sh;
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.v_sb + (h / p.group) * p.v_sh;
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D;
     const int c = i % D;
     const int qi = q0 + r;
     s_q[r * kQStride + c] =
-        qi < p.sq ? to_f32(q[qi * p.q_ss + c]) : 0.0f;
+        qi < p.sq ? q[qi * p.q_ss + c] : 0.0f;
   }
 
   float m[kRows];
@@ -163,8 +155,8 @@ __global__ void __launch_bounds__(kThreads)
       const int c = i % D;
       const int kj = k0 + r;
       const bool in = kj < p.skv;
-      s_k[r * kQStride + c] = in ? to_f32(k[kj * p.k_ss + c]) : 0.0f;
-      s_v[r * D + c] = in ? to_f32(v[kj * p.v_ss + c]) : 0.0f;
+      s_k[r * kQStride + c] = in ? k[kj * p.k_ss + c] : 0.0f;
+      s_v[r * D + c] = in ? v[kj * p.v_ss + c] : 0.0f;
     }
     __syncthreads();
 
@@ -242,36 +234,35 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + row0 + i;
     if (qi < p.sq) {
       const float inv = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
-      T* orow = o + qi * p.o_ss;
+      float* orow = o + qi * p.o_ss;
 #pragma unroll
       for (int c = 0; c < kOutCols; ++c) {
-        store(orow + lane + c * kLanes, acc[i][c] * inv);
+        orow[lane + c * kLanes] = acc[i][c] * inv;
       }
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(batch) * p.heads,
                   (p.sq + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(p);
+  flash_attention_kernel<D><<<grid, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_dim(const Params& p, int batch, int head_dim,
                  cudaStream_t stream) {
   switch (head_dim) {
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
-    case 256: return launch<T, 256>(p, batch, stream);
+    case 32: return launch<32>(p, batch, stream);
+    case 64: return launch<64>(p, batch, stream);
+    case 128: return launch<128>(p, batch, stream);
+    case 256: return launch<256>(p, batch, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -279,8 +270,8 @@ int dispatch_dim(const Params& p, int batch, int head_dim,
 }  // namespace
 
 // q: (batch, heads, sq, head_dim), k and v: (batch, heads / group, skv,
-// head_dim), o: like q; all f32 (bf16 = 0) or all bf16 (bf16 = 1), on the
-// current device, with unit stride along head_dim and the element strides
+// head_dim), o: like q; all f32 on the current device, with unit stride
+// along head_dim and the element strides
 // `strides` = {q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s}.
 // softcap <= 0 and window <= 0 mean none. Returns a CUDA error code (0 on
 // success): cudaFuncSetAttribute's or cudaGetLastError() after the launch.
@@ -288,8 +279,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, const int64_t* strides, int batch,
                                int heads, int group, int sq, int skv,
                                int head_dim, float scale, float softcap,
-                               int causal, int window, int bf16,
-                               void* stream) {
+                               int causal, int window, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -315,9 +305,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.softcap = softcap;
   p.causal = causal;
   p.window = window;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return dispatch_dim<__nv_bfloat16>(p, batch, head_dim, s);
-  return dispatch_dim<float>(p, batch, head_dim, s);
+  return dispatch_dim(p, batch, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory per block for a head_dim (0 if unsupported).

@@ -1,11 +1,17 @@
-"""Launcher for the hand-written CUDA flash-attention kernel.
+"""Launchers for the hand-written CUDA flash-attention kernels.
 
-The kernel (`csrc/flash_attention.cu`) replaces the Pallas TPU kernel
-`repro.kernels.attention.kernel._attn_kernel`; its source note gives the
-bound and the design. This module builds it at first use
-(`kernels._build`), binds its C interface with `ctypes`, and launches it
-on PyTorch's current stream. Validation and the launch count live in
-`ops.py`.
+Two kernels replace the Pallas TPU kernel
+`repro.kernels.attention.kernel._attn_kernel`, one per input dtype; each
+source note gives the bound and the design:
+
+* bf16: `csrc/flash_attention_sm90.cu`, both products on the tensor cores
+  (`wgmma`), K and V streamed by TMA through an mbarrier ring;
+* f32: `csrc/flash_attention.cu`, f32 FMAs on the CUDA cores (TF32 could
+  not hold the f32 bar).
+
+This module builds each at first use (`kernels._build`), binds its C
+interface with `ctypes`, and launches it on PyTorch's current stream.
+Validation and the launch count live in `ops.py`.
 """
 from __future__ import annotations
 
@@ -17,43 +23,50 @@ import torch
 
 from repro_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = _CSRC / "flash_attention.cu"              # f32
 NAME = "flash_attention"
+SM90_SOURCE = _CSRC / "flash_attention_sm90.cu"    # bf16
+SM90_NAME = "flash_attention_sm90"
 HEAD_DIMS = (32, 64, 128, 256)
 
-_fn = None
-_err = None
-_smem = None
+_libs: dict = {}
 
 
 def build() -> _build.BuildInfo:
-    """Compile the kernel (or find an up-to-date build)."""
+    """Compile the f32 kernel (or find an up-to-date build)."""
     return _build.build(SOURCE, NAME)
 
 
-def _bind():
-    global _fn, _err, _smem
-    if _fn is None:
-        lib = _build.load(SOURCE, NAME)
-        fn = lib.flash_attention
+def build_sm90() -> _build.BuildInfo:
+    """Compile the bf16 Hopper kernel (or find an up-to-date build)."""
+    return _build.build(SM90_SOURCE, SM90_NAME)
+
+
+def _bind(bf16: bool):
+    """(launch, error string, shared-memory size) of one kernel's library;
+    the two launch functions take the same arguments."""
+    name = SM90_NAME if bf16 else NAME
+    if name not in _libs:
+        lib = _build.load(SM90_SOURCE if bf16 else SOURCE, name)
+        fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-            + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = lib.flash_attention_error_string
+        err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        smem = lib.flash_attention_smem_bytes
+        smem = getattr(lib, f"{name}_smem_bytes")
         smem.argtypes = [ctypes.c_int]
         smem.restype = ctypes.c_int
-        _fn, _err, _smem = fn, err, smem
-    return _fn
+        _libs[name] = (fn, err, smem)
+    return _libs[name]
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one block at `head_dim` (builds the
-    kernel if needed)."""
-    _bind()
-    return _smem(head_dim)
+def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the `dtype` kernel at
+    `head_dim` (builds the kernel if needed)."""
+    return _bind(dtype == torch.bfloat16)[2](head_dim)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,11 +74,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int], softcap: Optional[float]) -> None:
     """out = attention(q, k, v) on the current stream of q's device.
 
-    Expects validated CUDA tensors of one dtype (f32 or bf16), each
-    (B, H, S, d) with unit stride along d (any other strides): q and out
-    (B, Hq, Sq, d), k and v (B, Hkv, Skv, d), Hq a multiple of Hkv, d in
-    `HEAD_DIMS`. Raises if the launch is refused."""
-    fn = _bind()
+    Expects validated CUDA tensors of one dtype, each (B, H, S, d) with
+    unit stride along d (any other strides): q and out (B, Hq, Sq, d), k
+    and v (B, Hkv, Skv, d), Hq a multiple of Hkv, d in `HEAD_DIMS`. bf16
+    goes to the Hopper kernel, which reads q, k and v by TMA (16-byte
+    aligned bases and strides, checked in `ops.py`); f32 to the CUDA-core
+    kernel. Raises if the launch is refused."""
+    fn, err, _ = _bind(q.dtype == torch.bfloat16)
     batch, heads, sq, head_dim = q.shape
     skv = k.shape[2]
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
@@ -75,8 +90,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   ctypes.addressof(strides), batch, heads,
                   heads // k.shape[1], sq, skv, head_dim, scale,
-                  softcap or 0.0, int(causal), window or 0,
-                  int(q.dtype == torch.bfloat16), stream)
+                  softcap or 0.0, int(causal), window or 0, stream)
     if code != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error "
-                           f"{code} ({_err(code).decode()})")
+        raise RuntimeError(f"flash_attention launch failed: error {code} "
+                           f"({err(code).decode()})")

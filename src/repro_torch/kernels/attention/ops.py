@@ -8,10 +8,14 @@ the kernel to the plain version on the card. `impl="ref"` asks for the
 plain version explicitly on any device.
 
 Unlike the TPU wrapper, nothing is repeated, padded or copied here: the
-kernel reads kv head h // group for GQA, masks ragged sequence lengths
-itself (the non-causal padded-kv case included, which the TPU wrapper
-hands to the oracle), and takes (batch, head, seq) strides, so q, k and v
-may be transposed views of the projections.
+kernels read kv head h // group for GQA, mask ragged sequence lengths
+themselves (the non-causal padded-kv case included, which the TPU wrapper
+hands to the oracle), and take (batch, head, seq) strides, so q, k and v
+may be transposed views of the projections. bf16 goes to the Hopper
+kernel, f32 to the CUDA-core kernel (`kernel.py`); the bf16 kernel loads
+q, k and v by TMA, which needs 16-byte-aligned base addresses and strides
+that are multiples of 16 bytes: other views raise `ValueError`, they are
+not copied.
 
 `launch_count` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
@@ -30,8 +34,8 @@ launch_count = 0
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _launch(q, k, v, *, scale, causal, window, softcap) -> torch.Tensor:
-    global launch_count
+def _validate(q, k, v, *, window, softcap) -> None:
+    """Raise ValueError on what the kernels do not take."""
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"the attention kernel takes f32 or bf16 q, k, v "
@@ -49,6 +53,22 @@ def _launch(q, k, v, *, scale, causal, window, softcap) -> torch.Tensor:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            strides = [st for st, n in zip(t.stride()[:3], t.shape[:3])
+                       if n > 1]
+            if t.data_ptr() % 16 or any(st % 8 for st in strides):
+                raise ValueError(
+                    f"the bf16 attention kernel loads {name} by TMA, which "
+                    "needs a 16-byte-aligned base address and (batch, head, "
+                    "seq) strides that are multiples of 16 bytes; got "
+                    f"address % 16 = {t.data_ptr() % 16}, strides "
+                    f"{tuple(t.stride())}")
+
+
+def _launch(q, k, v, *, scale, causal, window, softcap) -> torch.Tensor:
+    global launch_count
+    _validate(q, k, v, window=window, softcap=softcap)
     b, hq, sq, d = q.shape
     # (B, Sq, Hq, d) memory, so the caller's swap back to (B, S, H·d)
     # for the output projection is a view
@@ -101,6 +121,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if device == "cuda":
         return _launch(q, k, v, scale=scale, causal=causal, window=window,
                        softcap=softcap)
+    _validate(q, k, v, window=window, softcap=softcap)
     raise ValueError(f"impl={impl!r}: the attention kernel runs on CUDA "
                      f"tensors, got a {device} tensor (use impl='ref' for "
                      "the plain version)")

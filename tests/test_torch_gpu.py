@@ -7,9 +7,10 @@ This file imports torch and the port only (no JAX), so with
 `--noconftest` (tests/conftest.py imports JAX) it runs where JAX is not
 installed. Each kernel is held to its plain PyTorch version at the
 reference's bars (`tests/test_kernels.py`): the OTA aggregation (K1),
-flash attention (K2) and the WKV6 recurrence (K3), the last two also at
-their serving slices' shapes. The port's threefry is checked to draw an
-odd count without a host-to-device copy.
+flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
+each at every reference case) and the WKV6 recurrence (K3), the last two
+also at their serving slices' shapes. The port's threefry is checked to
+draw an odd count without a host-to-device copy.
 """
 import pytest
 
@@ -115,11 +116,22 @@ def _attn_pair(q, k, v, kw):
     return out.float(), ref.float()
 
 
+# the reference's bars (tests/test_kernels.py): (atol, rtol) per dtype
+ATTN_BARS = {torch.float32: (5e-5, 1e-4), torch.bfloat16: (3e-2, 0.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hkv,s,d,kw", ATTN_TEST_SHAPES)
-def test_attention_kernel_matches_plain_version(cuda, b, hq, hkv, s, d, kw):
-    q, k, v = _qkv(b, hq, hkv, s, d, torch.float32, s + d, cuda)
+def test_attention_kernel_matches_plain_version(cuda, b, hq, hkv, s, d, kw,
+                                                dtype):
+    """f32 runs on the CUDA-core kernel, bf16 on the Hopper kernel
+    (wgmma, TMA); both at every reference case."""
+    q, k, v = _qkv(b, hq, hkv, s, d, dtype, s + d, cuda)
     out, ref = _attn_pair(q, k, v, kw)
-    torch.testing.assert_close(out, ref, atol=5e-5, rtol=1e-4)
+    print(f"{dtype} {(b, hq, hkv, s, d)} {kw}: max abs error "
+          f"{(out - ref).abs().max().item():.3e}")
+    atol, rtol = ATTN_BARS[dtype]
+    torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
 
 
 def test_attention_kernel_bf16(cuda):
@@ -138,17 +150,28 @@ def test_attention_kernel_at_serving_shapes(cuda, b, hq, hkv, s, d, dtype):
         torch.testing.assert_close(out, ref, atol=3e-2, rtol=0)
 
 
-def test_attention_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_reads_strided_views(cuda, dtype):
     """q, k, v as (B, S, H, d) memory seen as (B, H, S, d) give the same
-    bits as contiguous copies."""
+    bits as contiguous copies (bf16: TMA reads those strides)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (torch.randn((2, 100, h, 64), generator=gen, device=cuda)
-               .transpose(1, 2) for h in (4, 2, 2))
+               .to(dtype).transpose(1, 2) for h in (4, 2, 2))
     kw = {"scale": 0.125, "window": 30}
     strided = multi_head_attention(q, k, v, **kw)
     dense = multi_head_attention(q.contiguous(), k.contiguous(),
                                  v.contiguous(), **kw)
     assert torch.equal(strided, dense)
+
+
+def test_bf16_attention_kernel_refuses_views_tma_cannot_load(cuda):
+    q = torch.zeros((1, 2, 40, 68), dtype=torch.bfloat16,
+                    device=cuda)[..., :64]
+    kv = torch.zeros((1, 2, 40, 64), dtype=torch.bfloat16, device=cuda)
+    before = attn_ops.launch_count
+    with pytest.raises(ValueError, match="TMA"):
+        multi_head_attention(q, kv, kv, scale=0.125)
+    assert attn_ops.launch_count == before
 
 
 # ------------------------------------------------------------------ WKV6 (K3)
