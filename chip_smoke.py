@@ -5,10 +5,13 @@
     python3 chip_smoke.py --profile-src DIR   # step profile of DIR/src only
 
 Builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together: K1, K2's f32 and bf16 kernels, K3)
-and holds each against its plain PyTorch version on the card at the
-reference tests' shapes and at every shape its main path gives it. Then
-it drives the port's main paths:
+nvcc per source, all started together: K1, K2's f32 and bf16 kernels, K3),
+logs ptxas's registers and spills and the attention kernels' SASS (the
+bf16 kernel's HGMMAs; the f32 kernel's FFMA and LDS.128 counts, failing
+on any tensor-core instruction there), and holds each kernel against its
+plain PyTorch version on the card at the reference tests' shapes, at
+every shape its main path gives it and on strided views (f32 also off 16
+bytes, read by its 4-byte copies). Then it drives the port's main paths:
 
 * the GBMA Monte Carlo engine (`run_mc` -> fig3 rows) through the OTA
   kernel, at the paper's operating point and at the engine's LARGE
@@ -18,7 +21,7 @@ it drives the port's main paths:
   Hopper kernel: wgmma fed by TMA) at a 32- and a 2048-token prompt, and
   repro-100m in f32 (the CUDA-core kernel) at 2048, with the
   kernel route held to the plain route, decode held to prefill, and the
-  prefill and a decode step timed and profiled;
+  prefill and a decode step of each model timed and profiled;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
   bf16 at a 32- and a 2048-token prompt, with the same checks (the plain
   route at the 32-token prompt) and the weights' initialization peak.
@@ -572,11 +575,12 @@ def step_profile() -> dict:
 
 
 # ---------------------------------------------------------------- serving
-def build_kernels() -> dict:
+def build_kernels() -> tuple:
     """Build every CUDA source at once (one nvcc each) and print what
     ptxas reports (registers, spills), the dynamic shared memory of each
-    attention kernel per head_dim, and the bf16 attention kernel's SASS
-    (`sass_summary`), which it returns."""
+    attention kernel per head_dim, and the SASS of the bf16
+    (`sass_summary`) and the f32 (`f32_sass_summary`) attention kernels,
+    which it returns."""
     import torch
 
     from repro_torch.kernels.attention import kernel as attn_kernel
@@ -605,7 +609,20 @@ def build_kernels() -> dict:
                 for d in attn_kernel.HEAD_DIMS}
         log(f"flash_attention {dtype} dynamic shared memory per block by "
             f"head_dim: {smem}")
-    return sass_summary(infos["flash_attention_sm90"].path)
+    return (sass_summary(infos["flash_attention_sm90"].path),
+            f32_sass_summary(infos["flash_attention"]))
+
+
+def _sass(lib) -> str:
+    """`cuobjdump -sass` of a built library, or "" where the tool is
+    missing."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return ""
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
 
 
 def sass_summary(lib) -> dict:
@@ -616,17 +633,14 @@ def sass_summary(lib) -> dict:
     them) and the highest register. Raises if one has no HGMMA; logs and
     returns None per head_dim where the tool is missing."""
     import re
-    import shutil
 
     from repro_torch.kernels.attention import kernel as attn_kernel
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    sass = _sass(lib)
+    if not sass:
         log("flash_attention_sm90 SASS: cuobjdump not found, HGMMA count "
             "skipped")
         return {f"d={d}": None for d in attn_kernel.HEAD_DIMS}
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     out = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         m = re.search(r"flash_attention_sm90_kernelILi(\d+)ELb(\d)E", fn)
@@ -643,6 +657,74 @@ def sass_summary(lib) -> dict:
             v["hgmma"] for v in out.values()):
         raise AssertionError("the bf16 attention kernel has no HGMMA "
                              "(wgmma) instruction in some instantiation")
+    return out
+
+
+def f32_sass_summary(info) -> dict:
+    """Per instantiation of the f32 attention library, keyed
+    "d=<head_dim> copy=<16|4>": from its SASS the FFMA count, the 128-bit
+    shared loads (LDS.128) against the narrower ones (LDS, LDS.32,
+    LDS.64) and the highest register; from ptxas (`info.log`) its
+    registers and spill bytes. Raises if any instantiation holds a
+    tensor-core instruction (HMMA, HGMMA): the f32 products must stay on
+    the CUDA cores (TF32 cannot hold the f32 bar). Logs and returns None
+    per instantiation where cuobjdump is missing."""
+    import re
+
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    def key(mangled):
+        m = re.search(r"flash_attention_kernelILi(\d+)E(?:Lb(\d)E)?",
+                      mangled)
+        if not m:
+            return None
+        width = {"1": " copy=16", "0": " copy=4"}.get(m.group(2), "")
+        return f"d={m.group(1)}{width}"
+
+    ptxas = {}
+    name = None
+    for line in info.log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            name = key(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if name and m:
+            ptxas.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            ptxas.setdefault(name, {})["registers"] = int(m.group(1))
+    sass = _sass(info.path)
+    if not sass:
+        log("flash_attention SASS: cuobjdump not found, FFMA and LDS counts "
+            f"skipped; ptxas: {ptxas}")
+        return {f"d={d} copy={w}": None for d in attn_kernel.HEAD_DIMS
+                for w in (16, 4)}
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = key(fn.split("\n", 1)[0])
+        if not name:
+            continue
+        lds = re.findall(r"\bLDS((?:\.[A-Z0-9]+)*)\s", fn)
+        out[name] = {
+            "ffma": len(re.findall(r"\bFFMA\b", fn)),
+            "lds128": sum("128" in x for x in lds),
+            "lds_narrower": sum("128" not in x for x in lds),
+            "tensor_core": len(re.findall(r"\bH(?:G)?MMA\b", fn)),
+            "max_register": max(int(r) for r in
+                                re.findall(r"\bR(\d+)\b", fn)),
+            **ptxas.get(name, {})}
+    log(f"flash_attention (f32) SASS and ptxas per kernel: {out}")
+    if {k.split()[0] for k in out} != {f"d={d}"
+                                       for d in attn_kernel.HEAD_DIMS}:
+        raise AssertionError("the f32 attention library lacks an "
+                             "instantiation")
+    if any(v["tensor_core"] for v in out.values()):
+        raise AssertionError("the f32 attention kernel holds a tensor-core "
+                             "instruction (HMMA/HGMMA): TF32 is barred")
     return out
 
 
@@ -673,12 +755,21 @@ def check_attention_vs_plain() -> dict:
     """The attention kernels against their plain version on the card: at
     the reference tests' seven cases in f32 (the CUDA-core kernel; atol
     5e-5 + rtol 1e-4) and in bf16 (the Hopper kernel; atol 3e-2), at the
-    serving slice's shapes, and (bf16) on (B, S, H, d) views that TMA
-    reads in place, bit for bit against contiguous copies. Returns the
+    serving slice's shapes, and on (B, S, H, d) views read in place, bit
+    for bit against contiguous copies: in both dtypes views of the
+    projections' memory, and in f32 views offset by one float in 68-wide
+    rows, which the f32 kernel reads with its 4-byte copies. Each f32 line
+    names the copy width the check ran (`kernel.copy_bytes`). Returns the
     max abs error per slice shape."""
     import torch
 
+    from repro_torch.kernels.attention import kernel
     from repro_torch.kernels.attention.ops import multi_head_attention
+
+    def route(q, k, v):
+        if q.dtype == torch.bfloat16:
+            return "TMA"
+        return f"{kernel.copy_bytes(q, k, v)}-byte copies"
 
     def compare(label, q, k, v, kw, atol, rtol):
         scale = q.shape[-1] ** -0.5
@@ -689,8 +780,8 @@ def check_attention_vs_plain() -> dict:
         ok = bool(torch.all(torch.isfinite(ker.float()))) and bool(
             torch.all(err <= atol + rtol * ref.float().abs()))
         log(f"attention kernel-vs-plain {label} q{tuple(q.shape)} "
-            f"kv{tuple(k.shape)} {q.dtype} {kw}: max_abs_err="
-            f"{err.max().item():.3e} atol={atol} rtol={rtol} "
+            f"kv{tuple(k.shape)} {q.dtype} ({route(q, k, v)}) {kw}: "
+            f"max_abs_err={err.max().item():.3e} atol={atol} rtol={rtol} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"attention kernel disagrees with its "
@@ -702,20 +793,30 @@ def check_attention_vs_plain() -> dict:
         for i, (b, hq, hkv, s, d, kw) in enumerate(ATTN_TEST_SHAPES):
             q, k, v = attn_inputs(b, hq, hkv, s, d, dtype, 100 + i)
             compare("test shape", q, k, v, kw, atol, rtol)
-    # the projections' (B, S, H, d) memory seen as (B, H, S, d)
+    # the projections' (B, S, H, d) memory seen as (B, H, S, d); in f32
+    # also q, k, v sliced at column 1 of 68-wide rows
     gen = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (torch.randn((2, 100, h, 64), generator=gen, device="cuda")
-               .to(torch.bfloat16).transpose(1, 2) for h in (4, 2, 2))
-    compare("strided views", q, k, v, {"window": 30}, 3e-2, 0.0)
+    views = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        views[f"{dtype} strided views"] = [
+            torch.randn((2, 100, h, 64), generator=gen, device="cuda")
+            .to(dtype).transpose(1, 2) for h in (4, 2, 2)]
+    views["torch.float32 misaligned strided views"] = [
+        torch.randn((2, 100, h, 68), generator=gen, device="cuda")
+        [..., 1:65].transpose(1, 2) for h in (4, 2, 2)]
     kw = {"scale": 0.125, "window": 30, "impl": "kernel"}
-    same = torch.equal(multi_head_attention(q, k, v, **kw),
-                       multi_head_attention(q.contiguous(), k.contiguous(),
-                                            v.contiguous(), **kw))
-    log(f"attention bf16 strided views == contiguous copies: bitwise "
-        f"{'ok' if same else 'FAIL'}")
-    if not same:
-        raise AssertionError("bf16 attention kernel: strided views differ "
-                             "from contiguous copies")
+    for label, (q, k, v) in views.items():
+        compare(label, q, k, v, {"window": 30}, *bars[q.dtype])
+        same = torch.equal(multi_head_attention(q, k, v, **kw),
+                           multi_head_attention(q.contiguous(),
+                                                k.contiguous(),
+                                                v.contiguous(), **kw))
+        log(f"attention {label} ({route(q, k, v)}) == contiguous copies "
+            f"({route(q.contiguous(), k.contiguous(), v.contiguous())}): "
+            f"bitwise {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"attention kernel: {label} differ from "
+                                 "contiguous copies")
     errs = {}
     for b, h, s, d, dt in ATTN_SLICE_SHAPES:
         dtype = getattr(torch, dt)
@@ -730,8 +831,9 @@ def time_attention(errs: dict) -> list:
     """Kernel (bare launch and wrapper call), plain version and the SDPA
     library call at the slice's shapes, in one call, beside the bound and
     with the kernel's achieved TFLOP/s (the bound's operation count over
-    its time). The kernel K2 had before its bf16 path moved to the tensor
-    cores is not re-run: PERF.md quotes its times."""
+    its time). The kernels K2 had before its redesigns (the CUDA-core
+    bf16 kernel, the earlier f32 kernel) are not re-run: PERF.md quotes
+    their times."""
     import torch
     import torch.nn.functional as F
 
@@ -1153,9 +1255,11 @@ def _tree_map(fn, tree):
     return None if tree is None else fn(tree)
 
 
-def serve_repro_100m(attn_ops) -> int:
+def serve_repro_100m(attn_ops) -> tuple:
     """repro-100m (f32, 14 layers) at a 2048-token prompt: greedy tokens
-    through the kernel route and through the plain route are identical."""
+    through the kernel route and through the plain route are identical.
+    Returns the kernel launches of the `generate` and `serve_timing` of
+    its prefill and one decode step."""
     import torch
 
     from repro_torch.serving.engine import Engine, ServeConfig
@@ -1176,10 +1280,13 @@ def serve_repro_100m(attn_ops) -> int:
         f"{same}")
     if launches != model.cfg.n_layers or not same:
         raise AssertionError("repro-100m: launches or greedy tokens differ")
-    return launches
+    del plain
+    return launches, serve_timing(model, params, "flash_attention",
+                                  prompts=SERVE_PROMPTS[-1:])
 
 
-def serve_timing(model, params, kernel: str) -> dict:
+def serve_timing(model, params, kernel: str,
+                 prompts: tuple = SERVE_PROMPTS) -> dict:
     """Prefill ms and decode ms per step (host clock around work that ends
     in a synchronize; best of 3 after a warm-up) at each prompt length,
     and a torch.profiler count of one prefill and one decode step
@@ -1189,7 +1296,7 @@ def serve_timing(model, params, kernel: str) -> dict:
     import torch
 
     out = {}
-    for s in SERVE_PROMPTS:
+    for s in prompts:
         tokens = _prompt(model.cfg.vocab_size, s)
         max_len = s + SERVE_NEW_TOKENS
         tok = tokens[:, -1]
@@ -1258,7 +1365,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    sass = build_kernels()
+    sass, f32_sass = build_kernels()
 
     # K1 and the Monte Carlo path
     errs = check_kernel_vs_plain()
@@ -1289,7 +1396,7 @@ def main() -> int:
     serve_times = serve_timing(olmo, olmo_params, "flash_attention")
     del olmo, olmo_params
     torch.cuda.empty_cache()
-    repro_launches = serve_repro_100m(attn_ops)
+    repro_launches, repro_times = serve_repro_100m(attn_ops)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1322,6 +1429,7 @@ def main() -> int:
         "shapes": timings, "step_profile": prof,
     }
     attn_primary = attn_timings[0]  # olmo-1b prefill at 2048, bf16
+    attn_f32 = next(r for r in attn_timings if r["dtype"] == "float32")
     attn_entry = {
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "f32_source": ATTN_F32_SOURCE, "replaces": ATTN_REPLACES,
@@ -1338,9 +1446,16 @@ def main() -> int:
                             for s, r in served.items()}
         | {"repro-100m prompt 2048 (route check)": repro_launches},
         "shapes": attn_timings,
+        "f32": {"source": ATTN_F32_SOURCE, "launches": repro_launches,
+                "sass": f32_sass,
+                **{key: attn_f32[key] for key in (
+                    "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "tflops", "max_abs_err")}},
         "serve": {"olmo-1b": {str(s): {**served[s], **routes[s],
                                        **serve_times[s]}
-                              for s in SERVE_PROMPTS}},
+                              for s in SERVE_PROMPTS},
+                  "repro-100m": {str(s): row
+                                 for s, row in repro_times.items()}},
     }
     wkv_primary = wkv_timings[0]  # rwkv6-7b prefill at 2048, bf16
     wkv_entry = {

@@ -27,7 +27,7 @@ from repro.kernels.attention.ops import \
 from repro.models import attention as jax_attn  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.kernels.attention import ops  # noqa: E402
+from repro_torch.kernels.attention import kernel, ops  # noqa: E402
 from repro_torch.kernels.attention.ops import \
     multi_head_attention  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -82,45 +82,47 @@ def _bf16(a):
     return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
 
 
-def _sm90_numerics(q, k, v, *, scale, causal=True, window=None,
-                   softcap=None, round_p=True):
-    """The arithmetic of the bf16 Hopper kernel (`csrc/
-    flash_attention_sm90.cu`) in PyTorch on the CPU: 128-query tiles, kv
-    tiles of 128 keys (64 at d = 256) with its causal break and window
-    skip, the online softmax in f32 on logits in their own units (q·k, or
-    the capped logit; masked ones NEG_INF) with exp2 of x·c − m·c, c =
-    scale·log2 e (log2 e under a softcap), and c taken as 0 in a row that
-    holds NEG_INF alone, the row sum over the unrounded P, P rounded to
-    bf16 before the PV product (`round_p`), the output divided by l
-    (l == 0 guard) and rounded to bf16. Products are f32 sums of exact
-    bf16 products, as wgmma's are (in another order); the kernel fuses
-    x·c − m·c into one FMA."""
+def _tiled_numerics(q, k, v, *, scale, bq, bk, causal, window, softcap,
+                    round_p, d_chunk=None):
+    """The arithmetic the flash-attention kernels share, in PyTorch on the
+    CPU, in f32: q tiles of `bq` queries against kv tiles of `bk` keys with
+    the causal break and the window skip, the online softmax on logits in
+    their own units (q·k, or the capped logit; masked ones NEG_INF) with
+    exp2 of x·c − m·c, c = scale·log2 e (log2 e under a softcap), and c
+    taken as 0 in a row that holds NEG_INF alone, the row sum over the
+    unrounded P, P rounded to bf16 before the PV product (`round_p`), the
+    output divided by l (l == 0 guard). QKᵀ sums d in one product, or
+    (`d_chunk`) in chunks of that many columns added one after another.
+    The kernels fuse x·c − m·c into one FMA."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
-    bk = 64 if d == 256 else 128
     c = 1.4426950408889634 * (1.0 if softcap else scale)
     qf = q.float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     out = torch.empty_like(qf)
     n_tiles = -(-skv // bk)
-    for q0 in range(0, sq, 128):
-        rows = torch.arange(q0, q0 + 128)[:, None]
-        qt = torch.zeros((b, hq, 128, d))
-        qt[:, :, :min(128, sq - q0)] = qf[:, :, q0:q0 + 128]
-        t_end = min(n_tiles, (q0 + 127) // bk + 1) if causal else n_tiles
+    chunks = [(0, d)] if d_chunk is None else [
+        (i, i + d_chunk) for i in range(0, d, d_chunk)]
+    for q0 in range(0, sq, bq):
+        rows = torch.arange(q0, q0 + bq)[:, None]
+        qt = torch.zeros((b, hq, bq, d))
+        qt[:, :, :min(bq, sq - q0)] = qf[:, :, q0:q0 + bq]
+        t_end = min(n_tiles, (q0 + bq - 1) // bk + 1) if causal else n_tiles
         x0 = q0 - (window or 0) - bk + 1
         t_begin = x0 // bk + 1 if window and x0 >= 0 else 0
-        m = torch.full((b, hq, 128), -1e30)
-        l = torch.zeros((b, hq, 128))
-        o = torch.zeros((b, hq, 128, d))
+        m = torch.full((b, hq, bq), -1e30)
+        l = torch.zeros((b, hq, bq))
+        o = torch.zeros((b, hq, bq, d))
         for t in range(t_begin, t_end):
             k0 = t * bk
             kt, vt = (torch.zeros((b, hq, bk, d)) for _ in range(2))
             kt[:, :, :min(bk, skv - k0)] = kf[:, :, k0:k0 + bk]
             vt[:, :, :min(bk, skv - k0)] = vf[:, :, k0:k0 + bk]
-            x = qt @ kt.transpose(-1, -2)
+            x = torch.zeros((b, hq, bq, bk))
+            for lo, hi in chunks:
+                x = x + qt[..., lo:hi] @ kt[..., lo:hi].transpose(-1, -2)
             if softcap:
                 x = softcap * torch.tanh(x * scale / softcap)
             cols = torch.arange(k0, k0 + bk)[None, :]
@@ -140,8 +142,34 @@ def _sm90_numerics(q, k, v, *, scale, causal=True, window=None,
             o = o * alpha[..., None] + p @ vt
             m = m_new
         l = torch.where(l == 0, 1.0, l)
-        out[:, :, q0:q0 + 128] = (o / l[..., None])[:, :, :sq - q0]
-    return out.bfloat16()
+        out[:, :, q0:q0 + bq] = (o / l[..., None])[:, :, :sq - q0]
+    return out
+
+
+def _sm90_numerics(q, k, v, *, scale, causal=True, window=None,
+                   softcap=None, round_p=True):
+    """The arithmetic of the bf16 Hopper kernel (`csrc/
+    flash_attention_sm90.cu`): `_tiled_numerics` at its 128-query tiles
+    and kv tiles of 128 keys (64 at d = 256), P rounded to bf16 before PV
+    (`round_p`), the output rounded to bf16. Products are f32 sums of
+    exact bf16 products, as wgmma's are (in another order)."""
+    bk = 64 if q.shape[-1] == 256 else 128
+    return _tiled_numerics(q, k, v, scale=scale, bq=128, bk=bk,
+                           causal=causal, window=window, softcap=softcap,
+                           round_p=round_p).bfloat16()
+
+
+def _f32_numerics(q, k, v, *, scale, causal=True, window=None,
+                  softcap=None):
+    """The arithmetic of the f32 CUDA-core kernel (`csrc/
+    flash_attention.cu`): `_tiled_numerics` at its q tiles of 128 queries
+    (64 at d > 64) and kv tiles of 64 keys (32 at d = 256), QKᵀ summed
+    over d in chunks of 4 (the kernel's float4 steps), P kept in f32."""
+    d = q.shape[-1]
+    return _tiled_numerics(q, k, v, scale=scale, bq=128 if d <= 64 else 64,
+                           bk=32 if d == 256 else 64, causal=causal,
+                           window=window, softcap=softcap, round_p=False,
+                           d_chunk=4)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,kw", F32_CASES)
@@ -168,6 +196,50 @@ def test_bf16_kernel_numerics_hold_the_bar(b, hq, hkv, s, d, kw):
     print(f"bf16 kernel numerics vs plain, max abs error: P rounded "
           f"{errs[True]:.3e}, P in f32 {errs[False]:.3e} (bar 3e-2)")
     assert errs[True] <= 3e-2 and errs[False] <= 3e-2
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", F32_CASES)
+def test_f32_kernel_numerics_hold_the_bar(b, hq, hkv, s, d, kw):
+    """The rounding budget of the f32 CUDA-core kernel, before the card:
+    its numerics (`_f32_numerics`: its q and kv tiles, d summed in chunks
+    of 4, exp2 with the scale folded in, the online rescaling per kv tile,
+    the l == 0 guard) against the plain version at the reference's f32 bar
+    (atol 5e-5 + rtol 1e-4) over the seven reference cases. The margin is
+    how many times the error fits under the bar at the tightest
+    element."""
+    kw = {"causal": True, **kw}
+    q, k, v = (torch.from_numpy(_normal((b, h, s, d), 30 + i))
+               for i, h in enumerate((hq, hkv, hkv)))
+    plain = multi_head_attention(q, k, v, scale=d ** -0.5, impl="ref", **kw)
+    emu = _f32_numerics(q, k, v, scale=d ** -0.5, **kw)
+    assert emu.dtype == torch.float32
+    err = (emu - plain).abs()
+    bar = 5e-5 + 1e-4 * plain.abs()
+    margin = (bar / err.clamp_min(1e-30)).min().item()
+    print(f"f32 kernel numerics vs plain, max abs error "
+          f"{err.max().item():.3e}, margin to the bar {margin:.1f}x")
+    assert torch.all(err <= bar)
+
+
+def test_f32_kernel_copy_width_follows_the_view():
+    """The f32 kernel stages q, k, v with 16-byte copies where every base
+    address is 16-byte aligned and every (batch, head, seq) stride of a
+    dimension longer than 1 is a multiple of 4 floats, else with the
+    4-byte copies of the same kernel (`kernel.copy_bytes`): a (B, S, H, d)
+    view takes 16, the same view offset by one float, or sliced from
+    68-wide rows at column 1, takes 4, and one such tensor sets the width
+    of the launch."""
+    aligned = torch.zeros((2, 100, 4, 64)).transpose(1, 2)
+    offset = torch.zeros(2 * 100 * 4 * 64 + 1)[1:].view(2, 100, 4, 64)
+    sliced = torch.zeros((2, 100, 4, 68))[..., 1:65]
+    odd_stride_len1 = torch.zeros((1, 4, 100, 64)).as_strided(
+        (1, 4, 100, 64), (3, 6400, 64, 1))
+    assert aligned.data_ptr() % 16 == 0
+    assert kernel.copy_bytes(aligned) == 16
+    assert kernel.copy_bytes(odd_stride_len1) == 16
+    assert kernel.copy_bytes(offset.transpose(1, 2)) == 4
+    assert kernel.copy_bytes(sliced.transpose(1, 2)) == 4
+    assert kernel.copy_bytes(aligned, aligned, sliced.transpose(1, 2)) == 4
 
 
 @pytest.mark.parametrize("fault", ["base", "stride"])

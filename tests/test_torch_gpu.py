@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.attention.ops import \
     multi_head_attention  # noqa: E402
@@ -150,13 +151,21 @@ def test_attention_kernel_at_serving_shapes(cuda, b, hq, hkv, s, d, dtype):
         torch.testing.assert_close(out, ref, atol=3e-2, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_kernel_reads_strided_views(cuda, dtype):
+@pytest.mark.parametrize("dtype,row,col", [(torch.float32, 64, 0),
+                                           (torch.bfloat16, 64, 0),
+                                           (torch.float32, 68, 1)])
+def test_attention_kernel_reads_strided_views(cuda, dtype, row, col):
     """q, k, v as (B, S, H, d) memory seen as (B, H, S, d) give the same
-    bits as contiguous copies (bf16: TMA reads those strides)."""
+    bits as contiguous copies (bf16: TMA reads those strides). In f32 the
+    views are also sliced at column 1 of 68-wide rows, off 16 bytes: the
+    f32 kernel reads them with its 4-byte copies, contiguous copies with
+    its 16-byte ones."""
     gen = torch.Generator(device=cuda).manual_seed(5)
-    q, k, v = (torch.randn((2, 100, h, 64), generator=gen, device=cuda)
-               .to(dtype).transpose(1, 2) for h in (4, 2, 2))
+    q, k, v = (torch.randn((2, 100, h, row), generator=gen, device=cuda)
+               .to(dtype)[..., col:col + 64].transpose(1, 2)
+               for h in (4, 2, 2))
+    if dtype == torch.float32:
+        assert attn_kernel.copy_bytes(q, k, v) == (4 if col else 16)
     kw = {"scale": 0.125, "window": 30}
     strided = multi_head_attention(q, k, v, **kw)
     dense = multi_head_attention(q.contiguous(), k.contiguous(),
