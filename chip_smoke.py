@@ -6,12 +6,14 @@
 
 Builds the hand-written CUDA kernels from the checkout's sources (one
 nvcc per source, all started together: K1, K2's f32 and bf16 kernels, K3),
-logs ptxas's registers and spills and the attention kernels' SASS (the
+logs ptxas's registers and spills, the attention kernels' SASS (the
 bf16 kernel's HGMMAs; the f32 kernel's FFMA and LDS.128 counts, failing
-on any tensor-core instruction there), and holds each kernel against its
-plain PyTorch version on the card at the reference tests' shapes, at
-every shape its main path gives it and on strided views (f32 also off 16
-bytes, read by its 4-byte copies). Then it drives the port's main paths:
+on any tensor-core instruction there) and K3's shared memory, and holds
+each kernel against its plain PyTorch version on the card at the
+reference tests' shapes, at every shape its main path gives it and on
+strided views (f32 attention and K3 also off 16 bytes, read by their
+narrower copies; K3 also at lengths off its 32-step chunk). Then it
+drives the port's main paths:
 
 * the GBMA Monte Carlo engine (`run_mc` -> fig3 rows) through the OTA
   kernel, at the paper's operating point and at the engine's LARGE
@@ -71,6 +73,9 @@ WKV_TEST_SHAPES = ((2, 2, 128, 64), (1, 4, 100, 32), (2, 1, 64, 64),
 # rwkv6-7b's shapes on the serving path (B, heads, T, head_dim): the prefill
 # of the 2048-token prompt (timed as primary) and a decode step
 WKV_SLICE_SHAPES = ((4, 64, 2048, 64), (4, 64, 1, 64))
+# lengths off the kernel's 32-step chunk: a lone step, one step short of a
+# chunk, one past, and one short of the prefill
+WKV_RAGGED_T = (1, 31, 33, 2047)
 # the kernel against its plain version in bf16: o rounds the same f32 sum
 # (taken in another order) to bf16, so 1-ulp flips (2^-8 relative) pass
 # within atol 2e-2 + rtol 1e-2; the f32 state within 1e-4 relative
@@ -578,8 +583,9 @@ def step_profile() -> dict:
 def build_kernels() -> tuple:
     """Build every CUDA source at once (one nvcc each) and print what
     ptxas reports (registers, spills), the dynamic shared memory of each
-    attention kernel per head_dim, and the SASS of the bf16
-    (`sass_summary`) and the f32 (`f32_sass_summary`) attention kernels,
+    attention kernel per head_dim, the SASS of the bf16 (`sass_summary`)
+    and the f32 (`f32_sass_summary`) attention kernels and the WKV
+    kernel's registers, spills and shared memory (`wkv_build_summary`),
     which it returns."""
     import torch
 
@@ -610,7 +616,8 @@ def build_kernels() -> tuple:
         log(f"flash_attention {dtype} dynamic shared memory per block by "
             f"head_dim: {smem}")
     return (sass_summary(infos["flash_attention_sm90"].path),
-            f32_sass_summary(infos["flash_attention"]))
+            f32_sass_summary(infos["flash_attention"]),
+            wkv_build_summary(infos["wkv6"]))
 
 
 def _sass(lib) -> str:
@@ -660,6 +667,62 @@ def sass_summary(lib) -> dict:
     return out
 
 
+def ptxas_by_kernel(log: str, key) -> dict:
+    """Registers and spill bytes per kernel from `ptxas -v` output, keyed
+    by `key(mangled name)` (kernels it maps to None are left out)."""
+    import re
+
+    out = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            name = key(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if name and m:
+            out.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def wkv_build_summary(info) -> dict:
+    """Per instantiation of the WKV library, keyed "<dtype> d=<head_dim>
+    copy=<16|element>": ptxas's registers and spill bytes and the block's
+    dynamic shared memory. Raises if an instantiation is missing."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels.wkv import kernel as wkv_kernel
+
+    def key(mangled):
+        m = re.search(r"wkv6_kernelI(13__nv_bfloat16|f)Li(\d+)ELb(\d)E",
+                      mangled)
+        if not m:
+            return None
+        dtype = "bf16" if m.group(1) != "f" else "f32"
+        copy = "16" if m.group(3) == "1" else "element"
+        return f"{dtype} d={m.group(2)} copy={copy}"
+
+    out = ptxas_by_kernel(info.log, key)
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for d in wkv_kernel.HEAD_DIMS:
+            smem = wkv_kernel.smem_bytes(d, dtype)
+            for copy in ("16", "element"):
+                out.setdefault(f"{name} d={d} copy={copy}", {})[
+                    "smem_bytes"] = smem
+    log(f"wkv6 ptxas and shared memory per kernel: {out}")
+    if info.log and not all("registers" in v for v in out.values()):
+        raise AssertionError("the WKV library lacks an instantiation")
+    return out
+
+
 def f32_sass_summary(info) -> dict:
     """Per instantiation of the f32 attention library, keyed
     "d=<head_dim> copy=<16|4>": from its SASS the FFMA count, the 128-bit
@@ -681,22 +744,7 @@ def f32_sass_summary(info) -> dict:
         width = {"1": " copy=16", "0": " copy=4"}.get(m.group(2), "")
         return f"d={m.group(1)}{width}"
 
-    ptxas = {}
-    name = None
-    for line in info.log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([\w$]+)", line)
-        if m:
-            name = key(m.group(1))
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if name and m:
-            ptxas.setdefault(name, {}).update(
-                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if name and m:
-            ptxas.setdefault(name, {})["registers"] = int(m.group(1))
+    ptxas = ptxas_by_kernel(info.log, key)
     sass = _sass(info.path)
     if not sass:
         log("flash_attention SASS: cuobjdump not found, FFMA and LDS counts "
@@ -910,14 +958,18 @@ def wkv_inputs(b, h, t, d, dtype, seed, layout="bhtd"):
 def check_wkv_vs_plain() -> dict:
     """The WKV kernel against its plain version on the card: at the
     reference tests' shapes in f32 (o and state atol 1e-4 + rtol 1e-4),
-    and at rwkv6-7b's prefill and decode shapes in bf16 with f32 state
+    at rwkv6-7b's prefill and decode shapes in bf16 with f32 state
     (WKV_BF16_O_BAR, WKV_STATE_BAR), as the model hands them over
-    ((B, T, H, D) views). Also: two halves chained through the state equal
-    one pass, the state written over s0 equals the state written to a new
-    buffer, and strided views equal contiguous copies, bit for bit.
-    Returns the max abs error of o per slice shape."""
+    ((B, T, H, D) views), and at the lengths WKV_RAGGED_T off the
+    kernel's chunk (f32 at every head_dim, bf16 at the model's widths).
+    Also: two halves chained through the state equal one pass, the state
+    written over s0 equals the state written to a new buffer, and strided
+    views equal contiguous copies, bit for bit, both views the kernel
+    stages by 16-byte copies and views off 16 bytes, which it stages by
+    element copies. Returns the max abs error of o per slice shape."""
     import torch
 
+    from repro_torch.kernels.wkv import kernel
     from repro_torch.kernels.wkv.ops import wkv6
 
     def compare(label, args, o_bar, s_bar):
@@ -944,6 +996,14 @@ def check_wkv_vs_plain() -> dict:
     for i, (b, h, t, d) in enumerate(WKV_TEST_SHAPES):
         compare("test shape", wkv_inputs(b, h, t, d, torch.float32, 200 + i),
                 (1e-4, 1e-4), (1e-4, 1e-4))
+    for t in WKV_RAGGED_T:
+        for i, d in enumerate(kernel.HEAD_DIMS):
+            compare("ragged length", wkv_inputs(2, 4, t, d, torch.float32,
+                                                500 + t + i),
+                    (1e-4, 1e-4), (1e-4, 1e-4))
+        compare("ragged length", wkv_inputs(4, 64, t, 64, torch.bfloat16,
+                                            600 + t, layout="bthd"),
+                WKV_BF16_O_BAR, WKV_STATE_BAR)
     errs = {}
     for b, h, t, d in WKV_SLICE_SHAPES:
         args = wkv_inputs(b, h, t, d, torch.bfloat16, 300 + t,
@@ -965,17 +1025,37 @@ def check_wkv_vs_plain() -> dict:
     o_dense, s_dense = wkv6(*(x.contiguous() for x in (r, k, v, w)), u, s0,
                             impl="kernel")
     torch.cuda.synchronize()
+    at = f"at {(b, h, t, d)} bf16"
     checks = {
-        "two halves chained == one pass":
+        f"two halves chained == one pass {at}":
             torch.equal(torch.cat([o1, o2], dim=2), o) and torch.equal(s2, s),
-        "state in place == out of place":
+        f"state in place == out of place {at}":
             s_in is state and torch.equal(o_in, o) and torch.equal(s_in, s),
-        "strided views == contiguous copies":
-            torch.equal(o_dense, o) and torch.equal(s_dense, s),
+        f"strided views == contiguous copies {at}":
+            torch.equal(o_dense, o) and torch.equal(s_dense, s)
+            and kernel.copy_bytes(r, k, v, w) == 16,
     }
+    # (B, T, H, D) memory one element past a 16-byte boundary: staged by
+    # element copies, it must give the bits of 16-byte-staged copies
+    for dtype in (torch.float32, torch.bfloat16):
+        shape = (2, 8, 100, 64)
+        n = math.prod(shape)
+        args = wkv_inputs(*shape, dtype, 700)
+        views = []
+        for x in args[:4]:
+            buf = torch.empty(n + 1, dtype=dtype, device="cuda")
+            views.append(buf[1:].view(2, 100, 8, 64).transpose(1, 2))
+            views[-1].copy_(x)
+        o_off, s_off = wkv6(*views, *args[4:], impl="kernel")
+        o_cont, s_cont = wkv6(*args, impl="kernel")
+        torch.cuda.synchronize()
+        checks[f"views off 16 bytes == contiguous copies at {shape} "
+               f"{str(dtype)[6:]}"] = (
+            kernel.copy_bytes(*views) == views[0].element_size()
+            and kernel.copy_bytes(*args[:4]) == 16
+            and torch.equal(o_off, o_cont) and torch.equal(s_off, s_cont))
     for name, ok in checks.items():
-        log(f"wkv {name} at {(b, h, t, d)} bf16: bitwise "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"wkv {name}: bitwise {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"WKV kernel: {name} failed")
     return errs
@@ -1365,7 +1445,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    sass, f32_sass = build_kernels()
+    sass, f32_sass, wkv_build = build_kernels()
 
     # K1 and the Monte Carlo path
     errs = check_kernel_vs_plain()
@@ -1471,7 +1551,7 @@ def main() -> int:
         "bound_by": wkv_primary["bound_by"], "library_ms": None,
         "launches_by_run": {f"rwkv6-7b prompt {s}": r["launches"]
                             for s, r in rwkv_served.items()},
-        "shapes": wkv_timings,
+        "shapes": wkv_timings, "build": wkv_build,
         "serve": {"rwkv6-7b": {"init": rwkv_init} | {
             str(s): {**rwkv_served[s], **rwkv_routes[s], **rwkv_times[s]}
             for s in SERVE_PROMPTS}},

@@ -8,7 +8,8 @@ one is reused. The library is loaded with `ctypes`; wrappers pass tensor
 pointers and the current stream as `c_void_p`.
 
 Nothing here runs at import time: the CPU tests import every module, and
-a CPU-only installation has no `nvcc`.
+a CPU-only installation has no `nvcc`. `copy_bytes` picks how a kernel
+stages the strided views it is given.
 """
 from __future__ import annotations
 
@@ -81,3 +82,17 @@ def load(source: Path, name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(source, name).path))
             _libs[name] = lib
         return lib
+
+
+def copy_bytes(*tensors) -> int:
+    """How a kernel that stages these (B, H, S, D) views by `cp.async`
+    copies them: 16 (bytes per copy) when every base address is 16-byte
+    aligned and every (batch, head, seq) stride of a dimension longer
+    than 1 spans whole 16 bytes, else the element size (one element per
+    copy). Both widths run the same kernel and give the same bits."""
+    elt = tensors[0].element_size()
+    for t in tensors:
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st * elt % 16 for st in strides):
+            return elt
+    return 16

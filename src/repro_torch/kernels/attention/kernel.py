@@ -33,6 +33,9 @@ SM90_NAME = "flash_attention_sm90"
 HEAD_DIMS = (32, 64, 128, 256)
 
 _libs: dict = {}
+# the f32 kernel's copy width: 16 bytes, or 4 for a view 16-byte copies
+# cannot read
+copy_bytes = _build.copy_bytes
 
 
 def build() -> _build.BuildInfo:
@@ -78,18 +81,6 @@ def smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block of the `dtype` kernel at
     `head_dim` (builds the kernel if needed)."""
     return _bind(dtype == torch.bfloat16)[2](head_dim)
-
-
-def copy_bytes(*tensors: torch.Tensor) -> int:
-    """The f32 kernel's copy width for these (B, H, S, d) views: 16 when
-    every base address is 16-byte aligned and every (batch, head, seq)
-    stride of a dimension longer than 1 is a multiple of 4 elements, else
-    4. Both widths run the same kernel and give the same bits."""
-    for t in tensors:
-        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(st % 4 for st in strides):
-            return 4
-    return 16
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

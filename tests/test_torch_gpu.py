@@ -9,8 +9,9 @@ installed. Each kernel is held to its plain PyTorch version at the
 reference's bars (`tests/test_kernels.py`): the OTA aggregation (K1),
 flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
 each at every reference case) and the WKV6 recurrence (K3), the last two
-also at their serving slices' shapes. The port's threefry is checked to
-draw an odd count without a host-to-device copy.
+also at their serving slices' shapes; K3 also at lengths off its chunk,
+on views off 16 bytes and for repeatability. The port's threefry is
+checked to draw an odd count without a host-to-device copy.
 """
 import pytest
 
@@ -23,6 +24,7 @@ from repro_torch.kernels.attention.ops import \
 from repro_torch.kernels.ota import ops  # noqa: E402
 from repro_torch.kernels.ota.ops import ota_edge_aggregate  # noqa: E402
 from repro_torch.kernels.ota.ref import ota_edge_aggregate_ref  # noqa: E402
+from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv.ops import wkv6  # noqa: E402
 
@@ -260,6 +262,48 @@ def test_wkv_kernel_reads_strided_views_and_updates_state_in_place(cuda):
                   u, s1)
     assert torch.equal(torch.cat([o1, o2], dim=2), o)
     assert torch.equal(s2, s)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("t", [1, 31, 33, 2047])
+def test_wkv_kernel_at_lengths_off_the_chunk(cuda, t, d):
+    """Lengths off the kernel's 32-step chunk (a ragged last chunk, or
+    decode's single step) at every head_dim, in f32 at the reference's
+    bar (atol and rtol 1e-4)."""
+    o, s, o_ref, s_ref = _wkv_pair(*_wkv_inputs(2, 4, t, d, torch.float32,
+                                                t + d, cuda, layout="bthd"))
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, s_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_views_off_16_bytes_equal_contiguous_copies(cuda, dtype):
+    """(B, T, H, D) memory one element past a 16-byte boundary cannot be
+    staged by 16-byte copies: the kernel stages it by element copies
+    (`kernel.copy_bytes`) and gives the bits of contiguous copies, which
+    it stages by 16-byte copies."""
+    b, h, t, d = 2, 4, 45, 64
+    args = _wkv_inputs(b, h, t, d, dtype, 11, cuda)
+    views = []
+    for x in args[:4]:
+        buf = torch.empty(b * h * t * d + 1, dtype=dtype, device=cuda)
+        views.append(buf[1:].view(b, t, h, d).transpose(1, 2))
+        views[-1].copy_(x)
+    assert wkv_kernel.copy_bytes(*views) == views[0].element_size()
+    assert wkv_kernel.copy_bytes(*args[:4]) == 16
+    o, s = wkv6(*views, *args[4:])
+    o_dense, s_dense = wkv6(*args)
+    assert torch.equal(o, o_dense) and torch.equal(s, s_dense)
+
+
+def test_wkv_kernel_launches_are_repeatable(cuda):
+    """Two identical launches at rwkv6-7b's prefill widths give the same
+    bits: no atomics, no order that changes from run to run."""
+    args = _wkv_inputs(4, 64, 300, 64, torch.bfloat16, 12, cuda,
+                       layout="bthd")
+    o1, s1 = wkv6(*args)
+    o2, s2 = wkv6(*args)
+    assert torch.equal(o1, o2) and torch.equal(s1, s2)
 
 
 def test_wkv_kernel_without_initial_state(cuda):

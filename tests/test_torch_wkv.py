@@ -8,8 +8,10 @@ in interpret mode and against its scan oracle, at the shapes and bar of
 with numpy and handed to both. Also: two halves chained through the
 state equal one pass (atol 1e-5, the reference's bar), the in-place state
 update equals the out-of-place one bit for bit, bf16 inputs give bf16 o
-and an f32 state within bf16 rounding of the reference, and what the
-wrapper refuses.
+and an f32 state within bf16 rounding of the reference, what the
+wrapper refuses, and how the CUDA launcher stages each view
+(`kernel.copy_bytes`, a pure function of strides, base address and
+length).
 """
 import pytest
 
@@ -20,7 +22,7 @@ import ml_dtypes  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels.wkv.ops import wkv6 as jax_wkv6  # noqa: E402
-from repro_torch.kernels.wkv import ops  # noqa: E402
+from repro_torch.kernels.wkv import kernel, ops  # noqa: E402
 from repro_torch.kernels.wkv.ops import wkv6  # noqa: E402
 
 ATOL = RTOL = 1e-4
@@ -137,3 +139,49 @@ def test_wrapper_refuses_bad_arguments():
         wkv6(r, k, v, w, u, s0[:, :1])
     with pytest.raises(ValueError, match="s_out must be"):
         wkv6(r, k, v, w, u, s_out=s0[0])
+
+
+def _view(shape, dtype, offset=0, layout="bthd"):
+    """A (B, H, T, D) view of zeros: of (B, T, H, D) memory (the model's
+    projections) or contiguous, `offset` elements into its buffer."""
+    b, h, t, d = shape
+    buf = torch.zeros(b * h * t * d + offset, dtype=dtype)[offset:]
+    if layout == "bthd":
+        return buf.view(b, t, h, d).transpose(1, 2)
+    return buf.view(b, h, t, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_copy_width_follows_the_view(dtype):
+    """The kernel stages r, k, v, w by 16-byte copies where every base
+    address is 16-byte aligned and every (batch, head, time) stride of a
+    dimension longer than 1 spans whole 16 bytes, else by element copies
+    of the same kernel (the same bits): the model's (B, T, H, D) views and
+    contiguous tensors take 16; a view one element off a 16-byte boundary,
+    or sliced from rows whose stride is not a whole 16 bytes, takes the
+    element size, and one such view sets the width of the launch."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    aligned = _view((2, 4, 100, 64), dtype)
+    assert aligned.data_ptr() % 16 == 0
+    assert kernel.copy_bytes(aligned) == 16
+    assert kernel.copy_bytes(_view((2, 4, 100, 64), dtype,
+                                   layout="bhtd")) == 16
+    offset = _view((2, 4, 100, 64), dtype, offset=1)
+    assert kernel.copy_bytes(offset) == elt
+    sliced = torch.zeros((2, 100, 4, 66), dtype=dtype)[..., :64]
+    assert kernel.copy_bytes(sliced.transpose(1, 2)) == elt
+    assert kernel.copy_bytes(aligned, aligned, offset, aligned) == elt
+
+
+@pytest.mark.parametrize("t,width", [(1, 16), (2, "element")])
+def test_copy_width_ignores_the_stride_of_a_single_step(t, width):
+    """Decode (T = 1) reads one row per head, so the time stride of its
+    view is never used: a time stride that is not a whole 16 bytes keeps
+    16-byte copies at T = 1 and takes element copies at T = 2. So do
+    batch and head strides of length-1 dimensions."""
+    base = torch.zeros(4 * 64 * 3 * 64 + 8)
+    view = base.as_strided((4, 64, t, 64), (64 * 3 * 64, 3 * 64, 33, 1))
+    expect = 16 if width == 16 else view.element_size()
+    assert kernel.copy_bytes(view) == expect
+    one = base.as_strided((1, 1, 8, 64), (3, 5, 64, 1))
+    assert kernel.copy_bytes(one) == 16

@@ -1,12 +1,15 @@
 // Shared-memory cost of 128-bit loads on one card, for the register tiles of
-// src/repro_torch/kernels/attention/csrc/flash_attention.cu.
+// src/repro_torch/kernels/attention/csrc/flash_attention.cu and the row
+// loads of src/repro_torch/kernels/wkv/csrc/wkv6.cu.
 //
 //   mkdir -p build && nvcc -gencode arch=compute_90a,code=sm_90a -O3 \
 //       -o build/lds128_cost tools/lds128_cost.cu && build/lds128_cost
 //
 // Part 1: SM cycles per warp-wide LDS.128 (ld.volatile.shared.v4.f32, so
 // none is merged away) for address patterns named by how many distinct
-// 16-byte addresses each quarter-warp (8 lanes) reads.
+// 16-byte addresses each quarter-warp (8 lanes) reads; then 64- and 32-bit
+// loads (ld.volatile.shared.v2.f32, .f32) with every lane on one address,
+// the broadcast the WKV kernel's row loads make.
 // Part 2: SM cycles per warp per chunk of the kernel's QK^T loop (an 8 x 8
 // register tile, d in chunks of 4: 8 Q and 8 K float4 loads, 256 FFMAs),
 // against the same FFMAs on registers alone and the same loads alone (64
@@ -47,6 +50,8 @@ constexpr const char* kPatterns[] = {
     "8 rows per quarter-warp", "8 float4 of one row per quarter-warp",
     "32 float4 of one row"};
 
+// kWords floats per load: 4 (LDS.128), 2 (LDS.64) or 1 (LDS.32)
+template <int kWords>
 __global__ void __launch_bounds__(kThreads)
     lds_pattern(float* out, int pattern, int iters) {
   extern __shared__ __align__(16) float smem[];
@@ -60,14 +65,24 @@ __global__ void __launch_bounds__(kThreads)
         __cvta_generic_to_shared(base + (it & 3) * 4));
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float4 x;
-      asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
-                   : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-                   : "r"(a));
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kWords == 4) {
+        asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+                     : "r"(a));
+      } else if constexpr (kWords == 2) {
+        asm volatile("ld.volatile.shared.v2.f32 {%0, %1}, [%2];"
+                     : "=f"(x.x), "=f"(x.y)
+                     : "r"(a));
+      } else {
+        asm volatile("ld.volatile.shared.f32 %0, [%1];" : "=f"(x.x) : "r"(a));
+      }
       acc.x += x.x;
-      acc.y += x.y;
-      acc.z += x.z;
-      acc.w += x.w;
+      if constexpr (kWords >= 2) acc.y += x.y;
+      if constexpr (kWords == 4) {
+        acc.z += x.z;
+        acc.w += x.w;
+      }
     }
   }
   out[blockIdx.x * kThreads + threadIdx.x] = acc.x + acc.y + acc.z + acc.w;
@@ -161,7 +176,11 @@ int main() {
     std::printf("lds128_cost: no CUDA device\n");
     return 2;
   }
-  cudaFuncSetAttribute(lds_pattern,
+  cudaFuncSetAttribute(lds_pattern<4>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  cudaFuncSetAttribute(lds_pattern<2>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  cudaFuncSetAttribute(lds_pattern<1>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   cudaFuncSetAttribute(tile_chunk<0>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -173,11 +192,21 @@ int main() {
   const double warp_loads = double(kBlocks) * 4 * iters * 8;
   for (int p = 0; p < 7; ++p) {
     const float ms = time_ms([&] {
-      lds_pattern<<<kBlocks, kThreads, kSmem>>>(out, p, iters);
+      lds_pattern<4><<<kBlocks, kThreads, kSmem>>>(out, p, iters);
     });
     std::printf("LDS.128, %s: %.2f SM cycles per warp load\n", kPatterns[p],
                 ms * kCyclesPerMs / warp_loads);
   }
+  const float ms64 = time_ms([&] {
+    lds_pattern<2><<<kBlocks, kThreads, kSmem>>>(out, 0, iters);
+  });
+  std::printf("LDS.64, %s: %.2f SM cycles per warp load\n", kPatterns[0],
+              ms64 * kCyclesPerMs / warp_loads);
+  const float ms32 = time_ms([&] {
+    lds_pattern<1><<<kBlocks, kThreads, kSmem>>>(out, 0, iters);
+  });
+  std::printf("LDS.32, %s: %.2f SM cycles per warp load\n", kPatterns[0],
+              ms32 * kCyclesPerMs / warp_loads);
   const char* modes[] = {"256 FFMAs on registers", "QK^T chunk (16 LDS.128 "
                          "+ 256 FFMAs)", "its 16 LDS.128 alone"};
   const int chunk_iters = 2000;
