@@ -15,9 +15,14 @@ strided views (f32 attention and K3 also off 16 bytes, read by their
 narrower copies; K3 also at lengths off its 32-step chunk). Then it
 drives the port's main paths:
 
-* the GBMA Monte Carlo engine (`run_mc` -> fig3 rows) through the OTA
-  kernel, at the paper's operating point and at the engine's LARGE
-  throughput workload, with a step profile of each;
+* the GBMA Monte Carlo engine through the OTA kernel (K1, each
+  trajectory divided by its own node count): `run_mc` -> fig3 rows (a
+  padded N sweep and an energy sweep), fig4 (gbma / fdm / centralized
+  rows in one call), fig6 (a padded N sweep), ablations (a), (b), (c)
+  (power control), (e) (momentum / Nesterov rows) and (g)
+  (participation), the engine's LARGE throughput workload and LARGE as
+  a node-count sweep (N in {1024, 2048, 4096}), each route-checked
+  against the plain version on the card, with a step profile of each;
 * serving (`Engine.generate`: prefill, then decode) through the
   flash-attention kernels: olmo-1b at full width and depth in bf16 (the
   Hopper kernel: wgmma fed by TMA) at a 32- and a 2048-token prompt, and
@@ -122,11 +127,29 @@ SERVE_NEW_TOKENS = 32
 # largest logit (f32 routes are held exactly, by their greedy tokens)
 BF16_LOGIT_BAR = 5e-2
 LARGE = {"n": 4096, "dim": 24, "steps": 150, "seeds": 1024}
-FIG3_DIM = 90  # figures.MSDProblem's default width
-# main-path shapes (B trajectories, N nodes, d) the kernel is launched at,
-# LARGE first; kept in step with figures.FIG3 by `main_shapes`
-MAIN_SHAPES = ((1024, 4096, 24), (4, 50, 90), (4, 160, 90), (4, 500, 90),
-               (12, 500, 90))
+# the engine's LARGE workload as a node-count sweep: one padded call, a row
+# per N, 1024 seeds each (B = 3072 trajectories, a 1.2 GB gradient tensor)
+LARGE_SWEEP = {"n_grid": (1024, 2048, 4096), "dim": 24, "steps": 150,
+               "seeds": 1024}
+FIG_DIM = 90  # figures.MSDProblem's default width
+# main-path launches of the OTA kernel: name -> (B trajectories, N_max, d,
+# each row's node count where the rows differ, else None); the rows of a
+# launch hold B / len(counts) seeds each. LARGE first. Kept in step with
+# figures.FIG3 / FIG4 / FIG6 / ABLATIONS by `main_shapes`.
+MAIN_SHAPES = {
+    "large": (1024, 4096, 24, None),
+    "fig3 (a)": (12, 500, 90, (50, 160, 500)),
+    "fig3 (b)": (12, 500, 90, None),
+    "fig4": (4, 800, 90, None),
+    "fig6": (12, 800, 90, (100, 200, 400, 800)),
+    "ablation (a), (g)": (15, 200, 90, None),
+    "ablation (b), (c)": (3, 200, 90, None),
+    "ablation (e)": (9, 200, 90, None),
+    "large sweep": (3072, 4096, 24, (1024, 2048, 4096)),
+}
+# route checks of the ablations (kernel vs plain on the card) take every
+# call of each part at this many steps (the main path runs them in full)
+ABLATION_ROUTE_STEPS = 100
 
 
 def log(msg: str) -> None:
@@ -157,33 +180,62 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def ota_bound(b: int, n: int, d: int, g_bytes: int = 4,
-              out_bytes: int = 4) -> tuple:
+              out_bytes: int = 4, counts: bool = False) -> tuple:
     """(least ms, what bounds it) for one OTA aggregation: each input read
-    once, each output written once; 2 flops per gradient element."""
-    nbytes = b * n * d * g_bytes + 4 * b * n + 4 * b * d + b * d * out_bytes
+    once (the (B,) f32 counts too, when given), each output written once;
+    2 flops per gradient element."""
+    nbytes = b * n * d * g_bytes + 4 * b * n + 4 * b * d \
+        + b * d * out_bytes + (4 * b if counts else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * b * n * d / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main_shapes() -> tuple:
-    """MAIN_SHAPES, checked against the shapes fig3 and LARGE give the
-    kernel: part (a) one row of `seeds` per N, part (b) one row per eps
-    at the largest N."""
-    from repro_torch.figures import FIG3
+def main_shapes() -> dict:
+    """MAIN_SHAPES, checked against the launches the figure twins and
+    LARGE give the kernel: fig3 (a) one padded row of `seeds` per N and
+    (b) one row per eps at the largest N; fig4 the gbma row's group;
+    fig6 one padded row per N; the ablations' calls at N = 200; the LARGE
+    sweep one padded row per N."""
+    from repro_torch.figures import ABLATIONS, FIG3, FIG4, FIG6
 
-    s = FIG3["seeds"]
-    shapes = ((LARGE["seeds"], LARGE["n"], LARGE["dim"]),) + tuple(
-        (s, n, FIG3_DIM) for n in FIG3["n_grid"]) + (
-        (len(FIG3["eps_grid"]) * s, FIG3["n_grid"][-1], FIG3_DIM),)
+    s3, s6, sa = FIG3["seeds"], FIG6["seeds"], ABLATIONS["seeds"]
+    na = ABLATIONS["n"]
+    grid3, grid6 = tuple(FIG3["n_grid"]), tuple(FIG6["n_grid"])
+    sweep = tuple(LARGE_SWEEP["n_grid"])
+    shapes = {
+        "large": (LARGE["seeds"], LARGE["n"], LARGE["dim"], None),
+        "fig3 (a)": (len(grid3) * s3, max(grid3), FIG_DIM, grid3),
+        "fig3 (b)": (len(FIG3["eps_grid"]) * s3, max(grid3), FIG_DIM, None),
+        "fig4": (FIG4["seeds"], FIG4["n"], FIG_DIM, None),
+        "fig6": (len(grid6) * s6, max(grid6), FIG_DIM, grid6),
+        "ablation (a), (g)": (5 * sa, na, FIG_DIM, None),
+        "ablation (b), (c)": (sa, na, FIG_DIM, None),
+        "ablation (e)": (3 * sa, na, FIG_DIM, None),
+        "large sweep": (len(sweep) * LARGE_SWEEP["seeds"], max(sweep),
+                        LARGE_SWEEP["dim"], sweep),
+    }
     if shapes != MAIN_SHAPES:
         raise AssertionError(f"main-path shapes {shapes} != {MAIN_SHAPES}")
     return shapes
 
 
-def ota_inputs(b, n, d, dtype, seed, offset=0.0):
+def trajectory_counts(b: int, n: int, counts):
+    """(B,) f32 node counts on the card: each row's count repeated over
+    its B / rows seeds, or None for a launch whose rows all hold n."""
+    import torch
+
+    if counts is None:
+        return None
+    return torch.tensor(counts, dtype=torch.float32, device="cuda") \
+        .repeat_interleave(b // len(counts))
+
+
+def ota_inputs(b, n, d, dtype, seed, offset=0.0, n_true=None):
     """Random kernel operands; `offset` shifts the gradients' mean, so the
-    sum over nodes dominates and a wrong normalization stands out."""
+    sum over nodes dominates and a wrong normalization stands out. With
+    per-trajectory counts `n_true`, gradients and gains are 0 past each
+    trajectory's count, as a padded node-count sweep gives them."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -191,28 +243,36 @@ def ota_inputs(b, n, d, dtype, seed, offset=0.0):
          + offset).to(dtype)
     h = torch.randn((b, n), generator=gen, device="cuda").abs()
     w = torch.randn((b, d), generator=gen, device="cuda")
+    if n_true is not None:
+        lanes = torch.arange(n, device="cuda") < n_true[:, None]
+        g, h = g * lanes[..., None].to(dtype), h * lanes
     return g, h, w
 
 
 def check_kernel_vs_plain() -> dict:
     """The kernel against the plain version on the card, at the CPU tests'
-    shapes and bars and at the main-path shapes. Returns the max abs error
-    per main-path shape."""
+    shapes and bars and at the main-path shapes (padded ones with their
+    per-trajectory counts). Returns the max abs error per main-path
+    launch."""
     import torch
 
     from repro_torch.kernels.ota.ops import ota_edge_aggregate
     from repro_torch.kernels.ota.ref import ota_edge_aggregate_ref
 
-    def compare(label, b, n, d, dtype, atol, rtol, seed, offset=0.0):
-        g, h, w = ota_inputs(b, n, d, dtype, seed, offset)
-        ker = ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel")
-        ref = ota_edge_aggregate_ref(g, h, w, noise_scale=0.37)
+    def compare(label, b, n, d, dtype, atol, rtol, seed, offset=0.0,
+                n_true=None):
+        g, h, w = ota_inputs(b, n, d, dtype, seed, offset, n_true)
+        ker = ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel",
+                                 n_true=n_true)
+        ref = ota_edge_aggregate_ref(g, h, w, noise_scale=0.37,
+                                     n_true=n_true)
         torch.cuda.synchronize()
         err = (ker.float() - ref.float()).abs()
         bar = atol + rtol * ref.float().abs()
         ok = bool(torch.all(torch.isfinite(ker.float()))) \
             and bool(torch.all(err <= bar))
-        log(f"kernel-vs-plain {label} (B={b}, N={n}, d={d}, {dtype}): "
+        log(f"kernel-vs-plain {label} (B={b}, N={n}, d={d}, {dtype}"
+            f"{'' if n_true is None else ', per-trajectory counts'}): "
             f"max_abs_err={err.max().item():.3e} atol={atol} rtol={rtol} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -249,20 +309,43 @@ def check_kernel_vs_plain() -> dict:
     if not torch.equal(batched, single):
         raise AssertionError("batched launch differs from unbatched calls")
     log("batched (B=3) == 3 unbatched launches: bitwise ok")
-    # main-path shapes: gradients of mean 1 make v ~ 0.8, so a divisor
+    # the ragged case: rows of N in {50, 160, 500} zero-padded to 500, in
+    # both dtypes at the reference's bars; a count of N everywhere gives
+    # the bits of a launch without counts
+    ragged = trajectory_counts(12, 500, (50, 160, 500))
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 5e-2)):
+        seed += 1
+        compare("ragged", 12, 500, 90, dtype, atol, 1e-2, seed,
+                n_true=ragged)
+    g, h, w = ota_inputs(12, 500, 90, torch.float32, seed)
+    full = torch.full((12,), 500.0, device="cuda")
+    same = torch.equal(
+        ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel",
+                           n_true=full),
+        ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel"))
+    log(f"uniform counts (B=12, N=500, d=90) == no counts: "
+        f"{'bitwise ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("uniform counts change the kernel's bits")
+    # main-path launches: gradients of mean 1 make v ~ 0.8, so a divisor
     # off by one node (N - 1) errs by v/N >= 2e-4 against a bar of ~9e-6
     errs = {}
-    for b, n, d in main_shapes():
+    for name, (b, n, d, counts) in main_shapes().items():
         seed += 1
-        errs[(b, n, d)] = compare("main-path shape", b, n, d, torch.float32,
-                                  1e-6, 1e-5, seed, offset=1.0)
-        ones = torch.ones((b, n, d), device="cuda")
-        probe = ota_edge_aggregate(ones, ones[..., 0], torch.zeros(
-            (b, d), device="cuda"), noise_scale=1.0, impl="kernel")
+        n_true = trajectory_counts(b, n, counts)
+        errs[name] = compare(f"main path {name}", b, n, d, torch.float32,
+                             1e-6, 1e-5, seed, offset=1.0, n_true=n_true)
+        lanes = torch.ones((b, n), device="cuda") if n_true is None else (
+            torch.arange(n, device="cuda") < n_true[:, None]).float()
+        probe = ota_edge_aggregate(
+            lanes[..., None].expand(b, n, d).contiguous(), lanes,
+            torch.zeros((b, d), device="cuda"), noise_scale=1.0,
+            impl="kernel", n_true=n_true)
         torch.cuda.synchronize()
         err = (probe - 1.0).abs().max().item()
-        log(f"normalization probe (B={b}, N={n}, d={d}): g = h = 1, w = 0 "
-            f"-> max |v - 1| = {err:.3e} (bar 1e-06)")
+        log(f"normalization probe {name} (B={b}, N={n}, d={d}): g = h = 1 "
+            f"on each trajectory's nodes, w = 0 -> max |v - 1| = {err:.3e} "
+            "(bar 1e-06)")
         if not err <= 1e-6:
             raise AssertionError("the kernel does not normalize by N")
     return errs
@@ -270,7 +353,8 @@ def check_kernel_vs_plain() -> dict:
 
 def time_kernel(errs: dict) -> list:
     """Kernel, plain version and library-call times at the main-path
-    shapes, beside the bound computed from the same shapes."""
+    launches, beside the bound computed from the same shapes. The library
+    call is the einsum, divided by the counts where the rows differ."""
     import torch
 
     from repro_torch.kernels.ota import kernel
@@ -278,115 +362,237 @@ def time_kernel(errs: dict) -> list:
     from repro_torch.kernels.ota.ref import ota_edge_aggregate_ref
 
     rows = []
-    for b, n, d in main_shapes():
-        g, h, w = ota_inputs(b, n, d, torch.float32, 7)
+    for name, (b, n, d, counts) in main_shapes().items():
+        n_true = trajectory_counts(b, n, counts)
+        g, h, w = ota_inputs(b, n, d, torch.float32, 7, n_true=n_true)
         reps = 50 if b * n * d > 1e7 else 500
         # the bare launch on prepared operands, and the wrapper call the
         # engine makes (validation, noise fold, output allocation)
         w_scaled, out = 0.37 * w, torch.empty((b, d), device="cuda")
-        ker = cuda_ms(lambda: kernel.launch(g, h, w_scaled, out, n), reps)
+        ker = cuda_ms(lambda: kernel.launch(g, h, w_scaled, out, n_true),
+                      reps)
         wrapped = cuda_ms(lambda: ota_edge_aggregate(
-            g, h, w, noise_scale=0.37, impl="kernel"), reps)
+            g, h, w, noise_scale=0.37, impl="kernel", n_true=n_true), reps)
         plain = cuda_ms(lambda: ota_edge_aggregate_ref(
-            g, h, w, noise_scale=0.37), reps)
-        lib = cuda_ms(lambda: torch.einsum("bn,bnd->bd", h, g), reps)
-        bound, bound_by = ota_bound(b, n, d)
-        row = {"shape": [b, n, d], "dtype": "float32", "ms": ker,
+            g, h, w, noise_scale=0.37, n_true=n_true), reps)
+        if n_true is None:
+            lib = cuda_ms(lambda: torch.einsum("bn,bnd->bd", h, g), reps)
+        else:
+            lib = cuda_ms(lambda: torch.einsum("bn,bnd->bd", h, g)
+                          / n_true[:, None], reps)
+        bound, bound_by = ota_bound(b, n, d, counts=n_true is not None)
+        row = {"launch": name, "shape": [b, n, d], "dtype": "float32",
+               "counts": list(counts) if counts else None, "ms": ker,
                "wrapper_ms": wrapped, "plain_ms": plain, "library_ms": lib,
                "bound_ms": bound, "bound_by": bound_by,
-               "max_abs_err": errs[(b, n, d)]}
-        log(f"ota timing B={b} N={n} d={d}: kernel {ker:.6f} ms (wrapper "
-            f"call {wrapped:.6f} ms), plain {plain:.6f} ms, einsum "
-            f"{lib:.6f} ms, bound {bound:.6f} ms ({bound_by}), kernel at "
-            f"{bound / ker:.1%} of bound")
+               "max_abs_err": errs[name]}
+        log(f"ota timing {name} B={b} N={n} d={d}"
+            f"{'' if counts is None else f' counts {counts}'}: kernel "
+            f"{ker:.6f} ms (wrapper call {wrapped:.6f} ms), plain "
+            f"{plain:.6f} ms, einsum {lib:.6f} ms, bound {bound:.6f} ms "
+            f"({bound_by}), kernel at {bound / ker:.1%} of bound")
         rows.append(row)
     return rows
 
 
 def check_cuda_matches_cpu() -> None:
-    """A small sweep on the card (kernel route) against the same sweep on
+    """Small sweeps on the card (kernel route) against the same sweeps on
     the CPU (the plain version, the path the CPU tests hold to the JAX
-    reference)."""
+    reference): one gbma call, and one padded call mixing gbma, fdm and
+    power_control rows with node participation."""
     import numpy as np
 
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.mc.engine import run_mc
     from repro_torch.figures import MSDProblem
 
-    prob = MSDProblem.make(48, dim=16)
+    def both(label, probs, *args, **kw):
+        gpu = run_mc([p.to_mc("cuda") for p in probs], *args,
+                     device="cuda", **kw)
+        cpu = run_mc([p.to_mc("cpu") for p in probs], *args, device="cpu",
+                     **kw)
+        rel = float(np.max(np.abs(gpu.risks - cpu.risks)
+                           / np.abs(cpu.risks)))
+        log(f"run_mc cuda (kernel) vs cpu (plain), {label}: max rel diff "
+            f"of risks {rel:.3e} (bar 1e-05)")
+        if not rel <= 1e-5:
+            raise AssertionError(f"run_mc on the card disagrees with the "
+                                 f"CPU: {label}")
+
     chs = [ChannelConfig(fading="rayleigh", energy=e) for e in (1.0, 0.5)]
-    args = (chs, "gbma", [0.01, 0.02], 40, 2)
-    gpu = run_mc(prob.to_mc("cuda"), *args, device="cuda")
-    cpu = run_mc(prob.to_mc("cpu"), *args, device="cpu")
-    rel = float(np.max(np.abs(gpu.risks - cpu.risks) / np.abs(cpu.risks)))
-    log(f"run_mc cuda (kernel) vs cpu (plain), N=48 d=16 2 rows x 2 seeds "
-        f"x 40 steps: max rel diff of risks {rel:.3e} (bar 1e-05)")
-    if not rel <= 1e-5:
-        raise AssertionError("run_mc on the card disagrees with the CPU")
+    both("N=48 d=16 2 rows x 2 seeds x 40 steps",
+         [MSDProblem.make(48, dim=16)], chs, "gbma", [0.01, 0.02], 40, 2)
+    chs = [ChannelConfig(fading="rayleigh", energy=e) for e in
+           (1.0, 0.5, 0.25)]
+    both("padded N in (20, 33, 48), gbma / fdm / power_control rows, "
+         "participation (1, 0.7, 0.5), d=16, 2 seeds x 40 steps",
+         [MSDProblem.make(n, dim=16) for n in (20, 33, 48)], chs,
+         ("gbma", "fdm", "power_control"), [0.01, 0.01, 0.01], 40, 2,
+         participation=[1.0, 0.7, 0.5])
+
+
+def check_routes(label: str, call, fields=("risks", "cum_energy", "mean")
+                 ) -> None:
+    """`call(ota_impl)` through the kernel and through the plain version
+    on the card: each `fields` array within 1e-5 rel, and finite."""
+    import numpy as np
+
+    out = {impl: call(impl) for impl in ("kernel", "ref")}
+    rel = {}
+    for name in fields:
+        ker, ref = getattr(out["kernel"], name), getattr(out["ref"], name)
+        if not np.all(np.isfinite(ker)):
+            raise AssertionError(f"{label}: non-finite {name}")
+        rel[name] = float(np.max(np.abs(ker - ref)
+                                 / np.maximum(np.abs(ref), 1e-30)))
+    log(f"{label} kernel vs plain route on the card: max rel diff {rel} "
+        "(bar 1e-05)")
+    if not all(v <= 1e-5 for v in rel.values()):
+        raise AssertionError(f"{label}: kernel and plain routes disagree")
 
 
 def check_fig3_routes() -> None:
-    """fig3 part (b) — 3 rows at N = 500 x 4 seeds x 300 steps, the
-    (12, 500, 90) launches — through the kernel and through the plain
-    version on the card: per-seed curves and energies within 1e-5 rel."""
-    import numpy as np
-
+    """fig3's two calls — (a) the padded N sweep, the (12, 500, 90)
+    launches with counts, and (b) 3 rows at N = 500 — through the kernel
+    and through the plain version on the card."""
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.mc.engine import run_mc
     from repro_torch.core.theory import stepsize_theorem1
     from repro_torch.figures import FIG3, MSDProblem
 
-    n = FIG3["n_grid"][-1]
-    prob = MSDProblem.make(n)
+    grid, steps, seeds = FIG3["n_grid"], FIG3["steps"], FIG3["seeds"]
+    probs = [MSDProblem.make(n) for n in grid]
+    mcs = [p.to_mc("cuda") for p in probs]
+    chs = [ChannelConfig(fading=FIG3["fading"], scale=1.0, noise_std=1.0,
+                         energy=1.0) for _ in grid]
+    betas = [stepsize_theorem1(p.pc, c, n, safety=0.9)
+             for p, c, n in zip(probs, chs, grid)]
+    check_routes(f"fig3 part (a) (B=12, N={grid} padded to {max(grid)}, "
+                 f"d=90, {steps} steps)", lambda impl: run_mc(
+                     mcs, chs, "gbma", betas, steps, seeds, ota_impl=impl,
+                     device="cuda"))
+    n = grid[-1]
     chs = [ChannelConfig(fading=FIG3["fading"], scale=1.0, noise_std=1.0,
                          energy=float(n) ** (eps - 2.0))
            for eps in FIG3["eps_grid"]]
-    betas = [stepsize_theorem1(prob.pc, c, n, safety=0.9) for c in chs]
-    mc = prob.to_mc("cuda")
-    out = {impl: run_mc(mc, chs, "gbma", betas, FIG3["steps"],
-                        FIG3["seeds"], ota_impl=impl, device="cuda")
-           for impl in ("kernel", "ref")}
-    rel = {name: float(np.max(np.abs(getattr(out["kernel"], name)
-                                     - getattr(out["ref"], name))
-                              / np.abs(getattr(out["ref"], name))))
-           for name in ("risks", "cum_energy", "mean")}
-    log(f"fig3 part (b) kernel vs plain route on the card (B=12, N={n}, "
-        f"d=90, {FIG3['steps']} steps): max rel diff {rel} (bar 1e-05)")
-    if not all(v <= 1e-5 for v in rel.values()):
-        raise AssertionError("fig3: kernel and plain routes disagree")
+    betas = [stepsize_theorem1(probs[-1].pc, c, n, safety=0.9) for c in chs]
+    check_routes(f"fig3 part (b) (B=12, N={n}, d=90, {steps} steps)",
+                 lambda impl: run_mc(mcs[-1], chs, "gbma", betas, steps,
+                                     seeds, ota_impl=impl, device="cuda"))
+
+
+def _finite_rows(label: str, rows: list) -> None:
+    """Every figure row's numbers (the value, and a ±ci95 column) are
+    finite."""
+    for r in rows:
+        log(r)
+        for field in r.split(",")[-2:]:
+            value = field.rpartition("=")[2].lstrip("±")
+            try:
+                number = float(value)
+            except ValueError:
+                continue  # a key field, not a number
+            if not math.isfinite(number):
+                raise AssertionError(f"{label}: non-finite row {r!r}")
+
+
+def run_figure_main_path(ops, label: str, run, expected: int) -> tuple:
+    """One figure twin through the port's entry point with the OTA launch
+    count set to 0 just before and read just after: (launches, rows,
+    wall seconds). Fails unless the kernel ran `expected` times."""
+    ops.launch_count = 0
+    t0 = time.perf_counter()
+    rows = run(device="cuda")
+    wall = time.perf_counter() - t0
+    launches = ops.launch_count
+    _finite_rows(label, rows)
+    log(f"{label} main path: {launches} OTA kernel launches; wall "
+        f"{wall:.3f} s")
+    if launches != expected:
+        raise AssertionError(f"{label}: expected {expected} kernel "
+                             f"launches, got {launches}")
+    return launches, rows, wall
 
 
 def run_fig3_main_path(ops) -> int:
     """The paper's operating point (fig3: N in (50, 160, 500), d = 90, 300
-    steps, 4 seeds, Rayleigh) through the port's entry point."""
-    import numpy as np
-
+    steps, 4 seeds, Rayleigh) through the port's entry point: two
+    `run_mc` calls, the padded N sweep and the energy sweep."""
     from repro_torch.figures import FIG3, run_fig3
 
-    ops.launch_count = 0
-    t0 = time.perf_counter()
-    rows = run_fig3(device="cuda")
-    wall = time.perf_counter() - t0
-    launches = ops.launch_count
-    for r in rows:
-        log(r)
-    n_runs = len(FIG3["n_grid"]) + 1
-    steps = n_runs * FIG3["steps"]
-    log(f"fig3 main path: {launches} OTA kernel launches over {n_runs} "
-        f"run_mc calls x {FIG3['steps']} steps; wall {wall:.3f} s "
-        f"({wall / steps * 1e3:.3f} ms per step)")
-    if launches != steps:
-        raise AssertionError(f"expected {steps} kernel launches, got "
-                             f"{launches}")
+    steps = 2 * FIG3["steps"]
+    launches, rows, wall = run_figure_main_path(ops, "fig3", run_fig3,
+                                                steps)
+    log(f"fig3 main path: 2 run_mc calls x {FIG3['steps']} steps, "
+        f"{wall / steps * 1e3:.3f} ms per step")
     for n in FIG3["n_grid"]:
         if f"fig3a,N={n},bound_holds,1" not in rows:
             raise AssertionError(f"fig3 N={n}: Theorem-1 bound violated")
-    values = [float(r.split(",")[-1]) for r in rows if "final" in r]
-    if not all(math.isfinite(v) for v in values):
-        raise AssertionError("fig3: non-finite risks")
-    curves = [float(r.split(",")[3]) for r in rows if "_curve" in r]
-    if not np.all(np.isfinite(curves)):
-        raise AssertionError("fig3: non-finite curve values")
+    return launches
+
+
+def run_fig4_main_path(ops) -> int:
+    """Fig. 4 at N = 800 (gbma / fdm / centralized, one mixed call, 4
+    seeds, 300 steps): the gbma row's group launches the kernel once a
+    step. Route check first, then the main path."""
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.figures import FIG4, fig4_call, run_fig4
+
+    mc, chs, algos, betas = fig4_call("cuda", **FIG4)
+    check_routes(f"fig4 (B=12, N={FIG4['n']}, d=90, {algos}, "
+                 f"{FIG4['steps']} steps)", lambda impl: run_mc(
+                     mc, chs, algos, betas, FIG4["steps"], FIG4["seeds"],
+                     ota_impl=impl, device="cuda"))
+    launches, rows, wall = run_figure_main_path(ops, "fig4", run_fig4,
+                                                FIG4["steps"])
+    log(f"fig4: {wall / FIG4['steps'] * 1e3:.3f} ms per step; "
+        + "; ".join(r for r in rows if "gbma_" in r))
+    return launches
+
+
+def run_fig6_main_path(ops) -> int:
+    """Fig. 6 (N in (100, 200, 400, 800), one padded call, 3 seeds, 400
+    steps): route check, then the main path."""
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.figures import FIG6, fig6_call, run_fig6
+
+    mcs, chs, betas = fig6_call("cuda", **FIG6)
+    check_routes(f"fig6 (B=12, N={FIG6['n_grid']} padded, d=90, "
+                 f"{FIG6['steps']} steps)", lambda impl: run_mc(
+                     mcs, chs, "gbma", betas, FIG6["steps"], FIG6["seeds"],
+                     ota_impl=impl, device="cuda"))
+    launches, rows, wall = run_figure_main_path(ops, "fig6", run_fig6,
+                                                FIG6["steps"])
+    log(f"fig6: {wall / FIG6['steps'] * 1e3:.3f} ms per step; "
+        + "; ".join(r for r in rows if "decreases" in r))
+    return launches
+
+
+def run_ablations_main_path(ops) -> int:
+    """Ablations (a), (b), (c), (e), (g) at N = 200: every call through
+    both routes at ABLATION_ROUTE_STEPS, then all parts through the
+    port's entry point in full (each call an OTA slot: one launch a
+    step)."""
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.figures import (ABLATION_PARTS, ABLATIONS, MSDProblem,
+                                     ablation_calls, run_ablations)
+
+    n, steps, seeds = ABLATIONS["n"], ABLATIONS["steps"], ABLATIONS["seeds"]
+    prob = MSDProblem.make(n)
+    mc = prob.to_mc("cuda")
+    n_calls = 0
+    for part in ABLATION_PARTS:
+        for label, chs, algos, betas, kw in ablation_calls(part, prob, n):
+            n_calls += 1
+            check_routes(
+                f"ablation ({part}) {label} (B={len(chs) * seeds}, N={n}, "
+                f"{ABLATION_ROUTE_STEPS} steps)", lambda impl: run_mc(
+                    mc, chs, algos, betas, ABLATION_ROUTE_STEPS, seeds,
+                    ota_impl=impl, device="cuda", **kw))
+    launches, _, wall = run_figure_main_path(
+        ops, "ablations (a)(b)(c)(e)(g)", run_ablations, n_calls * steps)
+    log(f"ablations: {n_calls} run_mc calls x {steps} steps, "
+        f"{wall / (n_calls * steps) * 1e3:.3f} ms per step")
     return launches
 
 
@@ -400,49 +606,53 @@ def large_workload():
     return prob.to_mc("cuda"), ch, 0.01
 
 
-def run_large_main_path(ops) -> tuple:
-    """LARGE (N=4096, d=24, 150 steps, 1024 seeds, gbma, Rayleigh,
-    keep_seed_curves=False): one kernel launch per step for all 1024
-    trajectories."""
+def large_sweep_workload():
+    """LARGE as a node-count sweep: a row per N at E_N = 1/N, β = 0.01."""
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.figures import MSDProblem
+
+    grid, dim = LARGE_SWEEP["n_grid"], LARGE_SWEEP["dim"]
+    mcs = [MSDProblem.make(n, dim=dim).to_mc("cuda") for n in grid]
+    chs = [ChannelConfig(fading="rayleigh", scale=1.0, noise_std=1.0,
+                         energy=1.0 / n) for n in grid]
+    return mcs, chs, [0.01] * len(grid)
+
+
+def run_large_main_path(ops, label: str, mcs, chs, betas, steps: int,
+                        seeds: int) -> tuple:
+    """A LARGE-scale gbma call (keep_seed_curves=False): the kernel and
+    plain routes over 64 seeds a row, then the call at `seeds` seeds a
+    row with its wall, peak device memory and launches (one per step for
+    all trajectories). Returns (launches, seconds per step)."""
     import numpy as np
     import torch
 
     from repro_torch.core.mc.engine import run_mc
 
-    mc, ch, beta = large_workload()
-    steps = LARGE["steps"]
-    # the kernel route and the plain route over the same 64 seeds
-    sub = {impl: run_mc(mc, [ch], "gbma", [beta], steps, 64,
-                        keep_seed_curves=False, ota_impl=impl,
-                        device="cuda").mean[0]
-           for impl in ("kernel", "ref")}
-    rel = float(np.max(np.abs(sub["kernel"] - sub["ref"])
-                       / np.abs(sub["ref"])))
-    log(f"LARGE at 64 seeds: kernel vs ref mean curves max rel diff "
-        f"{rel:.3e} (bar 1e-05)")
-    if not rel <= 1e-5:
-        raise AssertionError("LARGE: kernel and plain routes disagree")
-
+    check_routes(f"{label} at 64 seeds a row", lambda impl: run_mc(
+        mcs, chs, "gbma", betas, steps, 64, keep_seed_curves=False,
+        ota_impl=impl, device="cuda"), fields=("mean",))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.launch_count = 0
     t0 = time.perf_counter()
-    res = run_mc(mc, [ch], "gbma", [beta], steps, LARGE["seeds"],
-                 keep_seed_curves=False)
+    res = run_mc(mcs, chs, "gbma", betas, steps, seeds,
+                 keep_seed_curves=False, device="cuda")
     wall = time.perf_counter() - t0
     launches = ops.launch_count
     peak = torch.cuda.max_memory_allocated()
-    mean = res.mean[0]
-    log(f"LARGE main path: N={LARGE['n']} d={LARGE['dim']} steps={steps} "
-        f"seeds={LARGE['seeds']}: wall {wall:.3f} s, "
-        f"{wall / steps * 1e3:.3f} ms per step, peak device memory "
-        f"{peak / 2**20:.1f} MiB, {launches} OTA kernel launches; mean "
-        f"risk {mean[0]:.6e} -> {mean[-1]:.6e}")
+    log(f"{label} main path: {len(chs)} row(s) x {seeds} seeds x {steps} "
+        f"steps: wall {wall:.3f} s, {wall / steps * 1e3:.3f} ms per step, "
+        f"peak device memory {peak / 2**20:.1f} MiB, {launches} OTA kernel "
+        f"launches; mean risk per row {res.mean[:, 0]} -> "
+        f"{res.mean[:, -1]}")
     if launches != steps:
-        raise AssertionError(f"LARGE: expected {steps} launches, got "
+        raise AssertionError(f"{label}: expected {steps} launches, got "
                              f"{launches}")
-    if not (np.all(np.isfinite(mean)) and mean[-1] < mean[0]):
-        raise AssertionError("LARGE: mean curve not finite or not falling")
+    if not (np.all(np.isfinite(res.mean))
+            and np.all(res.mean[:, -1] < res.mean[:, 0])):
+        raise AssertionError(f"{label}: mean curves not finite or not "
+                             "falling")
     return launches, wall / steps
 
 
@@ -464,7 +674,9 @@ def step_breakdown() -> None:
     p = {k: v.to("cuda").repeat(b) for k, v in
          ChannelBatch.stack([ch]).params.items()}
     ctx = SlotCtx(fading="rayleigh", p=p,
-                  mask=torch.ones((b, n), device="cuda"), phase_zero=True)
+                  mask=torch.ones((b, n), device="cuda"),
+                  counts=torch.full((b,), n, device="cuda"), n_sizes=(n,),
+                  phase_zero=True)
     keys = rng.key(torch.arange(b, device="cuda"))
     theta = torch.zeros((1, b, d), device="cuda")
     g = batch.grad_fn(batch.data, theta).reshape(b, n, d)
@@ -522,15 +734,10 @@ def _profile_counts(fn, kernel: str = "ota_aggregate") -> dict:
     return counts
 
 
-def step_profile() -> dict:
-    """Per-step cost of `run_mc` at the fig3 operating point (one N = 500
-    row, 4 seeds) and at LARGE: wall time from the host clock without the
-    profiler, and launches, synchronizations, copies and device busy time
-    from torch.profiler. Each is the difference of a long and a short run
-    over the difference of their steps, so set-up and read-back cancel.
-    Uses only `run_mc` arguments that every slice of the port accepts."""
-    import torch
-
+def _base_profile_cases() -> dict:
+    """The step profile's cases that every slice of the port runs: one
+    N = 500 fig3 row of 4 seeds, and LARGE. name -> (run(steps), n, dim,
+    trajectories)."""
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.mc.engine import run_mc
     from repro_torch.core.theory import stepsize_theorem1
@@ -545,12 +752,62 @@ def step_profile() -> dict:
              "large": large_workload() + (LARGE["seeds"],)}
     out = {}
     for name, (mc, ch, beta, seeds) in cases.items():
-        n, dim = mc.n_nodes, mc.dim
+        out[name] = (lambda steps, mc=mc, ch=ch, beta=beta, seeds=seeds:
+                     run_mc(mc, [ch], "gbma", [beta], steps, seeds,
+                            keep_seed_curves=False, device="cuda"),
+                     mc.n_nodes, mc.dim, seeds)
+    return out
 
-        def run(steps):
-            return run_mc(mc, [ch], "gbma", [beta], steps, seeds,
-                          keep_seed_curves=False, device="cuda")
 
+def _new_path_profile_cases() -> dict:
+    """The step profile's cases of the node-count, mixed-row, fdm, power
+    control and participation paths: fig4, fig6, one call of each
+    ablation part, the LARGE sweep."""
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.figures import (ABLATION_PARTS, ABLATIONS, FIG4, FIG6,
+                                     MSDProblem, ablation_calls, fig4_call,
+                                     fig6_call)
+
+    def case(mcs, chs, algos, betas, seeds, **kw):
+        n = max(m.n_nodes for m in mcs) if isinstance(mcs, list) \
+            else mcs.n_nodes
+        dim = (mcs[0] if isinstance(mcs, list) else mcs).dim
+        return (lambda steps: run_mc(mcs, chs, algos, betas, steps, seeds,
+                                     keep_seed_curves=False, device="cuda",
+                                     **kw),
+                n, dim, len(chs) * seeds)
+
+    mc, chs, algos, betas = fig4_call("cuda", **FIG4)
+    cases = {"fig4": case(mc, chs, algos, betas, FIG4["seeds"])}
+    mcs, chs, betas = fig6_call("cuda", **FIG6)
+    cases["fig6"] = case(mcs, chs, "gbma", betas, FIG6["seeds"])
+    n = ABLATIONS["n"]
+    prob = MSDProblem.make(n)
+    mc = prob.to_mc("cuda")
+    # part (b): rician (the most draws); (c): the power_control call;
+    # (e): gamma = 0.9; (a), (g): their one call
+    pick = {"a": 0, "b": 2, "c": 1, "e": 1, "g": 0}
+    for part in ABLATION_PARTS:
+        label, chs, algos, betas, kw = ablation_calls(part, prob, n)[
+            pick[part]]
+        cases[f"ablation ({part})"] = case(mc, chs, algos, betas,
+                                           ABLATIONS["seeds"], **kw)
+    mcs, chs, betas = large_sweep_workload()
+    cases["large sweep"] = case(mcs, chs, "gbma", betas,
+                                LARGE_SWEEP["seeds"])
+    return cases
+
+
+def step_profile(cases: dict) -> dict:
+    """Per-step cost of `run_mc` calls (`cases`: name -> (run(steps), n,
+    dim, trajectories)): wall time from the host clock without the
+    profiler, and launches, synchronizations, copies and device busy time
+    from torch.profiler. Each is the difference of a long and a short run
+    over the difference of their steps, so set-up and read-back cancel."""
+    import torch
+
+    out = {}
+    for name, (run, n, dim, trajectories) in cases.items():
         run(4)  # warm-up: kernel build, allocator, cuBLAS handles
         walls = {}
         for steps in (10, 60, 10, 60):
@@ -563,9 +820,10 @@ def step_profile() -> dict:
         wall_ms = (min(walls[60]) - min(walls[10])) / 50 * 1e3
         busy_ms = per["device_us"] / 1e3
         out[name] = {
-            "n": n, "dim": dim, "trajectories": seeds,
+            "n": n, "dim": dim, "trajectories": trajectories,
             "wall_ms_per_step": wall_ms,
             "launches_per_step": per["launches"],
+            "ota_launches_per_step": per["kernel"],
             "syncs_per_step": per["syncs"],
             "memcpy_per_step": per["memcpy"],
             "h2d_copies_per_step": per["h2d"],
@@ -1433,7 +1691,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     if args.profile_src is not None:
-        prof = step_profile()
+        prof = step_profile(_base_profile_cases())
         print(json.dumps({"profile_src": src_root, "steps": prof}),
               flush=True)
         return 0
@@ -1456,14 +1714,32 @@ def main() -> int:
     torch.cuda.synchronize()
     check_fig3_routes()
     torch.cuda.synchronize()
-    fig3_launches = run_fig3_main_path(ops)
+    mc_launches = {"fig3": run_fig3_main_path(ops)}
     torch.cuda.synchronize()
-    large_launches, large_step_s = run_large_main_path(ops)
+    mc, ch, beta = large_workload()
+    mc_launches["large"], large_step_s = run_large_main_path(
+        ops, "LARGE", mc, [ch], [beta], LARGE["steps"], LARGE["seeds"])
+    del mc
     torch.cuda.synchronize()
+    mc_launches["fig4"] = run_fig4_main_path(ops)
+    torch.cuda.synchronize()
+    mc_launches["fig6"] = run_fig6_main_path(ops)
+    torch.cuda.synchronize()
+    mc_launches["ablations (a)(b)(c)(e)(g)"] = run_ablations_main_path(ops)
+    torch.cuda.synchronize()
+    mcs, chs, betas = large_sweep_workload()
+    mc_launches["large sweep"], sweep_step_s = run_large_main_path(
+        ops, f"LARGE sweep N={LARGE_SWEEP['n_grid']}", mcs, chs, betas,
+        LARGE_SWEEP["steps"], LARGE_SWEEP["seeds"])
+    del mcs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     step_breakdown()
     torch.cuda.synchronize()
-    prof = step_profile()
+    prof = step_profile({**_base_profile_cases(),
+                         **_new_path_profile_cases()})
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     # K2 and the serving path
     attn_errs = check_attention_vs_plain()
@@ -1497,15 +1773,17 @@ def main() -> int:
     ota_entry = {
         "name": "ota_aggregate", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
-        "launches": fig3_launches + large_launches,
+        "launches": sum(mc_launches.values()),
         "max_abs_err": max(errs.values()), "tolerance": "atol 1e-06 + "
         "rtol 1e-05 at main-path shapes",
         "ms": primary["ms"], "kernel_ms": primary["ms"],
         "plain_ms": primary["plain_ms"], "bound_ms": primary["bound_ms"],
         "bound_by": primary["bound_by"],
         "library_ms": primary["library_ms"],
-        "launches_by_run": {"fig3": fig3_launches, "large": large_launches},
+        "launches_by_run": mc_launches,
         "large_ms_per_step": large_step_s * 1e3,
+        "large_sweep_ms_per_step": sweep_step_s * 1e3,
+        "padded": next(r for r in timings if r["launch"] == "fig3 (a)"),
         "shapes": timings, "step_profile": prof,
     }
     attn_primary = attn_timings[0]  # olmo-1b prefill at 2048, bf16

@@ -6,10 +6,13 @@ It imports `torch` and numpy only — never `jax`, never `repro` — and
 keeps its own copies of the pure-Python pieces it needs.
 
 Entry points run on the CUDA card unless the caller passes
-`device="cpu"`; see `repro_torch._device`. The slice ported so far is the
-GBMA Monte Carlo main path: `core.mc.engine.run_mc` through the
-hand-written CUDA OTA-aggregation kernel (`kernels.ota`) to the fig2/fig3
-rows (`figures`).
+`device="cpu"`; see `repro_torch._device`. Ported so far: the GBMA Monte
+Carlo engine (`core.mc.engine.run_mc`: node-count sweeps, mixed
+algorithm rows, fdm, power control, participation) through the
+hand-written CUDA OTA-aggregation kernel (`kernels.ota`) to the rows of
+Figs. 2, 3, 4, 6 and ablations (a), (b), (c), (e), (g) (`figures`); and
+serving olmo-1b, repro-100m and rwkv6-7b (`serving`, `kernels.attention`,
+`kernels.wkv`).
 """
 from repro_torch._device import resolve_device, set_float32_precision
 

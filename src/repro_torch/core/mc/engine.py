@@ -7,10 +7,11 @@ stepsize) tuple; `run_mc` stacks the rows and hands the sweep to
 `exec.run_core`, which runs every (row, seed) trajectory as one batch on
 the device. Arguments keep the reference's names.
 
-This first slice covers single-node-count, single-antenna, single-algo
-calls of `gbma`, `centralized`, `momentum` and `nesterov` on quadratic
-problems, all seeds live. Every argument or value outside it raises
-`NotImplementedError` naming the ROADMAP item that brings it.
+The port covers single-antenna calls of `gbma`, `centralized`, `fdm`,
+`power_control`, `momentum` and `nesterov` on quadratic problems, all
+seeds live: rows may differ in node count (padded to N_max, one call),
+in algorithm, and in node participation. Every argument or value outside
+that raises `NotImplementedError` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ from repro_torch.core.mc.slots import ALGO_REGISTRY
 from repro_torch.core.theory import ProblemConstants, theorem1_bound
 
 # reference algorithms that are registered in `repro` but not ported yet
-_LATER_ALGOS = {"fdm": "P4", "power_control": "P4", "blind": "P4",
-                "blind_ec": "P4"}
+_P3 = "P3: antennas and MRC, with blind and blind_ec"
+_LATER_ALGOS = {"blind": _P3, "blind_ec": _P3}
 _OTA_IMPLS = ("auto", "kernel", "ref")
 
 
@@ -76,8 +77,9 @@ class MCResult:
     ci95:       (C, steps+1) 1.96 · standard error over seeds (0 if S == 1).
     cum_energy: (C, S, steps) cumulative transmitted energy Σ E_N ‖x_k‖²,
                 or None under `keep_seed_curves=False`.
-    bounds:     (C, steps+1) Theorem-1 bound per row (None unless problem
-                constants were given and every row is single-antenna gbma).
+    bounds:     (C, steps+1) Theorem-1 bound per row, at the row's own N
+                (None unless problem constants were given and every row
+                is single-antenna gbma).
     device:     the device the sweep ran on.
     """
 
@@ -93,22 +95,13 @@ def _is_scalar(v) -> bool:
     return isinstance(v, (int, float, np.integer, np.floating))
 
 
-def _reject_out_of_slice(*, n_antennas, invert_channel, h_min,
-                         power_budget, shard_seeds, batch_frac,
-                         participation, seed_chunk, rng_plan, plan,
-                         resume_dir, memory_budget_bytes) -> None:
+def _reject_out_of_slice(*, n_antennas, power_budget, shard_seeds,
+                         batch_frac, seed_chunk, rng_plan, plan, resume_dir,
+                         memory_budget_bytes) -> None:
     if n_antennas is not None:
-        raise _not_ported("n_antennas (multi-antenna edge, MRC)",
-                          "P3: antennas and MRC")
-    if invert_channel:
-        raise _not_ported("invert_channel (fdm)",
-                          "P4: fdm, power_control, blind and blind_ec")
-    if h_min is not None:
-        raise _not_ported("h_min (power_control)",
-                          "P4: fdm, power_control, blind and blind_ec")
+        raise _not_ported("n_antennas (multi-antenna edge, MRC)", _P3)
     if power_budget is not None:
-        raise _not_ported("power_budget (blind_ec)",
-                          "P4: fdm, power_control, blind and blind_ec")
+        raise _not_ported("power_budget (blind_ec)", _P3)
     if shard_seeds:
         raise _not_ported("shard_seeds=True (seed placement)",
                           "M8: multi-GPU placement")
@@ -116,11 +109,6 @@ def _reject_out_of_slice(*, n_antennas, invert_channel, h_min,
     if any(float(f) != 1.0 for f in fracs):
         raise _not_ported(f"batch_frac={batch_frac} (stochastic minibatches)",
                           "P6: stochastic minibatches")
-    parts = (participation,) if _is_scalar(participation) \
-        else tuple(participation)
-    if any(float(q) != 1.0 for q in parts):
-        raise _not_ported(f"participation={participation} (node dropout)",
-                          "P7: participation")
     if seed_chunk is not None:
         raise _not_ported("seed_chunk", "P8: seed_chunk, Chan merge and "
                           "resume")
@@ -149,7 +137,7 @@ def run_mc(
     seed0: int = 0,
     n_antennas=None,
     invert_channel: bool = False,
-    h_min: Optional[float] = None,
+    h_min: float = 0.3,
     pc: Optional[Union[ProblemConstants, Sequence[ProblemConstants]]] = None,
     momentum: float = 0.9,
     power_budget=None,
@@ -168,10 +156,18 @@ def run_mc(
     """Run `seeds` Monte Carlo trajectories for each batch row.
 
     A row is a (problem, channel, algo, stepsize) tuple; `problem` and
-    `algo` broadcast when a single one is given. Seed s uses
-    `key(seed0 + s)` — the reference's stream. With `pc` (one
+    `algo` broadcast when a single one is given. A sequence of problems
+    may differ in node count (they pad to N_max and each row keeps its
+    own N) and a sequence of algos may mix them: either way one call.
+    Seed s uses `key(seed0 + s)` — the reference's stream. With `pc` (one
     `ProblemConstants` or one per row) the Theorem-1 bound rides along
     when every row is 'gbma'.
+
+    `invert_channel`: fdm rows equalize their gains. `h_min`:
+    power_control's truncation threshold (the reference's default 0.3).
+    `participation` (scalar or one per row, in (0, 1]): each step each
+    node transmits with that probability and stays silent otherwise (no
+    energy); the edge still divides by the full N.
 
     `device`: None runs on the CUDA card and raises without one; pass
     `device="cpu"` for the CPU. The problem data moves to this device.
@@ -181,12 +177,11 @@ def run_mc(
     or 'ref' (the plain version on either device).
     `keep_seed_curves=False` reduces curves to (mean, ci95) on the device.
     The other arguments keep the reference's names; any value but their
-    defaults is outside this slice and raises `NotImplementedError`.
+    defaults is outside the port so far and raises `NotImplementedError`.
     """
     _reject_out_of_slice(
-        n_antennas=n_antennas, invert_channel=invert_channel, h_min=h_min,
-        power_budget=power_budget, shard_seeds=shard_seeds,
-        batch_frac=batch_frac, participation=participation,
+        n_antennas=n_antennas, power_budget=power_budget,
+        shard_seeds=shard_seeds, batch_frac=batch_frac,
         seed_chunk=seed_chunk, rng_plan=rng_plan, plan=plan,
         resume_dir=resume_dir, memory_budget_bytes=memory_budget_bytes)
     if ota_impl not in _OTA_IMPLS:
@@ -208,16 +203,18 @@ def run_mc(
         raise ValueError(f"need one algo per row: {len(algos)} vs C={n_rows}")
     for a in algos:
         if a in _LATER_ALGOS:
-            raise _not_ported(f"algo {a!r}", f"{_LATER_ALGOS[a]}: fdm, "
-                              "power_control, blind and blind_ec")
+            raise _not_ported(f"algo {a!r}", _LATER_ALGOS[a])
         if a not in ALGO_REGISTRY:
             raise ValueError(f"unknown algo {a!r}; expected one of "
                              f"{tuple(ALGO_REGISTRY)}")
-    algo_set = tuple(dict.fromkeys(algos))
-    if len(algo_set) > 1:
-        raise _not_ported(f"mixed-algo rows {algo_set}", "P2: mixed-algo "
-                          "rows")
-    spec = ALGO_REGISTRY[algo_set[0]]
+    specs = [ALGO_REGISTRY[a] for a in algos]
+    parts = (float(participation),) * n_rows if _is_scalar(participation) \
+        else tuple(float(q) for q in participation)
+    if len(parts) != n_rows:
+        raise ValueError(f"need one participation per row: {len(parts)} "
+                         f"vs C={n_rows}")
+    if any(not 0.0 < q <= 1.0 for q in parts):
+        raise ValueError(f"participation must be in (0, 1], got {parts}")
 
     # ---- the problem axis: always the row formulation -------------------
     if isinstance(problem, MCProblemBatch):
@@ -237,6 +234,7 @@ def run_mc(
                          f"C={n_rows}")
     batch_prob = batch_prob.to(dev)
     n_nodes = batch_prob.n_nodes
+    n_sizes = tuple(sorted(set(n_nodes)))
     # the gain draw skips its phase stream when every row's phase error
     # is 0: value-identical (cos(0) == 1, and the stream has its own key)
     phase_zero = all(float(c.phase_error_max) == 0.0
@@ -244,10 +242,14 @@ def run_mc(
     params = {k: v.to(dev) for k, v in ch_batch.params.items()}
     params["n_nodes"] = torch.tensor(n_nodes, dtype=torch.float32,
                                      device=dev)
-    params["gamma"] = torch.full((n_rows,), momentum if spec.uses_gamma
-                                 else 0.0, dtype=torch.float32, device=dev)
-    params["nest"] = torch.full((n_rows,), 1.0 if spec.nesterov else 0.0,
-                                dtype=torch.float32, device=dev)
+    params["gamma"] = torch.tensor(
+        [momentum if s.uses_gamma else 0.0 for s in specs],
+        dtype=torch.float32, device=dev)
+    params["nest"] = torch.tensor([1.0 if s.nesterov else 0.0 for s in specs],
+                                  dtype=torch.float32, device=dev)
+    if any(q < 1.0 for q in parts):  # p = 1 everywhere draws no mask
+        params["participation"] = torch.tensor(parts, dtype=torch.float32,
+                                               device=dev)
 
     dim = batch_prob.dim
     t0 = torch.zeros(dim, dtype=torch.float32, device=dev) if theta0 is None \
@@ -256,7 +258,8 @@ def run_mc(
     out = exec_mod.run_core(
         params, betas_t, t0, seed_ints, batch_prob.data,
         grad_fn=batch_prob.grad_fn, risk_fn=batch_prob.risk_fn,
-        algo=algo_set[0], fading=ch_batch.fading, steps=steps,
+        algos=algos, fading=ch_batch.fading, steps=steps, n_sizes=n_sizes,
+        invert_channel=invert_channel, h_min=float(h_min),
         ota_impl=ota_impl, phase_zero=phase_zero,
         reduce_moments=not keep_seed_curves)
     if keep_seed_curves:
@@ -272,7 +275,7 @@ def run_mc(
         if len(pcs) != n_rows:
             raise ValueError(f"need one ProblemConstants per row: "
                              f"{len(pcs)} vs C={n_rows}")
-        if spec.theorem1:
+        if all(s.theorem1 for s in specs):
             ks = np.arange(1, steps + 2)
             bounds = np.stack([
                 theorem1_bound(ks, float(b), row_pc, cfg, n)

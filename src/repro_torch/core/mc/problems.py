@@ -9,8 +9,12 @@ sweep-row axis, plus the validity `mask (C, N)`) and parameters
 `(C, S, N, d)` or risks `(C, S)`. The reference's closure path computes
 the same arithmetic (its mask is exactly 1), so nothing is lost.
 
+Rows of different node counts stack into one batch: per-node leaves pad
+to N_max with their registered pad constants and `mask` marks the valid
+node rows, as in the reference's `MCProblemBatch.stack`.
+
 Built-in: `quadratic` (Eq. 27). `localization` and `logistic` wait
-(ROADMAP P5), as do rows of different node counts in one batch (P1).
+(ROADMAP P5).
 """
 from __future__ import annotations
 
@@ -27,25 +31,30 @@ from repro_torch._device import DeviceLike, resolve_device
 class ProblemSpec:
     """One registered problem kind: `grad_row(data, theta)` ->
     `(C, S, N, d)` with exactly-zero rows where `mask` is 0, and
-    `risk_row(data, theta)` -> `(C, S)`. (The reference's pad values of
-    per-node fields come with padded sweeps, ROADMAP P1.)"""
+    `risk_row(data, theta)` -> `(C, S)`. `pad_values` maps each per-node
+    data field (node axis first) to its pad constant, chosen so padded
+    rows stay finite before the mask zeroes them."""
 
     kind: str
     grad_row: Callable
     risk_row: Callable
+    pad_values: dict
 
 
 PROBLEMS: dict = {}  # kind -> ProblemSpec, insertion-ordered
 
 
 def register_problem(kind: str, grad_row: Callable, risk_row: Callable,
-                     *, overwrite: bool = False) -> ProblemSpec:
+                     pad_values: dict, *,
+                     overwrite: bool = False) -> ProblemSpec:
     """Register a problem kind so `MCProblem`s of that kind stack into an
-    engine batch. Returns the spec."""
+    engine batch, padded to the batch's largest node count. Returns the
+    spec."""
     if kind in PROBLEMS and not overwrite:
         raise ValueError(f"problem kind {kind!r} is already registered "
                          "(pass overwrite=True to replace it)")
-    spec = ProblemSpec(kind=kind, grad_row=grad_row, risk_row=risk_row)
+    spec = ProblemSpec(kind=kind, grad_row=grad_row, risk_row=risk_row,
+                       pad_values=dict(pad_values))
     PROBLEMS[kind] = spec
     return spec
 
@@ -63,8 +72,9 @@ class MCProblem:
 
 @dataclasses.dataclass(frozen=True)
 class MCProblemBatch:
-    """C problems stacked along a leading sweep-row axis. All rows share
-    one node count in this slice, so `mask` is all ones."""
+    """C problems stacked along a leading sweep-row axis, per-node leaves
+    padded to `n_max`; `data['mask']` `(C, n_max)` marks the valid node
+    rows and `n_nodes` holds each row's true count."""
 
     kind: str
     grad_fn: Callable
@@ -84,32 +94,38 @@ class MCProblemBatch:
         if kind not in PROBLEMS:
             raise ValueError(
                 f"problem kind {kind!r} is not registered; call "
-                "register_problem(kind, grad_row, risk_row)")
+                "register_problem(kind, grad_row, risk_row, pad_values)")
         dims = {p.dim for p in problems}
         if len(dims) != 1:
             raise ValueError(f"problems must share dim, got {sorted(dims)}")
-        n_nodes = tuple(p.n_nodes for p in problems)
-        if len(set(n_nodes)) != 1:
-            raise NotImplementedError(
-                f"rows with different node counts {sorted(set(n_nodes))} in "
-                "one call (padded and dynamic-N sweeps) are not ported yet "
-                "(ROADMAP P1); issue one run_mc call per node count")
         spec = PROBLEMS[kind]
+        n_nodes = tuple(p.n_nodes for p in problems)
+        n_max = max(n_nodes)
         data = {}
         for name in problems[0].data:
+            rows = []
+            for p in problems:
+                leaf = p.data[name]
+                if name in spec.pad_values and p.n_nodes < n_max:
+                    pad = leaf.new_full((n_max - p.n_nodes,)
+                                        + tuple(leaf.shape[1:]),
+                                        spec.pad_values[name])
+                    leaf = torch.cat([leaf, pad])
+                rows.append(leaf)
             try:
-                data[name] = torch.stack([p.data[name] for p in problems])
+                data[name] = torch.stack(rows)
             except RuntimeError as e:
                 raise ValueError(
                     f"data field {name!r} does not stack across the batch "
-                    f"(shapes {[tuple(p.data[name].shape) for p in problems]})"
-                ) from e
-        first = problems[0].data[next(iter(problems[0].data))]
-        data["mask"] = torch.ones((len(problems), n_nodes[0]),
-                                  dtype=torch.float32, device=first.device)
+                    f"(shapes {[tuple(r.shape) for r in rows]}); non-node "
+                    "dims must match row-for-row") from e
+        mask = torch.zeros((len(problems), n_max), dtype=torch.float32)
+        for i, n in enumerate(n_nodes):
+            mask[i, :n] = 1.0
+        data["mask"] = mask.to(data[next(iter(data))].device)
         return cls(kind=kind, grad_fn=spec.grad_row, risk_fn=spec.risk_row,
                    data=data, n_nodes=n_nodes, dim=problems[0].dim,
-                   n_max=n_nodes[0])
+                   n_max=n_max)
 
     def __len__(self) -> int:
         return len(self.n_nodes)
@@ -178,4 +194,5 @@ def problem_from_arrays(kind: str, arrays: dict, n_nodes: int, dim: int,
                      n_nodes=int(n_nodes), dim=int(dim))
 
 
-register_problem("quadratic", _quadratic_grad_row, _quadratic_risk_row)
+register_problem("quadratic", _quadratic_grad_row, _quadratic_risk_row,
+                 {"X": 0.0, "y": 0.0})

@@ -1,5 +1,5 @@
 """Random-draw machinery for the Monte Carlo engine (port of
-`repro.core.mc.sampling`, single static node-count tier).
+`repro.core.mc.sampling`).
 
 Each sampler is the twin of the reference's shaped draw — same key-split
 order, same draw shapes, same bits->float transforms — on the port's
@@ -7,9 +7,13 @@ threefry (`repro_torch.core.rng`), so a fixed key gives the reference's
 gains. Everything is batched over a leading trajectory axis: keys are
 `(B, 2)`, per-row channel scalars in `p` are `(B,)`, draws `(B, *shape)`.
 
-The padded (`lax.switch`) and counts-as-data (dynamic-N) tiers the
-reference uses for node-count sweeps are not ported yet (ROADMAP P1):
-every call here has one static node count.
+Two tiers: the plain shaped draws for one static node count, and the
+dynamic-N draws (`*_dynamic_n`) for node-count sweeps, which build each
+trajectory's counters from its own count as tensor data
+(`rng.dynamic_bits`) and zero the lanes past it. The reference's third
+tier, a per-N `lax.switch`, exists only for PRNGs other than threefry;
+the port's RNG is threefry in the original layout, so one program serves
+every N. `_row_gains` picks the tier.
 """
 from __future__ import annotations
 
@@ -74,3 +78,74 @@ def _sample_gains(key: torch.Tensor, fading: str, p: dict, shape: tuple,
     a = _col(p["phase_error_max"], 1 + len(shape))
     phi = rng.uniform(k[..., 1, :], shape, minval=-a, maxval=a)
     return (h * torch.cos(phi)).to(torch.float32)
+
+
+# --------------------------------------------------------------------------
+# dynamic-length draws (node-count sweeps): counts as data
+# --------------------------------------------------------------------------
+def _lanes_below(n: torch.Tensor, width: int) -> torch.Tensor:
+    """`(B, width)` bool: lane < n[b]."""
+    return torch.arange(width, device=n.device) < n[:, None]
+
+
+def _normal_dynamic_n(key: torch.Tensor, n: torch.Tensor, n_max: int,
+                      d: int) -> torch.Tensor:
+    """Zero-padded `(B, n_max, d)` twin of `normal(key[b], (n[b], d))`
+    for per-trajectory counts n `(B,)` (the fdm per-node noise of a
+    node-count sweep)."""
+    z = rng.u01_to_normal(rng.bits_to_u01(
+        rng.dynamic_bits(key, n * d, n_max * d)))
+    z = torch.where(_lanes_below(n * d, n_max * d), z, 0.0)
+    return z.reshape(-1, n_max, d)
+
+
+def _sample_magnitude_dynamic_n(k_mag: torch.Tensor, fading: str, p: dict,
+                                n: torch.Tensor, n_max: int) -> torch.Tensor:
+    """Dynamic-count twin of `_sample_magnitude`: `(B, n_max)`; lanes past
+    n[b] hold other draws until the caller masks them."""
+    scale = p["scale"][:, None]
+    if fading == "equal":
+        return scale.expand(-1, n_max)
+    if fading == "rayleigh":
+        u = rng.u01_to_uniform(rng.bits_to_u01(
+            rng.dynamic_bits(k_mag, n, n_max)), 1e-12, 1.0)
+        return scale * torch.sqrt(-2.0 * torch.log(u))
+    if fading == "rician":
+        nu = torch.sqrt(p["rician_k"][:, None] * 2.0) * scale
+        z = rng.u01_to_normal(rng.bits_to_u01(
+            rng.dynamic_bits(k_mag, 2 * n, 2 * n_max)))
+        xy = z.reshape(-1, n_max, 2) * scale[..., None]
+        x, y = xy[..., 0] + nu, xy[..., 1]
+        return torch.sqrt(x * x + y * y)
+    if fading == "lognormal":
+        z = rng.u01_to_normal(rng.bits_to_u01(
+            rng.dynamic_bits(k_mag, n, n_max)))
+        return torch.exp(scale * z)
+    raise ValueError(f"unknown fading model: {fading}")
+
+
+def _sample_gains_dynamic_n(key: torch.Tensor, fading: str, p: dict,
+                            n: torch.Tensor, n_max: int,
+                            phase_zero: bool = False) -> torch.Tensor:
+    """Twin of `_sample_gains(key[b], fading, p, (n[b],))` zero-padded to
+    `(B, n_max)`, n `(B,)` the trajectories' true node counts (integer
+    tensor). `phase_zero` skips the phase stream, as in `_sample_gains`."""
+    k = rng.split(key)
+    h = _sample_magnitude_dynamic_n(k[:, 0], fading, p, n, n_max)
+    if not phase_zero:
+        a = p["phase_error_max"][:, None]
+        phi = rng.u01_to_uniform(rng.bits_to_u01(
+            rng.dynamic_bits(k[:, 1], n, n_max)), -a, a)
+        h = h * torch.cos(phi)
+    return torch.where(_lanes_below(n, n_max), h.to(torch.float32), 0.0)
+
+
+def _row_gains(key: torch.Tensor, fading: str, p: dict, n: torch.Tensor,
+               n_sizes: tuple, n_max: int,
+               phase_zero: bool = False) -> torch.Tensor:
+    """The trajectories' `(B, n_max)` zero-padded slot gains: the plain
+    shaped draw when every row has the same N (`n_sizes`, the call's
+    distinct counts), the dynamic-N draw otherwise."""
+    if len(n_sizes) > 1:
+        return _sample_gains_dynamic_n(key, fading, p, n, n_max, phase_zero)
+    return _sample_gains(key, fading, p, (n_max,), phase_zero)

@@ -102,6 +102,29 @@ def _counter_bits(k: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([o0, o1], dim=-1)[..., :n]
 
 
+def dynamic_bits(k: torch.Tensor, size: torch.Tensor,
+                 out_max: int) -> torch.Tensor:
+    """Twin of `repro.core.mc.sampling._dynamic_bits`: `(B, out_max)`
+    uint32 bits whose lanes [0, size[b]) equal `random_bits(k[b],
+    (size[b],))`, the size being each trajectory's own as tensor DATA.
+
+    k is `(B, 2)` and size a `(B,)` integer tensor (<= out_max). The
+    counter pairs (j, j + m) with m = ceil(size / 2) and the odd pad slot
+    hashed on 0 are built from the sizes on the device, so one program
+    serves every size and nothing synchronizes with the host. Lanes past
+    a trajectory's size hold other hashes; the caller masks them."""
+    m_max = (out_max + 1) // 2
+    size = size.to(torch.int64)[:, None]
+    m = (size + 1) // 2
+    i = torch.arange(m_max, dtype=torch.int64, device=k.device)
+    x1 = torch.where(i + m < size, i + m, 0)
+    o0, o1 = threefry2x32(k[:, 0:1], k[:, 1:2], i, x1)
+    j = torch.arange(out_max, dtype=torch.int64, device=k.device)
+    bits0 = o0[:, j.clamp(max=m_max - 1)]
+    bits1 = torch.gather(o1, 1, (j - m).clamp(0, m_max - 1))
+    return torch.where(j < m, bits0, bits1)
+
+
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split(k, num)`: `(..., 2)` -> `(..., num, 2)`."""
     bits = _counter_bits(k, 2 * num)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -32,7 +33,7 @@ def _bind():
     if _fn is None:
         lib = _build.load(SOURCE, NAME)
         fn = lib.ota_aggregate
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.ota_error_string
@@ -43,17 +44,19 @@ def _bind():
 
 
 def launch(grads: torch.Tensor, gains: torch.Tensor, noise: torch.Tensor,
-           out: torch.Tensor, n_true: int) -> None:
-    """out[b] = (gains[b] @ grads[b]) / n_true + noise[b], on the current
-    stream of the tensors' device. Expects validated, contiguous CUDA
-    tensors: grads (B, N, d) f32/bf16, gains (B, N) f32, noise (B, d) f32,
-    out (B, d) f32/bf16. Raises if the launch is refused."""
+           out: torch.Tensor, n_true: Optional[torch.Tensor] = None) -> None:
+    """out[b] = (gains[b] @ grads[b]) / n_true[b] + noise[b], on the
+    current stream of the tensors' device. Expects validated, contiguous
+    CUDA tensors: grads (B, N, d) f32/bf16, gains (B, N) f32, noise (B, d)
+    f32, n_true (B,) f32 or None (N for every trajectory), out (B, d)
+    f32/bf16. Raises if the launch is refused."""
     fn = _bind()
     batch, n_nodes, dim = grads.shape
+    counts = None if n_true is None else n_true.data_ptr()
     with torch.cuda.device(grads.device):
         stream = torch.cuda.current_stream(grads.device).cuda_stream
         code = fn(grads.data_ptr(), gains.data_ptr(), noise.data_ptr(),
-                  out.data_ptr(), batch, n_nodes, dim, n_true,
+                  counts, out.data_ptr(), batch, n_nodes, dim,
                   int(grads.dtype == torch.bfloat16),
                   int(out.dtype == torch.bfloat16), stream)
     if code != 0:

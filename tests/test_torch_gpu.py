@@ -6,7 +6,8 @@ CUDA toolkit, and skip without them. Run them on a machine with a card:
 This file imports torch and the port only (no JAX), so with
 `--noconftest` (tests/conftest.py imports JAX) it runs where JAX is not
 installed. Each kernel is held to its plain PyTorch version at the
-reference's bars (`tests/test_kernels.py`): the OTA aggregation (K1),
+reference's bars (`tests/test_kernels.py`): the OTA aggregation (K1,
+also with per-trajectory node counts),
 flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
 each at every reference case) and the WKV6 recurrence (K3), the last two
 also at their serving slices' shapes; K3 also at lengths off its chunk,
@@ -80,6 +81,26 @@ def test_kernel_is_deterministic_and_batched_equals_unbatched(cuda):
                           for i in range(3)])
     assert torch.equal(first, again)
     assert torch.equal(first, single)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_per_trajectory_counts_match_plain_version(cuda, dtype):
+    """A node-count sweep's launch: rows of N in {50, 160, 500} zero-padded
+    to 500, each divided by its own N; uniform counts give the bits of a
+    launch without counts."""
+    counts = torch.tensor([50.0, 160.0, 500.0] * 4, device=cuda)
+    g, h, w = _inputs(12, 500, 90, dtype, 12, cuda)
+    lanes = torch.arange(500, device=cuda) < counts[:, None]
+    g, h = g * lanes[..., None].to(dtype), h * lanes
+    out = ota_edge_aggregate(g, h, w, noise_scale=0.37, n_true=counts)
+    ref = ota_edge_aggregate_ref(g, h, w, noise_scale=0.37, n_true=counts)
+    atol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=1e-2)
+    full = torch.full((12,), 500.0, device=cuda)
+    assert torch.equal(ota_edge_aggregate(g, h, w, noise_scale=0.37,
+                                          n_true=full),
+                       ota_edge_aggregate(g, h, w, noise_scale=0.37))
 
 
 # ------------------------------------------------------------ attention (K2)

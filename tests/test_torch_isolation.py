@@ -74,16 +74,13 @@ def test_run_mc_without_device_raises_where_cuda_is_absent(monkeypatch):
 
 OUT_OF_SLICE = [
     ({"n_antennas": 2}, "P3"),
-    ({"invert_channel": True}, "P4"),
-    ({"power_budget": 1.0}, "P4"),
+    ({"power_budget": 1.0}, "P3"),
     ({"batch_frac": 0.5}, "P6"),
-    ({"participation": 0.8}, "P7"),
     ({"seed_chunk": 1}, "P8"),
     ({"resume_dir": "ckpt"}, "P8"),
     ({"plan": "auto"}, "P9"),
     ({"memory_budget_bytes": 2**30}, "P9"),
     ({"shard_seeds": True}, "M8"),
-    ({"h_min": 0.3}, "P4"),
     ({"rng_plan": "hoisted"}, "P9"),
     ({"rng_plan": "inscan"}, "P9"),
     ({"plan": "hoisted"}, "P9"),
@@ -97,22 +94,14 @@ def test_out_of_slice_arguments_raise(kwargs, item):
                device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("algo", ["fdm", "power_control", "blind",
-                                  "blind_ec"])
+@pytest.mark.parametrize("algo", ["blind", "blind_ec"])
 def test_unported_algorithms_raise(algo):
-    with pytest.raises(NotImplementedError, match="ROADMAP P4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
         run_mc(_problem(), [ChannelConfig()], algo, [0.01], 3, 2,
                device="cpu")
 
 
 def test_mixed_algo_rows_and_node_counts_raise():
-    chs = [ChannelConfig(), ChannelConfig()]
-    with pytest.raises(NotImplementedError, match="ROADMAP P2"):
-        run_mc(_problem(), chs, ("gbma", "centralized"), [0.01, 0.01], 3,
-               2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP P1"):
-        run_mc([_problem(6), _problem(9)], chs, "gbma", [0.01, 0.01], 3, 2,
-               device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP P5"):
         problem_from_arrays("logistic", {}, 4, 2, device="cpu")
 
@@ -185,3 +174,21 @@ def test_training_entry_points_raise():
         build_model(cfg).train_loss_per_example({}, {})
     with pytest.raises(NotImplementedError, match="ROADMAP T1"):
         transformer.chunked_xent({}, None, None, None, cfg)
+
+
+# ------------------------------------------- node participation and ablations
+from repro_torch.figures import run_ablations  # noqa: E402
+
+
+@pytest.mark.parametrize("participation", [0.0, 1.5, -0.2, [1.0, 0.5]])
+def test_participation_outside_the_unit_interval_raises(participation):
+    with pytest.raises(ValueError, match="participation"):
+        run_mc(_problem(), [ChannelConfig()], "gbma", [0.01], 3, 2,
+               device="cpu", participation=participation)
+
+
+@pytest.mark.parametrize("part", ["d", "f"])
+def test_antenna_ablations_raise(part):
+    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
+        run_ablations(device="cpu", parts=("a", part), n=6, steps=2,
+                      seeds=1)

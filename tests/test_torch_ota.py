@@ -104,3 +104,59 @@ def test_cpu_tensors_never_launch_the_kernel():
     assert ops.launch_count == 0
     with pytest.raises(ValueError, match="impl must be"):
         ota_edge_aggregate(g, h, w, noise_scale=1.0, impl="pallas")
+
+
+# ------------------------------------------------ per-trajectory node counts
+# a node-count sweep's rows (N in {50, 160, 500} at n_max = 500, d = 90,
+# the fig3 sweep's shape cut to 2 trajectories per N) zero-padded
+RAGGED_COUNTS = (50, 50, 160, 160, 500, 500)
+
+
+def _ragged(dtype, seed=3, n_max=500, d=90):
+    rs = np.random.default_rng(seed)
+    b = len(RAGGED_COUNTS)
+    g = rs.standard_normal((b, n_max, d)).astype(np.float32)
+    h = np.abs(rs.standard_normal((b, n_max))).astype(np.float32)
+    w = rs.standard_normal((b, d)).astype(np.float32)
+    for i, n in enumerate(RAGGED_COUNTS):
+        g[i, n:], h[i, n:] = 0.0, 0.0
+    return g, h, w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_per_trajectory_counts_match_jax_oracle_row_by_row(dtype):
+    """Each padded row against the JAX oracle on its unpadded (N, d)
+    slice, which divides by that N: the reference's bars."""
+    g, h, w = _ragged(dtype)
+    counts = torch.tensor(RAGGED_COUNTS, dtype=torch.float32)
+    out = ota_edge_aggregate(torch.tensor(g).to(getattr(torch, dtype)),
+                             torch.tensor(h), torch.tensor(w),
+                             noise_scale=0.37, n_true=counts)
+    atol = 2e-5 if dtype == "float32" else 5e-2
+    for i, n in enumerate(RAGGED_COUNTS):
+        gj = jnp.asarray(g[i, :n]).astype(getattr(jnp, dtype))
+        ref = ota_edge_aggregate_ref(gj, jnp.asarray(h[i, :n]),
+                                     jnp.asarray(w[i]), noise_scale=0.37)
+        np.testing.assert_allclose(out[i].float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   atol=atol, rtol=1e-2)
+
+
+def test_uniform_counts_equal_the_scalar_path():
+    g, h, w = (torch.tensor(a) for a in _ragged("float32"))
+    n_max = g.shape[1]
+    counts = torch.full((g.shape[0],), float(n_max))
+    scalar = ota_edge_aggregate(g, h, w, noise_scale=0.37)
+    assert torch.equal(ota_edge_aggregate(g, h, w, noise_scale=0.37,
+                                          n_true=counts), scalar)
+    # the unbatched form takes a 0-d count
+    one = ota_edge_aggregate(g[0], h[0], w[0], noise_scale=0.37,
+                             n_true=torch.tensor(float(n_max)))
+    assert torch.equal(one, scalar[0])
+
+
+def test_counts_of_the_wrong_shape_raise():
+    g, h, w = (torch.tensor(a) for a in _ragged("float32"))
+    with pytest.raises(ValueError, match="counts"):
+        ota_edge_aggregate(g, h, w, noise_scale=1.0,
+                           n_true=torch.ones(g.shape[0] + 1))
