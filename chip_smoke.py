@@ -16,13 +16,18 @@ narrower copies; K3 also at lengths off its 32-step chunk). Then it
 drives the port's main paths:
 
 * the GBMA Monte Carlo engine through the OTA kernel (K1, each
-  trajectory divided by its own node count): `run_mc` -> fig3 rows (a
-  padded N sweep and an energy sweep), fig4 (gbma / fdm / centralized
-  rows in one call), fig6 (a padded N sweep), ablations (a), (b), (c)
-  (power control), (e) (momentum / Nesterov rows) and (g)
-  (participation), the engine's LARGE throughput workload and LARGE as
-  a node-count sweep (N in {1024, 2048, 4096}), each route-checked
-  against the plain version on the card, with a step profile of each;
+  trajectory divided by its own node count, and with an antenna axis):
+  `run_mc` -> fig3 rows (a padded N sweep and an energy sweep), fig4
+  (gbma / fdm / centralized rows in one call), fig5 (localization, the
+  same three rows), fig6 (a padded N sweep), fig7 (blind transmitters
+  and MRC at per-row antenna counts, with error feedback), fig8
+  (federated logistic regression with minibatches), ablations (a), (b),
+  (c) (power control), (d) (a multi-antenna edge), (e) (momentum /
+  Nesterov rows), (f) (blind power budgets; no K1 launch) and (g)
+  (participation), the engine's LARGE throughput workload, LARGE as a
+  node-count sweep (N in {1024, 2048, 4096}) and LARGE MRC (16
+  antennas), each route-checked against the plain version on the card,
+  with a step profile of each;
 * serving (`Engine.generate`: prefill, then decode) through the
   flash-attention kernels: olmo-1b at full width and depth in bf16 (the
   Hopper kernel: wgmma fed by TMA) at a 32- and a 2048-token prompt, and
@@ -131,25 +136,43 @@ LARGE = {"n": 4096, "dim": 24, "steps": 150, "seeds": 1024}
 # per N, 1024 seeds each (B = 3072 trajectories, a 1.2 GB gradient tensor)
 LARGE_SWEEP = {"n_grid": (1024, 2048, 4096), "dim": 24, "steps": 150,
                "seeds": 1024}
+# LARGE with a 16-antenna edge: gbma at a static M, K1 at (B, M, N, d) =
+# (1024, 16, 4096, 24)
+LARGE_MRC = {"n": 4096, "dim": 24, "steps": 150, "seeds": 1024, "m": 16}
 FIG_DIM = 90  # figures.MSDProblem's default width
-# main-path launches of the OTA kernel: name -> (B trajectories, N_max, d,
-# each row's node count where the rows differ, else None); the rows of a
-# launch hold B / len(counts) seeds each. LARGE first. Kept in step with
-# figures.FIG3 / FIG4 / FIG6 / ABLATIONS by `main_shapes`.
+# main-path launches of the OTA kernel: name -> (B trajectories, M antennas
+# or None for the single-antenna form, N_max, d, each row's node count
+# where the rows differ, else None); the rows of a launch hold
+# B / len(counts) seeds each. LARGE first. Kept in step with
+# figures.FIG3 ... FIG8 / ABLATIONS by `main_shapes`.
 MAIN_SHAPES = {
-    "large": (1024, 4096, 24, None),
-    "fig3 (a)": (12, 500, 90, (50, 160, 500)),
-    "fig3 (b)": (12, 500, 90, None),
-    "fig4": (4, 800, 90, None),
-    "fig6": (12, 800, 90, (100, 200, 400, 800)),
-    "ablation (a), (g)": (15, 200, 90, None),
-    "ablation (b), (c)": (3, 200, 90, None),
-    "ablation (e)": (9, 200, 90, None),
-    "large sweep": (3072, 4096, 24, (1024, 2048, 4096)),
+    "large": (1024, None, 4096, 24, None),
+    "fig3 (a)": (12, None, 500, 90, (50, 160, 500)),
+    "fig3 (b)": (12, None, 500, 90, None),
+    "fig4": (4, None, 800, 90, None),
+    "fig5": (3, None, 200, 2, None),
+    "fig6": (12, None, 800, 90, (100, 200, 400, 800)),
+    "fig7 (a)": (12, 1, 500, 90, (50, 160, 500)),
+    "fig7 (b)": (4, 1, 160, 90, None),
+    "fig8 (a)": (12, 1, 80, 16, (20, 40, 80)),
+    "fig8 (b)": (12, None, 40, 16, None),
+    "ablation (a), (g)": (15, None, 200, 90, None),
+    "ablation (b), (c)": (3, None, 200, 90, None),
+    "ablation (d) M=1": (3, 1, 200, 90, None),
+    "ablation (d) M=4": (3, 4, 200, 90, None),
+    "ablation (d) M=16": (3, 16, 200, 90, None),
+    "ablation (e)": (9, None, 200, 90, None),
+    "large sweep": (3072, None, 4096, 24, (1024, 2048, 4096)),
+    "large mrc": (1024, 16, 4096, 24, None),
 }
-# route checks of the ablations (kernel vs plain on the card) take every
-# call of each part at this many steps (the main path runs them in full)
-ABLATION_ROUTE_STEPS = 100
+# route checks (kernel vs plain on the card) cut the steps, never N, d, M
+# or the seeds: every ablation call, fig5, fig7, fig8 and LARGE MRC (at
+# its 1,024 seeds) at these many steps; the main paths run in full
+ABLATION_ROUTE_STEPS = 50
+FIG5_ROUTE_STEPS = 150
+FIG7_ROUTE_STEPS = 100
+FIG8_ROUTE_STEPS = 100
+LARGE_MRC_ROUTE_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -180,40 +203,59 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def ota_bound(b: int, n: int, d: int, g_bytes: int = 4,
-              out_bytes: int = 4, counts: bool = False) -> tuple:
-    """(least ms, what bounds it) for one OTA aggregation: each input read
-    once (the (B,) f32 counts too, when given), each output written once;
-    2 flops per gradient element."""
-    nbytes = b * n * d * g_bytes + 4 * b * n + 4 * b * d \
-        + b * d * out_bytes + (4 * b if counts else 0)
+              out_bytes: int = 4, counts: bool = False,
+              m: int = 1) -> tuple:
+    """(least ms, what bounds it) for one OTA aggregation over M antennas:
+    each input read once (g once whatever M; the (B,) f32 counts too,
+    when given), each output written once; 2M flops per gradient
+    element."""
+    nbytes = b * n * d * g_bytes + 4 * b * m * n + 4 * b * m * d \
+        + b * m * d * out_bytes + (4 * b if counts else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * b * n * d / F32_FLOPS_PER_S * 1e3
+    t_ops = 2.0 * b * m * n * d / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main_shapes() -> dict:
     """MAIN_SHAPES, checked against the launches the figure twins and
     LARGE give the kernel: fig3 (a) one padded row of `seeds` per N and
-    (b) one row per eps at the largest N; fig4 the gbma row's group;
-    fig6 one padded row per N; the ablations' calls at N = 200; the LARGE
-    sweep one padded row per N."""
-    from repro_torch.figures import ABLATIONS, FIG3, FIG4, FIG6
+    (b) one row per eps at the largest N; fig4 and fig5 the gbma row's
+    group; fig6 one padded row per N; fig7 and fig8 (a) the gbma rows of
+    the N sweep (M = 1 as per-row counts), fig7 (b) its one gbma row,
+    fig8 (b) a row per batch fraction; the ablations' calls at N = 200,
+    (d) one per M; the LARGE sweep one padded row per N; LARGE MRC."""
+    from repro_torch.figures import (ABLATIONS, FIG3, FIG4, FIG5, FIG6,
+                                     FIG7, FIG8, FIG8_DIM, FIG8_FRAC_GRID)
 
     s3, s6, sa = FIG3["seeds"], FIG6["seeds"], ABLATIONS["seeds"]
     na = ABLATIONS["n"]
     grid3, grid6 = tuple(FIG3["n_grid"]), tuple(FIG6["n_grid"])
+    grid7, grid8 = tuple(FIG7["n_grid"]), tuple(FIG8["n_grid"])
     sweep = tuple(LARGE_SWEEP["n_grid"])
     shapes = {
-        "large": (LARGE["seeds"], LARGE["n"], LARGE["dim"], None),
-        "fig3 (a)": (len(grid3) * s3, max(grid3), FIG_DIM, grid3),
-        "fig3 (b)": (len(FIG3["eps_grid"]) * s3, max(grid3), FIG_DIM, None),
-        "fig4": (FIG4["seeds"], FIG4["n"], FIG_DIM, None),
-        "fig6": (len(grid6) * s6, max(grid6), FIG_DIM, grid6),
-        "ablation (a), (g)": (5 * sa, na, FIG_DIM, None),
-        "ablation (b), (c)": (sa, na, FIG_DIM, None),
-        "ablation (e)": (3 * sa, na, FIG_DIM, None),
-        "large sweep": (len(sweep) * LARGE_SWEEP["seeds"], max(sweep),
+        "large": (LARGE["seeds"], None, LARGE["n"], LARGE["dim"], None),
+        "fig3 (a)": (len(grid3) * s3, None, max(grid3), FIG_DIM, grid3),
+        "fig3 (b)": (len(FIG3["eps_grid"]) * s3, None, max(grid3), FIG_DIM,
+                     None),
+        "fig4": (FIG4["seeds"], None, FIG4["n"], FIG_DIM, None),
+        "fig5": (FIG5["seeds"], None, FIG5["n"], 2, None),
+        "fig6": (len(grid6) * s6, None, max(grid6), FIG_DIM, grid6),
+        "fig7 (a)": (len(grid7) * FIG7["seeds"], 1, max(grid7), FIG_DIM,
+                     grid7),
+        "fig7 (b)": (FIG7["seeds"], 1, FIG7["n"], FIG_DIM, None),
+        "fig8 (a)": (len(grid8) * FIG8["seeds"], 1, max(grid8), FIG8_DIM,
+                     grid8),
+        "fig8 (b)": (len(FIG8_FRAC_GRID) * FIG8["seeds"], None, FIG8["n"],
+                     FIG8_DIM, None),
+        "ablation (a), (g)": (5 * sa, None, na, FIG_DIM, None),
+        "ablation (b), (c)": (sa, None, na, FIG_DIM, None),
+        **{f"ablation (d) M={m}": (sa, m, na, FIG_DIM, None)
+           for m in (1, 4, 16)},
+        "ablation (e)": (3 * sa, None, na, FIG_DIM, None),
+        "large sweep": (len(sweep) * LARGE_SWEEP["seeds"], None, max(sweep),
                         LARGE_SWEEP["dim"], sweep),
+        "large mrc": (LARGE_MRC["seeds"], LARGE_MRC["m"], LARGE_MRC["n"],
+                      LARGE_MRC["dim"], None),
     }
     if shapes != MAIN_SHAPES:
         raise AssertionError(f"main-path shapes {shapes} != {MAIN_SHAPES}")
@@ -231,21 +273,24 @@ def trajectory_counts(b: int, n: int, counts):
         .repeat_interleave(b // len(counts))
 
 
-def ota_inputs(b, n, d, dtype, seed, offset=0.0, n_true=None):
+def ota_inputs(b, n, d, dtype, seed, offset=0.0, n_true=None, m=None):
     """Random kernel operands; `offset` shifts the gradients' mean, so the
     sum over nodes dominates and a wrong normalization stands out. With
     per-trajectory counts `n_true`, gradients and gains are 0 past each
-    trajectory's count, as a padded node-count sweep gives them."""
+    trajectory's count, as a padded node-count sweep gives them. With `m`
+    antennas the gains are (B, M, N) and the noise (B, M, d)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g = (torch.randn((b, n, d), generator=gen, device="cuda")
          + offset).to(dtype)
-    h = torch.randn((b, n), generator=gen, device="cuda").abs()
-    w = torch.randn((b, d), generator=gen, device="cuda")
+    ant = () if m is None else (m,)
+    h = torch.randn((b,) + ant + (n,), generator=gen, device="cuda").abs()
+    w = torch.randn((b,) + ant + (d,), generator=gen, device="cuda")
     if n_true is not None:
         lanes = torch.arange(n, device="cuda") < n_true[:, None]
-        g, h = g * lanes[..., None].to(dtype), h * lanes
+        g = g * lanes[..., None].to(dtype)
+        h = h * (lanes if m is None else lanes[:, None])
     return g, h, w
 
 
@@ -260,19 +305,29 @@ def check_kernel_vs_plain() -> dict:
     from repro_torch.kernels.ota.ref import ota_edge_aggregate_ref
 
     def compare(label, b, n, d, dtype, atol, rtol, seed, offset=0.0,
-                n_true=None):
-        g, h, w = ota_inputs(b, n, d, dtype, seed, offset, n_true)
+                n_true=None, m=None, f64=False):
+        g, h, w = ota_inputs(b, n, d, dtype, seed, offset, n_true, m)
         ker = ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel",
                                  n_true=n_true)
         ref = ota_edge_aggregate_ref(g, h, w, noise_scale=0.37,
                                      n_true=n_true)
+        note = ""
+        if f64:  # the plain version in f64: the f32 plain sums N terms in
+            # sequence in its batched GEMM, errs by a few 1e-6 at N = 4096
+            ref32 = ref
+            ref = ota_edge_aggregate_ref(
+                g.double(), h.double(), w.double(), noise_scale=0.37,
+                n_true=None if n_true is None else n_true.double())
+            note = (", against the plain version in f64 (the f32 plain "
+                    f"version errs by {(ref32 - ref).abs().max().item():.3e})")
         torch.cuda.synchronize()
-        err = (ker.float() - ref.float()).abs()
-        bar = atol + rtol * ref.float().abs()
+        err = (ker.double() - ref.double()).abs()
+        bar = atol + rtol * ref.double().abs()
         ok = bool(torch.all(torch.isfinite(ker.float()))) \
             and bool(torch.all(err <= bar))
-        log(f"kernel-vs-plain {label} (B={b}, N={n}, d={d}, {dtype}"
-            f"{'' if n_true is None else ', per-trajectory counts'}): "
+        log(f"kernel-vs-plain {label} (B={b}, "
+            f"{'' if m is None else f'M={m}, '}N={n}, d={d}, {dtype}"
+            f"{'' if n_true is None else ', per-trajectory counts'}{note}): "
             f"max_abs_err={err.max().item():.3e} atol={atol} rtol={rtol} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -327,23 +382,44 @@ def check_kernel_vs_plain() -> dict:
         f"{'bitwise ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError("uniform counts change the kernel's bits")
+    # the antenna axis at odd M, N and d, with and without counts; each
+    # antenna of an M-antenna launch has a single-antenna launch's bits
+    for b, m, n, d in ((3, 5, 131, 37), (4, 7, 33, 100)):
+        for counts in (None, (n // 2 + 1, n, n)):
+            seed += 1
+            compare("antenna axis", b * 3, n, d, torch.float32, 1e-6, 1e-5,
+                    seed, n_true=trajectory_counts(b * 3, n, counts), m=m)
+    g, h, w = ota_inputs(6, 500, 90, torch.float32, 98, m=4)
+    full = ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel")
+    same = all(torch.equal(full[:, j], ota_edge_aggregate(
+        g, h[:, j].contiguous(), w[:, j].contiguous(), noise_scale=0.37,
+        impl="kernel")) for j in range(4))
+    log(f"antenna axis (B=6, M=4, N=500, d=90): each antenna == a "
+        f"single-antenna launch: {'bitwise ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("an antenna differs from a single-antenna "
+                             "launch")
     # main-path launches: gradients of mean 1 make v ~ 0.8, so a divisor
     # off by one node (N - 1) errs by v/N >= 2e-4 against a bar of ~9e-6
     errs = {}
-    for name, (b, n, d, counts) in main_shapes().items():
+    for name, (b, m, n, d, counts) in main_shapes().items():
         seed += 1
         n_true = trajectory_counts(b, n, counts)
         errs[name] = compare(f"main path {name}", b, n, d, torch.float32,
-                             1e-6, 1e-5, seed, offset=1.0, n_true=n_true)
+                             1e-6, 1e-5, seed, offset=1.0, n_true=n_true,
+                             m=m, f64=m is not None)
         lanes = torch.ones((b, n), device="cuda") if n_true is None else (
             torch.arange(n, device="cuda") < n_true[:, None]).float()
+        ant = () if m is None else (m,)
+        gains = lanes if m is None else lanes[:, None].expand(b, m, n)
         probe = ota_edge_aggregate(
-            lanes[..., None].expand(b, n, d).contiguous(), lanes,
-            torch.zeros((b, d), device="cuda"), noise_scale=1.0,
-            impl="kernel", n_true=n_true)
+            lanes[..., None].expand(b, n, d).contiguous(),
+            gains.contiguous(), torch.zeros((b,) + ant + (d,), device="cuda"),
+            noise_scale=1.0, impl="kernel", n_true=n_true)
         torch.cuda.synchronize()
         err = (probe - 1.0).abs().max().item()
-        log(f"normalization probe {name} (B={b}, N={n}, d={d}): g = h = 1 "
+        log(f"normalization probe {name} (B={b}, "
+            f"{'' if m is None else f'M={m}, '}N={n}, d={d}): g = h = 1 "
             f"on each trajectory's nodes, w = 0 -> max |v - 1| = {err:.3e} "
             "(bar 1e-06)")
         if not err <= 1e-6:
@@ -354,7 +430,8 @@ def check_kernel_vs_plain() -> dict:
 def time_kernel(errs: dict) -> list:
     """Kernel, plain version and library-call times at the main-path
     launches, beside the bound computed from the same shapes. The library
-    call is the einsum, divided by the counts where the rows differ."""
+    call is the einsum, divided by the counts where the rows differ, and
+    over an antenna axis the einsum divided by N (or the counts)."""
     import torch
 
     from repro_torch.kernels.ota import kernel
@@ -362,32 +439,38 @@ def time_kernel(errs: dict) -> list:
     from repro_torch.kernels.ota.ref import ota_edge_aggregate_ref
 
     rows = []
-    for name, (b, n, d, counts) in main_shapes().items():
+    for name, (b, m, n, d, counts) in main_shapes().items():
         n_true = trajectory_counts(b, n, counts)
-        g, h, w = ota_inputs(b, n, d, torch.float32, 7, n_true=n_true)
-        reps = 50 if b * n * d > 1e7 else 500
+        g, h, w = ota_inputs(b, n, d, torch.float32, 7, n_true=n_true, m=m)
+        reps = 50 if b * (m or 1) * n * d > 1e7 else 500
         # the bare launch on prepared operands, and the wrapper call the
         # engine makes (validation, noise fold, output allocation)
-        w_scaled, out = 0.37 * w, torch.empty((b, d), device="cuda")
+        w_scaled, out = 0.37 * w, torch.empty_like(w)
         ker = cuda_ms(lambda: kernel.launch(g, h, w_scaled, out, n_true),
                       reps)
         wrapped = cuda_ms(lambda: ota_edge_aggregate(
             g, h, w, noise_scale=0.37, impl="kernel", n_true=n_true), reps)
         plain = cuda_ms(lambda: ota_edge_aggregate_ref(
             g, h, w, noise_scale=0.37, n_true=n_true), reps)
-        if n_true is None:
+        if m is None and n_true is None:
             lib = cuda_ms(lambda: torch.einsum("bn,bnd->bd", h, g), reps)
-        else:
+        elif m is None:
             lib = cuda_ms(lambda: torch.einsum("bn,bnd->bd", h, g)
                           / n_true[:, None], reps)
-        bound, bound_by = ota_bound(b, n, d, counts=n_true is not None)
-        row = {"launch": name, "shape": [b, n, d], "dtype": "float32",
+        else:  # the antenna axis' yardstick, einsum / N
+            div = n if n_true is None else n_true[:, None, None]
+            lib = cuda_ms(lambda: torch.einsum("bmn,bnd->bmd", h, g) / div,
+                          reps)
+        bound, bound_by = ota_bound(b, n, d, counts=n_true is not None,
+                                    m=m or 1)
+        row = {"launch": name, "shape": [b, n, d], "antennas": m,
+               "dtype": "float32",
                "counts": list(counts) if counts else None, "ms": ker,
                "wrapper_ms": wrapped, "plain_ms": plain, "library_ms": lib,
                "bound_ms": bound, "bound_by": bound_by,
                "max_abs_err": errs[name]}
-        log(f"ota timing {name} B={b} N={n} d={d}"
-            f"{'' if counts is None else f' counts {counts}'}: kernel "
+        log(f"ota timing {name} B={b}{'' if m is None else f' M={m}'} N={n}"
+            f" d={d}{'' if counts is None else f' counts {counts}'}: kernel "
             f"{ker:.6f} ms (wrapper call {wrapped:.6f} ms), plain "
             f"{plain:.6f} ms, einsum {lib:.6f} ms, bound {bound:.6f} ms "
             f"({bound_by}), kernel at {bound / ker:.1%} of bound")
@@ -395,59 +478,92 @@ def time_kernel(errs: dict) -> list:
     return rows
 
 
+def _within(out, ref, atol: float = 0.0) -> tuple:
+    """(max rel diff, whether |out - ref| <= 1e-5 |ref| + atol
+    everywhere)."""
+    import numpy as np
+
+    diff = np.abs(out - ref)
+    rel = float(np.max(diff / np.maximum(np.abs(ref), 1e-30)))
+    return rel, bool(np.all(diff <= 1e-5 * np.abs(ref) + atol))
+
+
+def logistic_atol(probs) -> float:
+    """The floor of the logistic excess risk's bar: 4 ulps of the f32
+    objective F* it is taken from (ROADMAP §3, F8)."""
+    import numpy as np
+
+    f_star = max(float(p.data["f_star"]) for p in probs)
+    return 4 * float(np.spacing(np.float32(f_star)))
+
+
 def check_cuda_matches_cpu() -> None:
     """Small sweeps on the card (kernel route) against the same sweeps on
     the CPU (the plain version, the path the CPU tests hold to the JAX
-    reference): one gbma call, and one padded call mixing gbma, fdm and
-    power_control rows with node participation."""
-    import numpy as np
-
+    reference): one gbma call, one padded call mixing gbma, fdm and
+    power_control rows with node participation, and one padded logistic
+    call mixing gbma, blind and blind_ec rows at per-row antenna counts,
+    finite and infinite power budgets, with minibatches."""
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.mc.engine import run_mc
-    from repro_torch.figures import MSDProblem
+    from repro_torch.figures import MSDProblem, _fig8_problem
 
-    def both(label, probs, *args, **kw):
-        gpu = run_mc([p.to_mc("cuda") for p in probs], *args,
-                     device="cuda", **kw)
-        cpu = run_mc([p.to_mc("cpu") for p in probs], *args, device="cpu",
-                     **kw)
-        rel = float(np.max(np.abs(gpu.risks - cpu.risks)
-                           / np.abs(cpu.risks)))
+    def both(label, make, *args, atol=0.0, **kw):
+        gpu = run_mc(make("cuda"), *args, device="cuda", **kw)
+        cpu = run_mc(make("cpu"), *args, device="cpu", **kw)
+        rel, ok = _within(gpu.risks, cpu.risks, atol)
         log(f"run_mc cuda (kernel) vs cpu (plain), {label}: max rel diff "
-            f"of risks {rel:.3e} (bar 1e-05)")
-        if not rel <= 1e-5:
+            f"of risks {rel:.3e} (bar 1e-05{f' + {atol:.3e}' if atol else ''}"
+            f")")
+        if not ok:
             raise AssertionError(f"run_mc on the card disagrees with the "
                                  f"CPU: {label}")
 
     chs = [ChannelConfig(fading="rayleigh", energy=e) for e in (1.0, 0.5)]
     both("N=48 d=16 2 rows x 2 seeds x 40 steps",
-         [MSDProblem.make(48, dim=16)], chs, "gbma", [0.01, 0.02], 40, 2)
+         lambda dev: MSDProblem.make(48, dim=16).to_mc(dev), chs, "gbma",
+         [0.01, 0.02], 40, 2)
     chs = [ChannelConfig(fading="rayleigh", energy=e) for e in
            (1.0, 0.5, 0.25)]
     both("padded N in (20, 33, 48), gbma / fdm / power_control rows, "
          "participation (1, 0.7, 0.5), d=16, 2 seeds x 40 steps",
-         [MSDProblem.make(n, dim=16) for n in (20, 33, 48)], chs,
+         lambda dev: [MSDProblem.make(n, dim=16).to_mc(dev)
+                      for n in (20, 33, 48)], chs,
          ("gbma", "fdm", "power_control"), [0.01, 0.01, 0.01], 40, 2,
          participation=[1.0, 0.7, 0.5])
+    probs = {n: _fig8_problem(n, "cpu") for n in (20, 40)}
+    chs = [ChannelConfig(fading="rayleigh", noise_std=0.5, energy=1 / n)
+           for n in (20, 40, 40, 20)]
+    beta = probs[20][1]
+    both("logistic, padded N in (20, 40), gbma (M=1) / blind (M=3) / "
+         "blind_ec (M=5, budget 0.05) / blind_ec (M=2, unbounded) rows, "
+         "batch_frac 0.5, d=16, 2 seeds x 40 steps",
+         lambda dev: [_fig8_problem(n, dev)[0] for n in (20, 40, 40, 20)],
+         chs, ("gbma", "blind", "blind_ec", "blind_ec"), [beta] * 4, 40, 2,
+         n_antennas=(1, 3, 5, 2),
+         power_budget=[float("inf"), float("inf"), 0.05, float("inf")],
+         batch_frac=0.5, atol=logistic_atol([p for p, _ in probs.values()]))
 
 
-def check_routes(label: str, call, fields=("risks", "cum_energy", "mean")
-                 ) -> None:
+def check_routes(label: str, call, fields=("risks", "cum_energy", "mean"),
+                 risk_atol: float = 0.0) -> None:
     """`call(ota_impl)` through the kernel and through the plain version
-    on the card: each `fields` array within 1e-5 rel, and finite."""
+    on the card: each `fields` array within 1e-5 rel (risks and mean
+    plus `risk_atol`: the logistic floor), and finite."""
     import numpy as np
 
     out = {impl: call(impl) for impl in ("kernel", "ref")}
-    rel = {}
+    rel, ok = {}, True
     for name in fields:
         ker, ref = getattr(out["kernel"], name), getattr(out["ref"], name)
         if not np.all(np.isfinite(ker)):
             raise AssertionError(f"{label}: non-finite {name}")
-        rel[name] = float(np.max(np.abs(ker - ref)
-                                 / np.maximum(np.abs(ref), 1e-30)))
+        rel[name], within = _within(
+            ker, ref, risk_atol if name in ("risks", "mean") else 0.0)
+        ok = ok and within
     log(f"{label} kernel vs plain route on the card: max rel diff {rel} "
-        "(bar 1e-05)")
-    if not all(v <= 1e-5 for v in rel.values()):
+        f"(bar 1e-05{f' + {risk_atol:.3e} on risks' if risk_atol else ''})")
+    if not ok:
         raise AssertionError(f"{label}: kernel and plain routes disagree")
 
 
@@ -568,11 +684,20 @@ def run_fig6_main_path(ops) -> int:
     return launches
 
 
-def run_ablations_main_path(ops) -> int:
-    """Ablations (a), (b), (c), (e), (g) at N = 200: every call through
-    both routes at ABLATION_ROUTE_STEPS, then all parts through the
-    port's entry point in full (each call an OTA slot: one launch a
-    step)."""
+def _k1_launches(algos, steps: int) -> int:
+    """K1 launches of one call: one a step when some row's slot goes
+    through the OTA kernel (the gbma family, power_control)."""
+    algos = (algos,) if isinstance(algos, str) else algos
+    on_k1 = {"gbma", "momentum", "nesterov", "power_control"}
+    return steps if on_k1 & set(algos) else 0
+
+
+def run_ablations_main_path(ops) -> dict:
+    """Ablations at N = 200: every call of every part through both routes
+    at ABLATION_ROUTE_STEPS, then (a)(b)(c)(e)(g), (d) and (f) through
+    the port's entry point in full, each its own main path (each OTA call
+    one launch a step; (d) twice the steps; (f), blind rows only, none).
+    Returns the launches of each main path."""
     from repro_torch.core.mc.engine import run_mc
     from repro_torch.figures import (ABLATION_PARTS, ABLATIONS, MSDProblem,
                                      ablation_calls, run_ablations)
@@ -580,19 +705,99 @@ def run_ablations_main_path(ops) -> int:
     n, steps, seeds = ABLATIONS["n"], ABLATIONS["steps"], ABLATIONS["seeds"]
     prob = MSDProblem.make(n)
     mc = prob.to_mc("cuda")
-    n_calls = 0
+    expected = {}
     for part in ABLATION_PARTS:
-        for label, chs, algos, betas, kw in ablation_calls(part, prob, n):
-            n_calls += 1
+        expected[part] = 0
+        for label, chs, algos, betas, kw, factor in ablation_calls(part,
+                                                                   prob, n):
+            expected[part] += _k1_launches(algos, factor * steps)
             check_routes(
                 f"ablation ({part}) {label} (B={len(chs) * seeds}, N={n}, "
                 f"{ABLATION_ROUTE_STEPS} steps)", lambda impl: run_mc(
                     mc, chs, algos, betas, ABLATION_ROUTE_STEPS, seeds,
                     ota_impl=impl, device="cuda", **kw))
-    launches, _, wall = run_figure_main_path(
-        ops, "ablations (a)(b)(c)(e)(g)", run_ablations, n_calls * steps)
-    log(f"ablations: {n_calls} run_mc calls x {steps} steps, "
-        f"{wall / (n_calls * steps) * 1e3:.3f} ms per step")
+    launches = {}
+    for parts in (("a", "b", "c", "e", "g"), ("d",), ("f",)):
+        label = "ablations " + "".join(f"({p})" for p in parts)
+        want = sum(expected[p] for p in parts)
+        launches[label], _, wall = run_figure_main_path(
+            ops, label, lambda device, parts=parts: run_ablations(
+                device=device, parts=parts), want)
+        log(f"{label}: {want} K1 launches expected, wall {wall:.3f} s")
+    return launches
+
+
+def run_fig5_main_path(ops) -> int:
+    """Fig. 5 (localization, N = 200, d = 2, gbma / fdm / centralized from
+    θ0 = (45, 45), 3 seeds, 3,000 steps): the route check at
+    FIG5_ROUTE_STEPS, then the main path, one K1 launch a step."""
+    import numpy as np
+
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.figures import FIG5, FIG5_THETA0, fig5_call, run_fig5
+
+    mc, chs, algos, betas = fig5_call("cuda", **FIG5)
+    check_routes(f"fig5 (B=9, N={FIG5['n']}, d=2, {algos}, "
+                 f"{FIG5_ROUTE_STEPS} steps)", lambda impl: run_mc(
+                     mc, chs, algos, betas, FIG5_ROUTE_STEPS, FIG5["seeds"],
+                     theta0=np.array(FIG5_THETA0), ota_impl=impl,
+                     device="cuda"))
+    launches, rows, wall = run_figure_main_path(ops, "fig5", run_fig5,
+                                                FIG5["steps"])
+    log(f"fig5: {wall / FIG5['steps'] * 1e3:.3f} ms per step; "
+        + "; ".join(r for r in rows if "converges" in r))
+    if "fig5,gbma_converges,1" not in rows:
+        raise AssertionError("fig5: gbma does not converge")
+    return launches
+
+
+def run_fig7_main_path(ops) -> int:
+    """Fig. 7 (blind transmitters: (a) N in (50, 160, 500) at M = 32, (b)
+    M in (1, 4, 16, 64) at N = 160; d = 90, 4 seeds, 600 steps): both
+    calls through both routes at FIG7_ROUTE_STEPS, then the main path;
+    the gbma group (M = 1 as a per-row count) launches K1 once a step."""
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.figures import FIG7, fig7_calls, run_fig7
+
+    for part, (mcs, chs, algos, betas, kw) in zip(
+            "ab", fig7_calls("cuda", **FIG7)):
+        check_routes(f"fig7 ({part}) (B={len(chs) * FIG7['seeds']}, "
+                     f"M={kw['n_antennas']}, d=90, {FIG7_ROUTE_STEPS} "
+                     "steps)", lambda impl: run_mc(
+                         mcs, chs, algos, betas, FIG7_ROUTE_STEPS,
+                         FIG7["seeds"], ota_impl=impl, device="cuda", **kw))
+    steps = 2 * FIG7["steps"]
+    launches, rows, wall = run_figure_main_path(ops, "fig7", run_fig7,
+                                                steps)
+    log(f"fig7: 2 run_mc calls x {FIG7['steps']} steps, "
+        f"{wall / steps * 1e3:.3f} ms per step")
+    return launches
+
+
+def run_fig8_main_path(ops) -> int:
+    """Fig. 8 (federated logistic regression: (a) N in (20, 40, 80) at
+    minibatch fraction 1/2 with blind rows at M = 16, (b) fractions (1,
+    1/2, 1/4) at N = 40; d = 16, 4 seeds, 300 steps): both calls through
+    both routes at FIG8_ROUTE_STEPS (risks also within the logistic
+    floor, ROADMAP §3 F8), then the main path, one K1 launch a step of
+    each call."""
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.figures import FIG8, fig8_calls, run_fig8
+
+    for part, (probs, chs, algos, betas, kw) in zip(
+            "ab", fig8_calls("cuda", **FIG8)):
+        listed = probs if isinstance(probs, list) else [probs]
+        check_routes(f"fig8 ({part}) (B={len(chs) * FIG8['seeds']}, "
+                     f"{kw}, d=16, {FIG8_ROUTE_STEPS} steps)",
+                     lambda impl: run_mc(probs, chs, algos, betas,
+                                         FIG8_ROUTE_STEPS, FIG8["seeds"],
+                                         ota_impl=impl, device="cuda", **kw),
+                     risk_atol=logistic_atol(listed))
+    steps = 2 * FIG8["steps"]
+    launches, rows, wall = run_figure_main_path(ops, "fig8", run_fig8,
+                                                steps)
+    log(f"fig8: 2 run_mc calls x {FIG8['steps']} steps, "
+        f"{wall / steps * 1e3:.3f} ms per step")
     return launches
 
 
@@ -618,26 +823,41 @@ def large_sweep_workload():
     return mcs, chs, [0.01] * len(grid)
 
 
+def large_mrc_workload():
+    """LARGE with a 16-antenna edge: gbma at E_N = 1/N, β = 0.01."""
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.figures import MSDProblem
+
+    prob = MSDProblem.make(LARGE_MRC["n"], dim=LARGE_MRC["dim"])
+    ch = ChannelConfig(fading="rayleigh", scale=1.0, noise_std=1.0,
+                       energy=1.0 / LARGE_MRC["n"])
+    return prob.to_mc("cuda"), ch, 0.01
+
+
 def run_large_main_path(ops, label: str, mcs, chs, betas, steps: int,
-                        seeds: int) -> tuple:
+                        seeds: int, route_seeds: int = 64,
+                        route_steps: int = None, **kw) -> tuple:
     """A LARGE-scale gbma call (keep_seed_curves=False): the kernel and
-    plain routes over 64 seeds a row, then the call at `seeds` seeds a
-    row with its wall, peak device memory and launches (one per step for
-    all trajectories). Returns (launches, seconds per step)."""
+    plain routes at `route_seeds` seeds a row (`route_steps` steps, all
+    by default), then the call at `seeds` seeds a row with its wall, peak
+    device memory and launches (one per step for all trajectories).
+    Returns (launches, seconds per step)."""
     import numpy as np
     import torch
 
     from repro_torch.core.mc.engine import run_mc
 
-    check_routes(f"{label} at 64 seeds a row", lambda impl: run_mc(
-        mcs, chs, "gbma", betas, steps, 64, keep_seed_curves=False,
-        ota_impl=impl, device="cuda"), fields=("mean",))
+    check_routes(f"{label} at {route_seeds} seeds a row, "
+                 f"{route_steps or steps} steps", lambda impl: run_mc(
+                     mcs, chs, "gbma", betas, route_steps or steps,
+                     route_seeds, keep_seed_curves=False, ota_impl=impl,
+                     device="cuda", **kw), fields=("mean",))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.launch_count = 0
     t0 = time.perf_counter()
     res = run_mc(mcs, chs, "gbma", betas, steps, seeds,
-                 keep_seed_curves=False, device="cuda")
+                 keep_seed_curves=False, device="cuda", **kw)
     wall = time.perf_counter() - t0
     launches = ops.launch_count
     peak = torch.cuda.max_memory_allocated()
@@ -760,13 +980,17 @@ def _base_profile_cases() -> dict:
 
 
 def _new_path_profile_cases() -> dict:
-    """The step profile's cases of the node-count, mixed-row, fdm, power
-    control and participation paths: fig4, fig6, one call of each
-    ablation part, the LARGE sweep."""
+    """The step profile's cases of the later slices' paths: fig4, fig5,
+    fig6, fig7 (b), fig8 (a), one call of each ablation part, the LARGE
+    sweep."""
+    import numpy as np
+
     from repro_torch.core.mc.engine import run_mc
-    from repro_torch.figures import (ABLATION_PARTS, ABLATIONS, FIG4, FIG6,
+    from repro_torch.figures import (ABLATION_PARTS, ABLATIONS, FIG4, FIG5,
+                                     FIG5_THETA0, FIG6, FIG7, FIG8,
                                      MSDProblem, ablation_calls, fig4_call,
-                                     fig6_call)
+                                     fig5_call, fig6_call, fig7_calls,
+                                     fig8_calls)
 
     def case(mcs, chs, algos, betas, seeds, **kw):
         n = max(m.n_nodes for m in mcs) if isinstance(mcs, list) \
@@ -779,16 +1003,23 @@ def _new_path_profile_cases() -> dict:
 
     mc, chs, algos, betas = fig4_call("cuda", **FIG4)
     cases = {"fig4": case(mc, chs, algos, betas, FIG4["seeds"])}
+    mc, chs, algos, betas = fig5_call("cuda", **FIG5)
+    cases["fig5"] = case(mc, chs, algos, betas, FIG5["seeds"],
+                         theta0=np.array(FIG5_THETA0))
     mcs, chs, betas = fig6_call("cuda", **FIG6)
     cases["fig6"] = case(mcs, chs, "gbma", betas, FIG6["seeds"])
+    mc, chs, algos, betas, kw = fig7_calls("cuda", **FIG7)[1]
+    cases["fig7 (b)"] = case(mc, chs, algos, betas, FIG7["seeds"], **kw)
+    probs, chs, algos, betas, kw = fig8_calls("cuda", **FIG8)[0]
+    cases["fig8 (a)"] = case(probs, chs, algos, betas, FIG8["seeds"], **kw)
     n = ABLATIONS["n"]
     prob = MSDProblem.make(n)
     mc = prob.to_mc("cuda")
     # part (b): rician (the most draws); (c): the power_control call;
-    # (e): gamma = 0.9; (a), (g): their one call
-    pick = {"a": 0, "b": 2, "c": 1, "e": 1, "g": 0}
+    # (d): M = 16; (e): gamma = 0.9; (a), (f), (g): their one call
+    pick = {"a": 0, "b": 2, "c": 1, "d": 2, "e": 1, "f": 0, "g": 0}
     for part in ABLATION_PARTS:
-        label, chs, algos, betas, kw = ablation_calls(part, prob, n)[
+        label, chs, algos, betas, kw, _ = ablation_calls(part, prob, n)[
             pick[part]]
         cases[f"ablation ({part})"] = case(mc, chs, algos, betas,
                                            ABLATIONS["seeds"], **kw)
@@ -1699,11 +1930,18 @@ def main() -> int:
     from repro_torch.kernels.ota import ops
     from repro_torch.kernels.wkv import ops as wkv_ops
 
+    t_start = time.perf_counter()
+
+    def elapsed(phase: str) -> None:
+        torch.cuda.synchronize()
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s after {phase}")
+
     smi = smi_line()
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     sass, f32_sass, wkv_build = build_kernels()
+    elapsed('the build')
 
     # K1 and the Monte Carlo path
     errs = check_kernel_vs_plain()
@@ -1711,6 +1949,7 @@ def main() -> int:
     timings = time_kernel(errs)
     torch.cuda.synchronize()
     check_cuda_matches_cpu()
+    elapsed("K1's checks and timing, the card against the CPU")
     torch.cuda.synchronize()
     check_fig3_routes()
     torch.cuda.synchronize()
@@ -1725,7 +1964,15 @@ def main() -> int:
     torch.cuda.synchronize()
     mc_launches["fig6"] = run_fig6_main_path(ops)
     torch.cuda.synchronize()
-    mc_launches["ablations (a)(b)(c)(e)(g)"] = run_ablations_main_path(ops)
+    mc_launches.update(run_ablations_main_path(ops))
+    elapsed('fig3, LARGE, fig4, fig6, the ablations')
+    torch.cuda.synchronize()
+    mc_launches["fig5"] = run_fig5_main_path(ops)
+    torch.cuda.synchronize()
+    mc_launches["fig7"] = run_fig7_main_path(ops)
+    torch.cuda.synchronize()
+    mc_launches["fig8"] = run_fig8_main_path(ops)
+    elapsed('fig5, fig7, fig8')
     torch.cuda.synchronize()
     mcs, chs, betas = large_sweep_workload()
     mc_launches["large sweep"], sweep_step_s = run_large_main_path(
@@ -1734,10 +1981,21 @@ def main() -> int:
     del mcs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    mc, ch, beta = large_mrc_workload()
+    mc_launches["large mrc"], mrc_step_s = run_large_main_path(
+        ops, f"LARGE MRC M={LARGE_MRC['m']}", mc, [ch], [beta],
+        LARGE_MRC["steps"], LARGE_MRC["seeds"],
+        route_seeds=LARGE_MRC["seeds"], route_steps=LARGE_MRC_ROUTE_STEPS,
+        n_antennas=LARGE_MRC["m"])
+    del mc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     step_breakdown()
+    elapsed('the LARGE sweep, LARGE MRC and the step breakdown')
     torch.cuda.synchronize()
     prof = step_profile({**_base_profile_cases(),
                          **_new_path_profile_cases()})
+    elapsed('the step profile')
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1753,6 +2011,7 @@ def main() -> int:
     del olmo, olmo_params
     torch.cuda.empty_cache()
     repro_launches, repro_times = serve_repro_100m(attn_ops)
+    elapsed('K2 and serving olmo-1b, repro-100m')
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1766,6 +2025,7 @@ def main() -> int:
         per_generate=rwkv.cfg.n_layers * (1 + SERVE_NEW_TOKENS))
     rwkv_routes = check_rwkv_routes(rwkv, rwkv_params)
     rwkv_times = serve_timing(rwkv, rwkv_params, "wkv6")
+    elapsed('K3 and serving rwkv6-7b')
     del rwkv, rwkv_params
     torch.cuda.synchronize()
 
@@ -1783,7 +2043,9 @@ def main() -> int:
         "launches_by_run": mc_launches,
         "large_ms_per_step": large_step_s * 1e3,
         "large_sweep_ms_per_step": sweep_step_s * 1e3,
+        "large_mrc_ms_per_step": mrc_step_s * 1e3,
         "padded": next(r for r in timings if r["launch"] == "fig3 (a)"),
+        "large_mrc": next(r for r in timings if r["launch"] == "large mrc"),
         "shapes": timings, "step_profile": prof,
     }
     attn_primary = attn_timings[0]  # olmo-1b prefill at 2048, bf16

@@ -7,11 +7,14 @@ stepsize) tuple; `run_mc` stacks the rows and hands the sweep to
 `exec.run_core`, which runs every (row, seed) trajectory as one batch on
 the device. Arguments keep the reference's names.
 
-The port covers single-antenna calls of `gbma`, `centralized`, `fdm`,
-`power_control`, `momentum` and `nesterov` on quadratic problems, all
-seeds live: rows may differ in node count (padded to N_max, one call),
-in algorithm, and in node participation. Every argument or value outside
-that raises `NotImplementedError` naming the ROADMAP item that brings it.
+The port covers `gbma`, `centralized`, `fdm`, `power_control`,
+`momentum`, `nesterov`, `blind` and `blind_ec` on the `quadratic`,
+`localization` and `logistic` problems, all seeds live: rows may differ
+in node count (padded to N_max, one call), in algorithm, in node
+participation, in antenna count, power budget and minibatch fraction.
+Every argument outside that (seed chunks and resume, execution plans,
+seed placement) raises `NotImplementedError` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -28,9 +31,6 @@ from repro_torch.core.mc.problems import MCProblem, MCProblemBatch
 from repro_torch.core.mc.slots import ALGO_REGISTRY
 from repro_torch.core.theory import ProblemConstants, theorem1_bound
 
-# reference algorithms that are registered in `repro` but not ported yet
-_P3 = "P3: antennas and MRC, with blind and blind_ec"
-_LATER_ALGOS = {"blind": _P3, "blind_ec": _P3}
 _OTA_IMPLS = ("auto", "kernel", "ref")
 
 
@@ -78,8 +78,8 @@ class MCResult:
     cum_energy: (C, S, steps) cumulative transmitted energy Σ E_N ‖x_k‖²,
                 or None under `keep_seed_curves=False`.
     bounds:     (C, steps+1) Theorem-1 bound per row, at the row's own N
-                (None unless problem constants were given and every row
-                is single-antenna gbma).
+                (None unless problem constants were given, every row is
+                gbma and no antenna setting was given).
     device:     the device the sweep ran on.
     """
 
@@ -95,20 +95,11 @@ def _is_scalar(v) -> bool:
     return isinstance(v, (int, float, np.integer, np.floating))
 
 
-def _reject_out_of_slice(*, n_antennas, power_budget, shard_seeds,
-                         batch_frac, seed_chunk, rng_plan, plan, resume_dir,
-                         memory_budget_bytes) -> None:
-    if n_antennas is not None:
-        raise _not_ported("n_antennas (multi-antenna edge, MRC)", _P3)
-    if power_budget is not None:
-        raise _not_ported("power_budget (blind_ec)", _P3)
+def _reject_out_of_slice(*, shard_seeds, seed_chunk, rng_plan, plan,
+                         resume_dir, memory_budget_bytes) -> None:
     if shard_seeds:
         raise _not_ported("shard_seeds=True (seed placement)",
                           "M8: multi-GPU placement")
-    fracs = (batch_frac,) if _is_scalar(batch_frac) else tuple(batch_frac)
-    if any(float(f) != 1.0 for f in fracs):
-        raise _not_ported(f"batch_frac={batch_frac} (stochastic minibatches)",
-                          "P6: stochastic minibatches")
     if seed_chunk is not None:
         raise _not_ported("seed_chunk", "P8: seed_chunk, Chan merge and "
                           "resume")
@@ -123,6 +114,49 @@ def _reject_out_of_slice(*, n_antennas, power_budget, shard_seeds,
     if memory_budget_bytes is not None:
         raise _not_ported("memory_budget_bytes (plan='auto')",
                           "P9: execution plans")
+
+
+def _per_row(value, n_rows: int, name: str, cast=float) -> tuple:
+    """A scalar broadcast to every row, or one value per row."""
+    if _is_scalar(value):
+        return (cast(value),) * n_rows
+    values = tuple(cast(v) for v in value)
+    if len(values) != n_rows:
+        raise ValueError(f"need one {name} per row: {len(values)} vs "
+                         f"C={n_rows}")
+    return values
+
+
+def _resolve_antennas(n_antennas, n_rows: int) -> tuple:
+    """-> (static count or None, per-row counts or None)."""
+    if n_antennas is None:
+        return None, None
+    static = isinstance(n_antennas, (int, np.integer))
+    counts = _per_row(n_antennas, n_rows, "antenna count", int)
+    if any(m < 1 for m in counts):
+        raise ValueError(f"antenna counts must be >= 1: {n_antennas}")
+    return (counts[0], None) if static else (None, counts)
+
+
+def _resolve_batch_frac(batch_frac, n_rows: int,
+                        batch_prob: MCProblemBatch):
+    """-> `(sample_indices_row, stochastic_grad_from_idx, b_max)` and the
+    per-row lane counts b = max(1, round(f·k)) for minibatches, or
+    (None, None) for exact full-batch gradients (every fraction 1)."""
+    fracs = _per_row(batch_frac, n_rows, "batch_frac")
+    if any(not 0.0 < f <= 1.0 for f in fracs):
+        raise ValueError(f"batch_frac must be in (0, 1], got {fracs}")
+    if all(f == 1.0 for f in fracs):
+        return None, None
+    spec = batch_prob.spec
+    if not batch_prob.stochastic or spec.sample_indices_row is None:
+        raise ValueError(
+            f"batch_frac={fracs} needs a stochastic problem kind (a "
+            f"registered minibatch gradient); got kind={batch_prob.kind!r}")
+    k = batch_prob.data[spec.sample_axis_field].shape[-2]
+    b_counts = tuple(max(1, int(round(f * k))) for f in fracs)
+    return ((spec.sample_indices_row, spec.stochastic_grad_from_idx,
+             max(b_counts)), b_counts)
 
 
 def run_mc(
@@ -169,6 +203,18 @@ def run_mc(
     node transmits with that probability and stays silent otherwise (no
     energy); the edge still divides by the full N.
 
+    `n_antennas`: the edge antenna count M. An int is one M for every row
+    (the OTA rows take the MRC path, 1 included, and average over M); a
+    sequence gives one M per row, each row replaying `split(key, m)` for
+    its own m. Required for `blind` / `blind_ec`. `power_budget` (scalar
+    or one per row; default unbounded): the per-slot, per-node budget on
+    the squared norm that `blind_ec` rows enforce, carrying the truncated
+    rest in their residual. `batch_frac` (scalar or one per row, in
+    (0, 1]): the fraction of each node's local samples drawn per slot
+    for a stochastic problem (`logistic`), b = max(1, round(f·k)) lanes
+    with replacement; 1.0 everywhere computes the exact full-batch
+    gradient and draws nothing.
+
     `device`: None runs on the CUDA card and raises without one; pass
     `device="cpu"` for the CPU. The problem data moves to this device.
 
@@ -180,10 +226,9 @@ def run_mc(
     defaults is outside the port so far and raises `NotImplementedError`.
     """
     _reject_out_of_slice(
-        n_antennas=n_antennas, power_budget=power_budget,
-        shard_seeds=shard_seeds, batch_frac=batch_frac,
-        seed_chunk=seed_chunk, rng_plan=rng_plan, plan=plan,
-        resume_dir=resume_dir, memory_budget_bytes=memory_budget_bytes)
+        shard_seeds=shard_seeds, seed_chunk=seed_chunk, rng_plan=rng_plan,
+        plan=plan, resume_dir=resume_dir,
+        memory_budget_bytes=memory_budget_bytes)
     if ota_impl not in _OTA_IMPLS:
         raise ValueError(f"ota_impl must be one of {_OTA_IMPLS}, got "
                          f"{ota_impl!r}")
@@ -202,17 +247,16 @@ def run_mc(
     if len(algos) != n_rows:
         raise ValueError(f"need one algo per row: {len(algos)} vs C={n_rows}")
     for a in algos:
-        if a in _LATER_ALGOS:
-            raise _not_ported(f"algo {a!r}", _LATER_ALGOS[a])
         if a not in ALGO_REGISTRY:
             raise ValueError(f"unknown algo {a!r}; expected one of "
                              f"{tuple(ALGO_REGISTRY)}")
     specs = [ALGO_REGISTRY[a] for a in algos]
-    parts = (float(participation),) * n_rows if _is_scalar(participation) \
-        else tuple(float(q) for q in participation)
-    if len(parts) != n_rows:
-        raise ValueError(f"need one participation per row: {len(parts)} "
-                         f"vs C={n_rows}")
+    m_static, m_per_row = _resolve_antennas(n_antennas, n_rows)
+    antennas = m_static is not None or m_per_row is not None
+    if any(s.blind for s in specs) and not antennas:
+        raise ValueError(
+            "blind/blind_ec need n_antennas (the edge antenna count M)")
+    parts = _per_row(participation, n_rows, "participation")
     if any(not 0.0 < q <= 1.0 for q in parts):
         raise ValueError(f"participation must be in (0, 1], got {parts}")
 
@@ -250,6 +294,22 @@ def run_mc(
     if any(q < 1.0 for q in parts):  # p = 1 everywhere draws no mask
         params["participation"] = torch.tensor(parts, dtype=torch.float32,
                                                device=dev)
+    if any(s.error_feedback for s in specs):
+        budgets = _per_row(float("inf") if power_budget is None
+                           else power_budget, n_rows, "power budget")
+        params["ec"] = torch.tensor(
+            [1.0 if s.error_feedback else 0.0 for s in specs],
+            dtype=torch.float32, device=dev)
+        params["tx_budget"] = torch.tensor(budgets, dtype=torch.float32,
+                                           device=dev)
+    if m_per_row is not None:
+        params["n_antennas"] = torch.tensor(m_per_row, dtype=torch.float32,
+                                            device=dev)
+    stochastic, b_counts = _resolve_batch_frac(batch_frac, n_rows,
+                                               batch_prob)
+    if b_counts is not None:
+        params["b_count"] = torch.tensor(b_counts, dtype=torch.int64,
+                                         device=dev)
 
     dim = batch_prob.dim
     t0 = torch.zeros(dim, dtype=torch.float32, device=dev) if theta0 is None \
@@ -260,7 +320,8 @@ def run_mc(
         grad_fn=batch_prob.grad_fn, risk_fn=batch_prob.risk_fn,
         algos=algos, fading=ch_batch.fading, steps=steps, n_sizes=n_sizes,
         invert_channel=invert_channel, h_min=float(h_min),
-        ota_impl=ota_impl, phase_zero=phase_zero,
+        ota_impl=ota_impl, phase_zero=phase_zero, n_antennas=m_static,
+        m_per_row=m_per_row, stochastic=stochastic,
         reduce_moments=not keep_seed_curves)
     if keep_seed_curves:
         risks, cum_e = (x.cpu().numpy() for x in out)
@@ -275,7 +336,7 @@ def run_mc(
         if len(pcs) != n_rows:
             raise ValueError(f"need one ProblemConstants per row: "
                              f"{len(pcs)} vs C={n_rows}")
-        if all(s.theorem1 for s in specs):
+        if all(s.theorem1 for s in specs) and not antennas:
             ks = np.arange(1, steps + 2)
             bounds = np.stack([
                 theorem1_bound(ks, float(b), row_pc, cfg, n)

@@ -25,8 +25,18 @@ same keys before its scan and its 'inscan' plan draws them inside; the
 streams are identical by design (`repro/core/mc/exec.py`, module
 docstring). The port draws per step, which keeps device memory at
 O(B·N) instead of O(B·steps·N). Participation draws a `(N_max,)` uniform
-per step from `split(fold_in(key, 0x70617274), steps)`, the reference's
-disjoint stream.
+per step from `split(fold_in(key, 0x70617274), steps)`, and a stochastic
+problem its minibatch indices from `split(fold_in(key, 0x64617461),
+steps)`: the reference's disjoint streams.
+
+Antennas: each slot group gets its own antenna axis, as long as the
+largest count of its own rows (`slots.with_antennas`); in fig7 the gbma
+group has M = 1 while the blind rows of the same call have 32 or 64.
+
+Error feedback: when a row runs `blind_ec`, the loop carries a per-node
+residual e `(B, N_max, d)`: rows with the flag transmit x = α(g + e),
+α = min(1, √(budget / ‖g + e‖²)) per node, and keep e ← (g + e) − x
+after participation masks x; every other row selects α = 1.
 
 Seed reduction: `keep_seed_curves=False` reduces the `(C, S, steps+1)`
 curves to (mean, ci95) on the device with exact two-pass moments
@@ -42,10 +52,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import rng
-from repro_torch.core.mc.slots import ALGO_REGISTRY, SlotCtx
+from repro_torch.core.mc.slots import ALGO_REGISTRY, SlotCtx, with_antennas
 
-# fold_in constant of the per-step node-participation stream (b"part"),
-# disjoint from the slot keys
+# fold_in constants of the per-step minibatch-index stream (b"data") and
+# node-participation stream (b"part"), disjoint from the slot keys and
+# from each other
+_DATA_STREAM = 0x64617461
 _PART_STREAM = 0x70617274
 
 
@@ -63,25 +75,45 @@ def _slot_groups(algos: tuple) -> tuple:
     return np.asarray(order), groups
 
 
+def _group_ctx(ctx: SlotCtx, lo: int, hi: int, n_antennas,
+               m_per_row: Optional[tuple], n_seeds: int) -> SlotCtx:
+    """The slot context of trajectories [lo, hi) (one slot group), with
+    the group's own antenna setting: a static count, or the distinct
+    per-row counts of the group's rows."""
+    gctx = dataclasses.replace(
+        ctx, p={k: v[lo:hi] for k, v in ctx.p.items()}, mask=ctx.mask[lo:hi],
+        counts=ctx.counts[lo:hi])
+    m_sizes = () if m_per_row is None else tuple(sorted(set(
+        m_per_row[lo // n_seeds:hi // n_seeds])))
+    return with_antennas(gctx, n_antennas, m_sizes)
+
+
 def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
              seed_ints: np.ndarray, data: dict, *, grad_fn, risk_fn,
              algos: tuple, fading: str, steps: int, n_sizes: tuple,
              invert_channel: bool = False, h_min: float = 0.3,
              ota_impl: str = "auto", phase_zero: bool = False,
+             n_antennas: Optional[int] = None,
+             m_per_row: Optional[tuple] = None, stochastic=None,
              reduce_moments: bool = False):
     """Run C rows × S seeds × `steps` slots, row c under `algos[c]`.
 
     params: per-row `(C,)` tensors (channel scalars, n_nodes, gamma,
-    nest, and `participation` when some row drops nodes); betas `(C,)`;
+    nest; `participation` when some row drops nodes; `ec` and
+    `tx_budget` when some row runs error feedback; `n_antennas` with
+    per-row counts; `b_count` (int) for minibatches); betas `(C,)`;
     theta0 `(d,)`; data: the stacked problem data (`(C, …)` leaves, mask
     `(C, N_max)`), all on one device. `n_sizes` are the call's distinct
-    node counts.
+    node counts. `n_antennas` is a static antenna count, `m_per_row` one
+    count per row (or neither). `stochastic` is `(sample_indices_row,
+    stochastic_grad_from_idx, b_max)` for a minibatch run, or None.
 
     Step order, as in the reference's scan body: the gradient at the
-    Nesterov lookahead θ − nest·β·γ·m, the risk of θ BEFORE the update,
-    the participation mask on the transmission x, the cumulative energy
-    E_N·Σ‖x‖², the slot on x, then m ← γm + v and θ ← θ − βm; the final
-    θ's risk is appended.
+    Nesterov lookahead θ − nest·β·γ·m (over this step's minibatch), the
+    risk of θ BEFORE the update, the error-feedback truncation, the
+    participation mask on the transmission x, the residual, the
+    cumulative energy E_N·Σ‖x‖², the slot on x, then m ← γm + v and
+    θ ← θ − βm; the final θ's risk is appended.
 
     Returns per-seed `(risks (C, S, steps+1), cum_energy (C, S, steps))`,
     or `(mean, ci95)` of shape `(C, steps+1)` when `reduce_moments`.
@@ -99,6 +131,9 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
         params = {k: v[idx] for k, v in params.items()}
         betas = betas[idx]
         data = {k: v[idx] for k, v in data.items()}
+        if m_per_row is not None:
+            m_per_row = tuple(m_per_row[c] for c in order)
+    use_ec = any(ALGO_REGISTRY[a].error_feedback for a in algos)
 
     # per-trajectory (B,) views of the per-row params: b = c·S + s
     p = {k: v.repeat_interleave(n_seeds) for k, v in params.items()}
@@ -109,9 +144,8 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
                   invert_channel=invert_channel, h_min=h_min,
                   ota_impl=ota_impl, phase_zero=phase_zero)
     spans = [(fn, lo * n_seeds, hi * n_seeds) for fn, lo, hi in groups]
-    group_ctx = [dataclasses.replace(
-        ctx, p={k: v[lo:hi] for k, v in p.items()}, mask=ctx.mask[lo:hi],
-        counts=ctx.counts[lo:hi]) for _, lo, hi in spans]
+    group_ctx = [_group_ctx(ctx, lo, hi, n_antennas, m_per_row, n_seeds)
+                 for _, lo, hi in spans]
     seeds = torch.as_tensor(np.asarray(seed_ints, np.int64), device=device)
     keys = rng.key(seeds.repeat(n_rows))
     step_keys = rng.split(keys, steps)  # (B, T, 2)
@@ -119,9 +153,15 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
     part_keys: Optional[torch.Tensor] = None
     if part is not None:
         part_keys = rng.split(rng.fold_in(keys, _PART_STREAM), steps)
+    data_keys: Optional[torch.Tensor] = None
+    if stochastic is not None:
+        sample_idx, sgrad_from_idx, b_max = stochastic
+        data_keys = rng.split(rng.fold_in(keys, _DATA_STREAM), steps)
 
     theta = theta0.to(torch.float32).expand(batch, dim).clone()
     m = torch.zeros_like(theta)
+    e_res = torch.zeros((batch, n_max, dim), dtype=torch.float32,
+                        device=device) if use_ec else None
     cum_e = torch.zeros(batch, dtype=torch.float32, device=device)
     risks = torch.empty((batch, steps + 1), dtype=torch.float32,
                         device=device)
@@ -134,18 +174,39 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
 
     for t in range(steps):
         theta_eval = theta - lookahead * m
-        x = grad_fn(data, grid(theta_eval)).reshape(batch, n_max, dim)
+        if data_keys is None:
+            g = grad_fn(data, grid(theta_eval))
+        else:
+            idx = sample_idx(data, data_keys[:, t], b_max)
+            g = sgrad_from_idx(data, grid(theta_eval),
+                               idx.view(n_rows, n_seeds, n_max, b_max),
+                               params["b_count"])
+        x = g.reshape(batch, n_max, dim)
         risks[:, t] = risk_fn(data, grid(theta)).reshape(batch)
+        if use_ec:
+            u = x + p["ec"][:, None, None] * e_res
+            sq = (u * u).sum(dim=2)
+            alpha = torch.minimum(torch.ones_like(sq), torch.sqrt(
+                p["tx_budget"][:, None] / sq.clamp_min(1e-30)))
+            # select, don't blend: inf/inf is NaN (an overflowing row under
+            # the unbounded default budget), and 0·NaN would leak into
+            # rows without the flag
+            alpha = torch.where(p["ec"][:, None] > 0, alpha, 1.0)
+            x = alpha[:, :, None] * u
         if part_keys is not None:
             # a dropped node transmits nothing this slot and spends no
             # energy; the edge still divides by the full N
-            u = rng.uniform(part_keys[:, t], (n_max,))
-            x = (u < part[:, None]).to(torch.float32)[:, :, None] * x
+            r = rng.uniform(part_keys[:, t], (n_max,))
+            x = (r < part[:, None]).to(torch.float32)[:, :, None] * x
+        if use_ec:
+            # the residual sees the MASKED transmission: a dropped node
+            # carries its whole update forward
+            e_res = p["ec"][:, None, None] * (u - x)
         cum_e = cum_e + p["energy"] * (x * x).sum(dim=(1, 2))
         cum_curve[:, t] = cum_e
         k_t = step_keys[:, t]
         if len(spans) == 1:
-            v = spans[0][0](x, k_t, ctx)
+            v = spans[0][0](x, k_t, group_ctx[0])
         else:
             v = torch.cat([fn(x[lo:hi], k_t[lo:hi], gctx)
                            for (fn, lo, hi), gctx in zip(spans, group_ctx)])

@@ -13,9 +13,13 @@ trajectory's counters from its own count as tensor data
 (`rng.dynamic_bits`) and zero the lanes past it. The reference's third
 tier, a per-N `lax.switch`, exists only for PRNGs other than threefry;
 the port's RNG is threefry in the original layout, so one program serves
-every N. `_row_gains` picks the tier.
+every N. `_row_gains` and `_row_complex_gains` pick the tier, and
+`_antenna_keys` replays `split(key, m)` with each row's antenna count m
+as data in the same way.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -78,6 +82,19 @@ def _sample_gains(key: torch.Tensor, fading: str, p: dict, shape: tuple,
     a = _col(p["phase_error_max"], 1 + len(shape))
     phi = rng.uniform(k[..., 1, :], shape, minval=-a, maxval=a)
     return (h * torch.cos(phi)).to(torch.float32)
+
+
+def _sample_complex_gains(key: torch.Tensor, fading: str, p: dict,
+                          shape: tuple) -> tuple:
+    """Twin of `repro.core.mc.sampling._sample_complex_gains`: the (real,
+    imag) parts of h e^{jφ} with the FULL uniform phase φ ~ U[-π, π) (no
+    precoding in the blind-transmitter setting). Same split order as
+    `_sample_gains`: key -> (k_mag, k_ph)."""
+    k = rng.split(key)
+    h = _sample_magnitude(k[..., 0, :], fading, p, shape)
+    phi = rng.uniform(k[..., 1, :], shape, minval=-math.pi, maxval=math.pi)
+    return ((h * torch.cos(phi)).to(torch.float32),
+            (h * torch.sin(phi)).to(torch.float32))
 
 
 # --------------------------------------------------------------------------
@@ -149,3 +166,45 @@ def _row_gains(key: torch.Tensor, fading: str, p: dict, n: torch.Tensor,
     if len(n_sizes) > 1:
         return _sample_gains_dynamic_n(key, fading, p, n, n_max, phase_zero)
     return _sample_gains(key, fading, p, (n_max,), phase_zero)
+
+
+def _sample_complex_gains_dynamic_n(key: torch.Tensor, fading: str,
+                                    p: dict, n: torch.Tensor,
+                                    n_max: int) -> tuple:
+    """Twin of `_sample_complex_gains(key[b], fading, p, (n[b],))`, both
+    parts zero-padded to `(B, n_max)` (the blind family's gains on
+    node-count sweeps)."""
+    k = rng.split(key)
+    h = _sample_magnitude_dynamic_n(k[:, 0], fading, p, n, n_max)
+    phi = rng.u01_to_uniform(rng.bits_to_u01(
+        rng.dynamic_bits(k[:, 1], n, n_max)), -math.pi, math.pi)
+    lane = _lanes_below(n, n_max)
+    return (torch.where(lane, (h * torch.cos(phi)).to(torch.float32), 0.0),
+            torch.where(lane, (h * torch.sin(phi)).to(torch.float32), 0.0))
+
+
+def _row_complex_gains(key: torch.Tensor, fading: str, p: dict,
+                       n: torch.Tensor, n_sizes: tuple,
+                       n_max: int) -> tuple:
+    """Complex counterpart of `_row_gains`: the `(B, n_max)` (real, imag)
+    gain parts, shaped for one N, dynamic-N for several."""
+    if len(n_sizes) > 1:
+        return _sample_complex_gains_dynamic_n(key, fading, p, n, n_max)
+    return _sample_complex_gains(key, fading, p, (n_max,))
+
+
+def _antenna_keys(key: torch.Tensor, m_sizes: tuple, m: torch.Tensor,
+                  m_max: int) -> torch.Tensor:
+    """`(B, m_max, 2)` antenna keys whose first m[b] lanes equal
+    `split(key[b], m[b])` (twin of `repro.core.mc.sampling._antenna_keys`).
+
+    `split` is itself a draw over 2m counters, so splitting at m_max and
+    masking would change every row's stream. With one count (`m_sizes`,
+    the distinct counts of these rows) this is the plain split; with
+    several the split layout is replayed with each count as data
+    (`rng.dynamic_bits` over 2m counters). Lanes past m[b] hold
+    well-formed keys of other streams; callers mask the antenna axis."""
+    if len(m_sizes) == 1:
+        return rng.split(key, m_max)
+    bits = rng.dynamic_bits(key, 2 * m.to(torch.int64), 2 * m_max)
+    return bits.reshape(-1, m_max, 2)

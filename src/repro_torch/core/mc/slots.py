@@ -5,26 +5,37 @@ One MAC slot maps the transmitted per-node vectors to the received
 update. In the port a slot is batched over trajectories: `g (B, N, d)`,
 slot keys `(B, 2)`, per-trajectory channel scalars `ctx.p[...] (B,)`,
 result `(B, d)`. Each algorithm registers `slot_fn(g, key, ctx)` with the
-flags the engine reads (momentum / Nesterov carries, OTA membership,
-Theorem-1 applicability). RNG split orders mirror the reference exactly.
+flags the engine reads (momentum / Nesterov / error-feedback carries, OTA
+membership, antenna requirement, Theorem-1 applicability). RNG split
+orders mirror the reference exactly.
 
 On a node-count sweep the node axis is padded to N_max: padded rows carry
 zero vectors (the problems' grad rows mask them) and zero gains, and each
 slot normalizes by its trajectory's true count `p['n_nodes']`.
 
-Ported: `gbma` (single antenna), `centralized`, `fdm`, `power_control`,
-`momentum`, `nesterov`. Waiting: antennas and MRC, with `blind` and
-`blind_ec` (ROADMAP P3).
+A multi-antenna edge adds an antenna axis of length M after the
+trajectory axis: the slot key splits into M antenna keys (`split(key, M)`
+for a static M, the per-row replay of `split(key, m)` for per-row
+counts), each drawing its own gains and edge noise as the single-antenna
+slot does. The gbma family aggregates all B·M (trajectory, antenna) pairs
+in one OTA kernel launch and averages over each row's antennas (MRC);
+the blind family combines its complex receptions in plain PyTorch, as
+the reference computes them outside any kernel.
+
+Registered: `gbma` (single antenna and MRC), `centralized`, `fdm`,
+`power_control`, `momentum`, `nesterov`, `blind` and `blind_ec`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core import rng
-from repro_torch.core.mc.sampling import _normal_dynamic_n, _row_gains
+from repro_torch.core.mc.sampling import (_antenna_keys, _magnitude_m2,
+                                          _normal_dynamic_n,
+                                          _row_complex_gains, _row_gains)
 from repro_torch.kernels.ota.ops import ota_edge_aggregate
 
 
@@ -46,6 +57,16 @@ class SlotCtx:
                 CPU tensors), 'kernel' or 'ref'.
     phase_zero: promise that every row's phase_error_max is 0 — the gain
                 draw skips the precoded-phase stream (value-identical).
+    n_antennas: a static antenna count M for every row (None: a
+                single-antenna edge, or per-row counts).
+    m_sizes:    the distinct per-row antenna counts of these rows (static;
+                empty unless the call gave one count per row, which then
+                live in `p['n_antennas']` as f32).
+    m_max:      the antenna axis' length: M, or the largest per-row count.
+    ant:        the per-antenna context, every per-trajectory tensor
+                repeated M-fold (trajectory b's antenna m at b·M + m), so
+                the single-antenna draws serve the flattened antenna keys
+                (`with_antennas`).
     """
 
     fading: str
@@ -57,6 +78,34 @@ class SlotCtx:
     h_min: float = 0.3
     ota_impl: str = "auto"
     phase_zero: bool = False
+    n_antennas: Optional[int] = None
+    m_sizes: tuple = ()
+    m_max: int = 1
+    ant: Optional["SlotCtx"] = None
+
+    @property
+    def antennas(self) -> bool:
+        """Whether the edge has an antenna axis (a static M, 1 included,
+        or per-row counts)."""
+        return self.n_antennas is not None or bool(self.m_sizes)
+
+
+def with_antennas(ctx: SlotCtx, n_antennas: Optional[int],
+                  m_sizes: tuple) -> SlotCtx:
+    """`ctx` with its antenna setting: a static count `n_antennas`, or the
+    distinct per-row counts `m_sizes` of its rows (`p['n_antennas']`), or
+    neither (a single antenna). The antenna axis is as long as the largest
+    count of these rows; lane j < m of the replayed keys never depends on
+    that length, so the values do not either."""
+    if n_antennas is None and not m_sizes:
+        return dataclasses.replace(ctx, n_antennas=None, m_sizes=(),
+                                   m_max=1, ant=None)
+    m_max = n_antennas if n_antennas is not None else max(m_sizes)
+    rep = lambda t: t.repeat_interleave(m_max, dim=0)
+    ant = dataclasses.replace(ctx, p={k: rep(v) for k, v in ctx.p.items()},
+                              mask=rep(ctx.mask), counts=rep(ctx.counts))
+    return dataclasses.replace(ctx, n_antennas=n_antennas,
+                               m_sizes=tuple(m_sizes), m_max=m_max, ant=ant)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,16 +113,22 @@ class AlgoSpec:
     """One registered algorithm (flags as in the reference's AlgoSpec).
 
     ota:        receives the OTA superposition of Eq. (8).
+    blind:      no-CSI transmitter family (M-antenna MRC edge); requires
+                `n_antennas`.
     uses_gamma: the row takes the `run_mc(momentum=)` coefficient.
     nesterov:   gradient evaluated at the lookahead θ − βγm.
+    error_feedback: the row carries the per-node residual and the power
+                budget's truncation (`blind_ec`).
     theorem1:   the Theorem-1 bound applies.
     """
 
     name: str
     slot_fn: Callable
     ota: bool = False
+    blind: bool = False
     uses_gamma: bool = False
     nesterov: bool = False
+    error_feedback: bool = False
     theorem1: bool = False
 
 
@@ -81,7 +136,8 @@ ALGO_REGISTRY: dict = {}  # name -> AlgoSpec, insertion-ordered
 
 
 def register_algo(name: str, slot_fn: Callable, *, ota: bool = False,
-                  uses_gamma: bool = False, nesterov: bool = False,
+                  blind: bool = False, uses_gamma: bool = False,
+                  nesterov: bool = False, error_feedback: bool = False,
                   theorem1: bool = False,
                   overwrite: bool = False) -> AlgoSpec:
     """Register a per-slot algorithm under `name` (the `run_mc(algo=)`
@@ -89,9 +145,9 @@ def register_algo(name: str, slot_fn: Callable, *, ota: bool = False,
     if name in ALGO_REGISTRY and not overwrite:
         raise ValueError(f"algo {name!r} is already registered "
                          "(pass overwrite=True to replace it)")
-    spec = AlgoSpec(name=name, slot_fn=slot_fn, ota=ota,
+    spec = AlgoSpec(name=name, slot_fn=slot_fn, ota=ota, blind=blind,
                     uses_gamma=uses_gamma, nesterov=nesterov,
-                    theorem1=theorem1)
+                    error_feedback=error_feedback, theorem1=theorem1)
     ALGO_REGISTRY[name] = spec
     return spec
 
@@ -129,11 +185,10 @@ def _ota_draw(key: torch.Tensor, ctx: SlotCtx, n: int, d: int) -> dict:
     return out
 
 
-def _draw_gains_noise(g: torch.Tensor, key: torch.Tensor,
-                      ctx: SlotCtx) -> tuple:
+def _draw_gains_noise(key: torch.Tensor, ctx: SlotCtx, n: int,
+                      d: int) -> tuple:
     """(h, w) of an OTA-type slot: drawn gains, or the deterministic ones
     recomputed inline, and the raw edge noise."""
-    n, d = g.shape[1], g.shape[2]
     draws = _ota_draw(key, ctx, n, d)
     h = draws.get("h")
     if h is None:  # deterministic gains were (rightly) not drawn
@@ -141,10 +196,32 @@ def _draw_gains_noise(g: torch.Tensor, key: torch.Tensor,
     return h, draws["w"]
 
 
+def _step_antenna_keys(key: torch.Tensor, ctx: SlotCtx) -> torch.Tensor:
+    """One slot's `(B·M, 2)` antenna keys, trajectory-major: the plain
+    split for a static M, the per-row replay of `split(key, m)` for
+    per-row counts."""
+    if ctx.m_sizes:
+        keys = _antenna_keys(key, ctx.m_sizes, ctx.p["n_antennas"],
+                             ctx.m_max)
+    else:
+        keys = rng.split(key, ctx.m_max)
+    return keys.reshape(-1, 2)
+
+
+def _antenna_mean(v: torch.Tensor, ctx: SlotCtx) -> torch.Tensor:
+    """`(B, M, d)` per-antenna updates -> `(B, d)`: the mean over a static
+    M, or over each row's first m antennas (the lanes past m masked)."""
+    if not ctx.m_sizes:
+        return v.mean(dim=1)
+    m = ctx.p["n_antennas"]
+    lanes = (torch.arange(v.shape[1], device=v.device) < m[:, None])
+    return torch.einsum("bm,bmd->bd", lanes.to(v.dtype), v) / m[:, None]
+
+
 def _ota_slot(g: torch.Tensor, key: torch.Tensor,
               ctx: SlotCtx) -> torch.Tensor:
-    """Single-antenna OTA superposition (Eq. 8): v = (1/N) Σ h_n g_n + w,
-    with w ~ N(0, std²), std = σ_w / (N √E_N), N the trajectory's count.
+    """OTA superposition (Eq. 8): v = (1/N) Σ h_n g_n + w, with
+    w ~ N(0, std²), std = σ_w / (N √E_N), N the trajectory's count.
 
     The superposition and noise add go through
     `repro_torch.kernels.ota.ota_edge_aggregate` — on the card one kernel
@@ -152,21 +229,38 @@ def _ota_slot(g: torch.Tensor, key: torch.Tensor,
     go to the kernel only when the rows' N differ: with one N the
     node-axis length is every count, and the kernel's count-free
     instantiation is the faster one); the per-trajectory noise std folds
-    into the noise operand."""
+    into the noise operand. With an antenna axis each of the M antenna
+    keys draws its own (h, w), the launch covers all B·M pairs, and the
+    result is `(B, M, d)`."""
     p = ctx.p
-    h, w = _draw_gains_noise(g, key, ctx)
+    b, n, d = g.shape
     std = p["noise_std"] / (p["n_nodes"] * torch.sqrt(p["energy"]))
+    n_true = p["n_nodes"] if len(ctx.n_sizes) > 1 else None
+    out_dtype = torch.promote_types(g.dtype, torch.float32)
+    if not ctx.antennas:
+        h, w = _draw_gains_noise(key, ctx, n, d)
+        return ota_edge_aggregate(g, h, std[:, None] * w, noise_scale=1.0,
+                                  impl=ctx.ota_impl, out_dtype=out_dtype,
+                                  n_true=n_true)
+    h, w = _draw_gains_noise(_step_antenna_keys(key, ctx), ctx.ant, n, d)
+    m = ctx.m_max
     return ota_edge_aggregate(
-        g, h, std[:, None] * w, noise_scale=1.0, impl=ctx.ota_impl,
-        out_dtype=torch.promote_types(g.dtype, torch.float32),
-        n_true=p["n_nodes"] if len(ctx.n_sizes) > 1 else None)
+        g, h.view(b, m, n), std[:, None, None] * w.view(b, m, d),
+        noise_scale=1.0, impl=ctx.ota_impl, out_dtype=out_dtype,
+        n_true=n_true)
 
 
 def _gbma_slot(g: torch.Tensor, key: torch.Tensor,
                ctx: SlotCtx) -> torch.Tensor:
-    """Precoded OTA aggregation, shared by gbma/momentum/nesterov
-    (single-antenna edge; the MRC paths wait for ROADMAP P3)."""
-    return _ota_slot(g, key, ctx)
+    """Precoded OTA aggregation, shared by gbma/momentum/nesterov.
+
+    A single-antenna edge is the reference's `GBMASimulator` stream. A
+    static M (1 included) takes the MRC path of
+    `ota_aggregate_multiantenna`, whose extra key split changes the
+    stream even for M = 1, and averages over the M antennas; per-row
+    counts sum each row's first m antennas and divide by m."""
+    v = _ota_slot(g, key, ctx)
+    return _antenna_mean(v, ctx) if ctx.antennas else v
 
 
 def _centralized_slot(g: torch.Tensor, key: torch.Tensor,
@@ -212,6 +306,36 @@ def _fdm_slot(g: torch.Tensor, key: torch.Tensor,
     return (rx * ctx.mask[:, :, None]).sum(dim=1) / p["n_nodes"][:, None]
 
 
+def _blind_slot(g: torch.Tensor, key: torch.Tensor,
+                ctx: SlotCtx) -> torch.Tensor:
+    """Blind transmitters (1907.03909): nodes send g uncoded; antenna m
+    receives y_m = Σ_n h~_{n,m} g_n + z~_m (complex, full uniform phase);
+    the edge MRC-combines with receiver CSI, normalized by M·N·E[h²] —
+    `gbma.blind_ota_aggregate` split for split: each antenna key -> (k_h,
+    k_w), k_h the complex gains, k_w the `(2, d)` real/imag noise. The
+    combine is plain PyTorch, as the reference computes it outside any
+    kernel."""
+    p = ctx.p
+    b, n, d = g.shape
+    m = ctx.m_max
+    k = rng.split(_step_antenna_keys(key, ctx))
+    ant = ctx.ant
+    re, im = _row_complex_gains(k[:, 0], ctx.fading, ant.p, ant.counts,
+                                ctx.n_sizes, n)
+    z = rng.normal(k[:, 1], (2, d)).view(b, m, 2, d)
+    re, im = re.view(b, m, n), im.view(b, m, n)
+    std = (p["noise_std"] / torch.sqrt(p["energy"]))[:, None, None]
+    y_r = torch.einsum("bmn,bnd->bmd", re, g) + std * z[:, :, 0]
+    y_i = torch.einsum("bmn,bnd->bmd", im, g) + std * z[:, :, 1]
+    s = re.sum(dim=-1)[..., None] * y_r + im.sum(dim=-1)[..., None] * y_i
+    m_true = p["n_antennas"] if ctx.m_sizes \
+        else torch.full_like(p["n_nodes"], float(m))
+    lanes = torch.arange(m, device=g.device) < m_true[:, None]
+    m2 = _magnitude_m2(ctx.fading, p)
+    return torch.einsum("bm,bmd->bd", lanes.to(g.dtype), s) \
+        / (m_true * p["n_nodes"] * m2)[:, None]
+
+
 def _power_control_slot(g: torch.Tensor, key: torch.Tensor,
                         ctx: SlotCtx) -> torch.Tensor:
     """CA-DSGD-style truncated channel inversion [11]: nodes below `h_min`
@@ -219,7 +343,7 @@ def _power_control_slot(g: torch.Tensor, key: torch.Tensor,
     with a_n = [h_n >= h_min], A = max(Σ a_n, 1) and std = σ_w / (A √E_N):
     the OTA kernel with gains a and each trajectory's count A."""
     p = ctx.p
-    h, w = _draw_gains_noise(g, key, ctx)
+    h, w = _draw_gains_noise(key, ctx, g.shape[1], g.shape[2])
     active = (h >= ctx.h_min).to(g.dtype) * ctx.mask
     n_active = active.sum(dim=1).clamp_min(1.0)
     std = p["noise_std"] / (n_active * torch.sqrt(p["energy"]))
@@ -239,3 +363,5 @@ register_algo("power_control", _power_control_slot)
 register_algo("momentum", _gbma_slot, ota=True, uses_gamma=True)
 register_algo("nesterov", _gbma_slot, ota=True, uses_gamma=True,
               nesterov=True)
+register_algo("blind", _blind_slot, blind=True)
+register_algo("blind_ec", _blind_slot, blind=True, error_feedback=True)

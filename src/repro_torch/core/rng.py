@@ -131,8 +131,17 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     return bits.reshape(k.shape[:-1] + (num, 2))
 
 
-def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """`jax.random.fold_in(k, data)` for a non-negative int `data`."""
+def fold_in(k: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in(k, data)`: the pair (0, data) hashed under k.
+
+    `data` is a non-negative int, giving `(..., 2)`, or an integer tensor
+    that broadcasts against `k[..., 0]`: one fold per entry, so
+    `fold_in(k[:, None], torch.arange(n))` is `(B, n, 2)`."""
+    if isinstance(data, torch.Tensor):
+        x1 = data.to(device=k.device, dtype=torch.int64) & MASK32
+        o0, o1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(x1),
+                              x1)
+        return torch.stack([o0, o1], dim=-1)
     x0 = torch.zeros((1,), dtype=torch.int64, device=k.device)
     x1 = torch.full((1,), int(data) & MASK32, dtype=torch.int64,
                     device=k.device)
@@ -145,6 +154,25 @@ def random_bits(k: torch.Tensor, shape: Shape) -> torch.Tensor:
     shape = _shape(shape)
     n = math.prod(shape)
     return _counter_bits(k, n).reshape(k.shape[:-1] + shape)
+
+
+def randint(k: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """`jax.random.randint(k, shape, minval, maxval)` for int32, bit for
+    bit: `(..., *shape)` int64 values in [minval, maxval).
+
+    As `jax._src.random._randint`: split k into (k1, k2), draw 32-bit
+    `higher_bits` from k1 and `lower_bits` from k2, reduce both modulo the
+    span and combine them with the multiplier (2^16 mod span)^2 mod span,
+    all in uint32 arithmetic (here int64 masked to 32 bits)."""
+    minval, maxval = int(minval), int(maxval)
+    span = max(maxval - minval, 1)
+    multiplier = ((2**16 % span) ** 2 & MASK32) % span
+    ks = split(k)
+    hi = random_bits(ks[..., 0, :], shape) % span
+    lo = random_bits(ks[..., 1, :], shape) % span
+    offset = ((hi * multiplier) & MASK32) + lo
+    return minval + (offset & MASK32) % span
 
 
 def bits_to_u01(bits: torch.Tensor) -> torch.Tensor:

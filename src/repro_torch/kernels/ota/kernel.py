@@ -33,7 +33,7 @@ def _bind():
     if _fn is None:
         lib = _build.load(SOURCE, NAME)
         fn = lib.ota_aggregate
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.ota_error_string
@@ -45,18 +45,20 @@ def _bind():
 
 def launch(grads: torch.Tensor, gains: torch.Tensor, noise: torch.Tensor,
            out: torch.Tensor, n_true: Optional[torch.Tensor] = None) -> None:
-    """out[b] = (gains[b] @ grads[b]) / n_true[b] + noise[b], on the
-    current stream of the tensors' device. Expects validated, contiguous
-    CUDA tensors: grads (B, N, d) f32/bf16, gains (B, N) f32, noise (B, d)
-    f32, n_true (B,) f32 or None (N for every trajectory), out (B, d)
-    f32/bf16. Raises if the launch is refused."""
+    """out[b, m] = (gains[b, m] @ grads[b]) / n_true[b] + noise[b, m], on
+    the current stream of the tensors' device. Expects validated,
+    contiguous CUDA tensors: grads (B, N, d) f32/bf16, gains (B, M, N) f32,
+    noise (B, M, d) f32, n_true (B,) f32 or None (N for every trajectory),
+    out (B, M, d) f32/bf16; gains (B, N), noise and out (B, d) are M = 1.
+    Raises if the launch is refused."""
     fn = _bind()
     batch, n_nodes, dim = grads.shape
+    n_ant = gains.shape[1] if gains.dim() == 3 else 1
     counts = None if n_true is None else n_true.data_ptr()
     with torch.cuda.device(grads.device):
         stream = torch.cuda.current_stream(grads.device).cuda_stream
         code = fn(grads.data_ptr(), gains.data_ptr(), noise.data_ptr(),
-                  counts, out.data_ptr(), batch, n_nodes, dim,
+                  counts, out.data_ptr(), batch, n_ant, n_nodes, dim,
                   int(grads.dtype == torch.bfloat16),
                   int(out.dtype == torch.bfloat16), stream)
     if code != 0:

@@ -37,7 +37,11 @@ def _launch(g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
         raise ValueError("grads, gains, noise and counts must share one "
                          "device")
     batch, _, d = g.shape
-    out = torch.empty((batch, d), dtype=out_dtype, device=g.device)
+    n_ant = h.shape[1]
+    if batch * n_ant >= 2**31 or (d + 31) // 32 > 65535:
+        raise ValueError(f"the OTA kernel's grid takes B*M < 2^31 and "
+                         f"d <= 2,097,120, got B={batch}, M={n_ant}, d={d}")
+    out = torch.empty((batch, n_ant, d), dtype=out_dtype, device=g.device)
     if out.numel() == 0:
         return out
     counts = None if n_true is None \
@@ -55,15 +59,17 @@ def ota_edge_aggregate(grads: torch.Tensor, gains: torch.Tensor,
                        ) -> torch.Tensor:
     """One OTA edge aggregation v = (1/N) Σ h_n g_n + noise_scale·w.
 
-    Unbatched `grads (N, d)`, `gains (N,)`, `noise (d,)` -> `(d,)`, or
-    batched over trajectories: `(B, N, d)`, `(B, N)`, `(B, d)` ->
-    `(B, d)` in one kernel launch. N is `n_true`, each trajectory's own
-    count as a `(B,)` tensor (a 0-d tensor unbatched) on the grads'
-    device, or the node-axis length for every trajectory when None. A
-    node-count sweep pads its node axis with zero gains and zero
-    gradients and passes the true counts. `noise_scale` is a float or a
-    tensor broadcasting against `noise`; it folds into the f32 noise
-    operand.
+    Unbatched `grads (N, d)`, `gains (N,)`, `noise (d,)` -> `(d,)`;
+    batched over trajectories: `(B, N, d)`, `(B, N)`, `(B, d)` -> `(B, d)`;
+    or with an antenna axis: `(B, N, d)`, `(B, M, N)`, `(B, M, d)` ->
+    `(B, M, d)`, the M receive antennas of trajectory b each aggregating
+    its one copy of grads[b] with their own gains and noise. Each form is
+    one kernel launch. N is `n_true`, each trajectory's own count as a
+    `(B,)` tensor (a 0-d tensor unbatched) on the grads' device, or the
+    node-axis length for every trajectory when None. A node-count sweep
+    pads its node axis with zero gains and zero gradients and passes the
+    true counts. `noise_scale` is a float or a tensor broadcasting against
+    `noise`; it folds into the f32 noise operand.
     `out_dtype` (default grads.dtype) is the emission dtype of the f32
     accumulation.
 
@@ -78,11 +84,16 @@ def ota_edge_aggregate(grads: torch.Tensor, gains: torch.Tensor,
         out_dtype = grads.dtype
     batched = grads.dim() == 3
     g = grads if batched else grads.unsqueeze(0)
-    h = gains if batched else gains.unsqueeze(0)
-    w = noise if batched else noise.unsqueeze(0)
+    antennas = batched and gains.dim() == 3
+    n_ant = gains.shape[1] if antennas else 1
+    # the kernel's (B, M, N) / (B, M, d) operands; M = 1 without antennas
+    h = gains if antennas else gains.unsqueeze(-2) if batched \
+        else gains.reshape(1, 1, -1)
     counts = n_true if n_true is None or batched else n_true.reshape(1)
-    if g.dim() != 3 or h.shape != g.shape[:2] \
-            or w.shape != (g.shape[0], g.shape[2]) \
+    noise_shape = (g.shape[0], n_ant, g.shape[2]) if antennas \
+        else grads.shape[:-2] + grads.shape[-1:]
+    if g.dim() != 3 or h.shape != (g.shape[0], n_ant, g.shape[1]) \
+            or noise.shape != noise_shape \
             or (counts is not None and counts.shape != g.shape[:1]):
         raise ValueError(f"shape mismatch: grads {tuple(grads.shape)}, "
                          f"gains {tuple(gains.shape)}, noise "
@@ -90,15 +101,17 @@ def ota_edge_aggregate(grads: torch.Tensor, gains: torch.Tensor,
                          f"{None if n_true is None else tuple(n_true.shape)}")
     # the noise scale folds into the noise operand in f32 (as the TPU
     # wrapper does), so the kernel adds an already-scaled w
-    w32 = noise_scale * w.to(torch.float32)
+    w32 = noise_scale * noise.to(torch.float32)
     device = g.device.type
     if impl == "ref" or (impl == "auto" and device == "cpu"):
-        out = ota_edge_aggregate_ref(g, h, w32, noise_scale=1.0,
-                                     out_dtype=out_dtype, n_true=counts)
-    elif device == "cuda":
-        out = _launch(g, h, w32, counts, out_dtype)
-    else:
+        return ota_edge_aggregate_ref(grads, gains, w32, noise_scale=1.0,
+                                      out_dtype=out_dtype, n_true=n_true)
+    if device != "cuda":
         raise ValueError(f"impl={impl!r}: the OTA kernel runs on CUDA "
                          f"tensors, got a {device} tensor (use impl='ref' "
                          "for the plain version)")
-    return out if batched else out[0]
+    out = _launch(g, h, w32.reshape(g.shape[0], n_ant, g.shape[2]), counts,
+                  out_dtype)
+    if antennas:
+        return out
+    return out[:, 0] if batched else out[0, 0]

@@ -10,15 +10,26 @@ algorithm rows, fdm with and without channel inversion, power_control,
 per-row participation and a call combining padding, fdm and
 participation; and the port's padded call against its own per-N calls.
 
+Then the antenna paths (N = 13 or padded {8, 13}, 40 steps): gbma at a
+static M (1 included) and per-row M, blind and blind_ec at static and
+per-row M with binding and unbounded power budgets, with participation
+and mixed with gbma and centralized rows (fig7's call shape); and the
+problem kinds: localization (gbma / fdm / centralized from θ₀ = (45, 45),
+padded) and logistic, full-batch and with minibatches (scalar and
+per-row `batch_frac`, padded, mixed with blind rows: fig8's shapes).
+
 Bars: risks, mean and cum_energy within rtol 1e-5 (the engine-parity bar
 the repo uses; normals differ by an ulp and the iteration is contractive).
 ci95 is a spread across seeds — a difference of nearly equal risks — so
 its error is bounded by the risks' error, not by its own size: it is held
-to rtol 1e-5 plus atol 1e-5·|mean|. Theorem-1 bounds and energy_to_target
+to rtol 1e-5 plus atol 1e-5·|mean|. The logistic risk is an excess
+F − F* of an f32 objective F ≈ 0.5: its risks and mean also take atol
+4 ulps of F* (ROADMAP §3, F8). Theorem-1 bounds and energy_to_target
 within 1e-6. The figure twins (`repro_torch.figures`) emit the same
 rows as `benchmarks.fig2_equal_gains`, `fig3_rayleigh`,
-`fig4_fdm_comparison`, `fig6_energy_scaling` and parts (a), (b), (c),
-(e) and (g) of `ablations` at the smoke test's tiny constants.
+`fig4_fdm_comparison`, `fig5_localization`, `fig6_energy_scaling`,
+`fig7_blind_transmitters`, `fig8_federated_logistic` and every part of
+`ablations` at the smoke test's tiny constants.
 """
 import pytest
 
@@ -32,16 +43,24 @@ import benchmarks.ablations as ablations_ref  # noqa: E402
 import benchmarks.fig2_equal_gains as fig2_ref  # noqa: E402
 import benchmarks.fig3_rayleigh as fig3_ref  # noqa: E402
 import benchmarks.fig4_fdm_comparison as fig4_ref  # noqa: E402
+import benchmarks.fig5_localization as fig5_ref  # noqa: E402
 import benchmarks.fig6_energy_scaling as fig6_ref  # noqa: E402
+import benchmarks.fig7_blind_transmitters as fig7_ref  # noqa: E402
+import benchmarks.fig8_federated_logistic as fig8_ref  # noqa: E402
 from benchmarks.common import MSDProblem  # noqa: E402
 from repro.core.channel import ChannelConfig  # noqa: E402
 from repro.core.mc.engine import energy_to_target as jax_energy  # noqa: E402
 from repro.core.mc.engine import run_mc as jax_run_mc  # noqa: E402
+from repro.core.montecarlo import (localization_mc_problem,  # noqa: E402
+                                   logistic_mc_problem)
 from repro.core.theory import stepsize_theorem1  # noqa: E402
+from repro.data.synthetic import (localization_field,  # noqa: E402
+                                  logistic_classification)
 from repro_torch.core.mc import engine  # noqa: E402
 from repro_torch.kernels.ota import ops  # noqa: E402
 from repro_torch.figures import (run_ablations, run_fig2,  # noqa: E402
-                                 run_fig3, run_fig4, run_fig6)
+                                 run_fig3, run_fig4, run_fig5, run_fig6,
+                                 run_fig7, run_fig8)
 
 N, D, STEPS, SEEDS = 48, 16, 40, 2
 
@@ -62,14 +81,17 @@ def _rows(prob, fading, phase_error_max):
     return cfgs, betas
 
 
-def _assert_parity(out, ref):
-    np.testing.assert_allclose(out.mean, ref.mean, rtol=1e-5, atol=0)
+def _assert_parity(out, ref, risk_atol: float = 0.0):
+    np.testing.assert_allclose(out.mean, ref.mean, rtol=1e-5,
+                               atol=risk_atol)
     assert np.all(np.abs(out.ci95 - ref.ci95)
-                  <= 1e-5 * np.abs(ref.ci95) + 1e-5 * np.abs(ref.mean))
+                  <= 1e-5 * np.abs(ref.ci95) + 1e-5 * np.abs(ref.mean)
+                  + risk_atol)
     if ref.risks is None:
         assert out.risks is None and out.cum_energy is None
     else:
-        np.testing.assert_allclose(out.risks, ref.risks, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(out.risks, ref.risks, rtol=1e-5,
+                                   atol=risk_atol)
         np.testing.assert_allclose(out.cum_energy, ref.cum_energy,
                                    rtol=1e-5, atol=0)
     if ref.bounds is None:
@@ -165,18 +187,22 @@ def _parse(row: str):
 
 # the smoke test's tiny constants (tests/test_figures_smoke.py)
 TINY = {"STEPS": 6, "SEEDS": 2, "N": 16, "N_GRID": (8, 13),
-        "EPS_GRID": (1.0, 1.5)}
+        "EPS_GRID": (1.0, 1.5), "M": 3, "M_GRID": (1, 4)}
 FIGS = {"fig2": (fig2_ref, run_fig2), "fig3": (fig3_ref, run_fig3),
-        "fig4": (fig4_ref, run_fig4), "fig6": (fig6_ref, run_fig6)}
-# the row prefix of each ported ablation part
+        "fig4": (fig4_ref, run_fig4), "fig5": (fig5_ref, run_fig5),
+        "fig6": (fig6_ref, run_fig6), "fig7": (fig7_ref, run_fig7),
+        "fig8": (fig8_ref, run_fig8)}
+# the row prefix of each ablation part
 ABLATION_ROWS = {"a": "ablation_phase", "b": "ablation_fading",
-                 "c": "ablation_powerctl", "e": "ablation_accel",
+                 "c": "ablation_powerctl", "d": "ablation_antennas",
+                 "e": "ablation_accel", "f": "ablation_blind_budget",
                  "g": "ablation_participation"}
 
 
 def _twin_kwargs(mod) -> dict:
     names = {"STEPS": "steps", "SEEDS": "seeds", "N": "n",
-             "N_GRID": "n_grid", "EPS_GRID": "eps_grid"}
+             "N_GRID": "n_grid", "EPS_GRID": "eps_grid", "M": "m",
+             "M_GRID": "m_grid"}
     return {key: TINY[attr] for attr, key in names.items()
             if hasattr(mod, attr)}
 
@@ -313,3 +339,171 @@ def test_mixed_rows_keep_the_callers_row_order(sweep):
         alone = engine.run_mc(tps[i], [chs[i]], algo, [betas[i]], 12, SEEDS,
                               device="cpu")
         np.testing.assert_array_equal(mixed.risks[i], alone.risks[0])
+
+
+# ---------------------------------------------- antennas, blind, blind_ec
+ANTENNA_N = (8, 13)
+
+
+@pytest.fixture(scope="module")
+def antenna_problems():
+    jps = [MSDProblem.make(n, dim=D).to_mc() for n in ANTENNA_N]
+    return jps, [port_problem(jp) for jp in jps]
+
+
+# (row node counts, algos, keyword arguments)
+ANTENNA_CASES = {
+    "gbma-static-m1": ((13, 13), "gbma", {"n_antennas": 1}),
+    "gbma-static-m3": ((13, 13), "gbma", {"n_antennas": 3}),
+    "gbma-per-row-m": ((13, 13), "gbma", {"n_antennas": (1, 4)}),
+    "gbma-per-row-m-padded": ((8, 13), ("gbma", "momentum"),
+                              {"n_antennas": (2, 5), "momentum": 0.5}),
+    "blind-static": ((13, 13), "blind", {"n_antennas": 3}),
+    "blind-per-row-padded": ((8, 13), "blind", {"n_antennas": (4, 2)}),
+    "blind-ec-binding-and-unbounded": (
+        (13, 13, 13), ("blind_ec", "blind_ec", "blind"),
+        {"n_antennas": 4, "power_budget": [0.5, float("inf"), 0.5]}),
+    "blind-ec-scalar-budget-participation": (
+        (13, 13), ("blind_ec", "blind"),
+        {"n_antennas": (3, 5), "power_budget": 0.2,
+         "participation": [0.7, 0.5]}),
+    "fig7-shape": ((8, 8, 13, 13), ("gbma", "blind", "blind_ec",
+                                    "centralized"),
+                   {"n_antennas": (1, 3, 3, 1),
+                    "power_budget": [float("inf"), float("inf"), 0.3,
+                                     float("inf")]}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ANTENNA_CASES))
+def test_antenna_calls_match_reference(antenna_problems, case):
+    counts, algo, kw = ANTENNA_CASES[case]
+    jps, tps = antenna_problems
+    idx = [ANTENNA_N.index(n) for n in counts]
+    cfgs = [ChannelConfig(fading="rayleigh", scale=1.0, noise_std=1.0,
+                          energy=e) for e in (1.0, 0.5, 0.25, 0.125)
+            [:len(counts)]]
+    betas = [0.01, 0.008, 0.006, 0.004][:len(counts)]
+    with jax_original_layout():
+        ref = jax_run_mc([jps[i] for i in idx], cfgs, algo, betas, STEPS,
+                         SEEDS, **kw)
+    out = engine.run_mc([tps[i] for i in idx],
+                        [port_channel(c) for c in cfgs], algo, betas, STEPS,
+                        SEEDS, device="cpu", **kw)
+    assert out.mean.shape == (len(counts), STEPS + 1)
+    assert np.all(np.isfinite(out.risks))
+    _assert_parity(out, ref)
+
+
+def test_antenna_settings_drop_the_theorem1_bound(antenna_problems):
+    """Theorem 1 covers the single-antenna edge: with any antenna
+    setting `bounds` is None, as in the reference."""
+    _, tps = antenna_problems
+    prob = MSDProblem.make(13, dim=D)
+    cfg = ChannelConfig(fading="rayleigh")
+    beta = stepsize_theorem1(prob.pc, cfg, 13, safety=0.9)
+    kw = dict(pc=port_pc(prob.pc), device="cpu")
+    ch = port_channel(cfg)
+    plain = engine.run_mc(tps[1], [ch], "gbma", [beta], 4, 2, **kw)
+    assert plain.bounds is not None
+    for m in (1, (2,)):
+        assert engine.run_mc(tps[1], [ch], "gbma", [beta], 4, 2,
+                             n_antennas=m, **kw).bounds is None
+
+
+def test_static_m1_is_not_the_single_antenna_stream(antenna_problems):
+    """`n_antennas=1` takes the MRC path (an extra key split): another
+    stream than `n_antennas=None`, as in the reference."""
+    _, tps = antenna_problems
+    ch = port_channel(ChannelConfig(fading="rayleigh"))
+    single = engine.run_mc(tps[1], [ch], "gbma", [0.01], 6, 2, device="cpu")
+    m1 = engine.run_mc(tps[1], [ch], "gbma", [0.01], 6, 2, n_antennas=1,
+                       device="cpu")
+    per_row = engine.run_mc(tps[1], [ch], "gbma", [0.01], 6, 2,
+                            n_antennas=(1,), device="cpu")
+    assert not np.array_equal(single.risks, m1.risks)
+    np.testing.assert_allclose(per_row.risks, m1.risks, rtol=1e-6, atol=0)
+
+
+# --------------------------------------------- localization and logistic
+def _localization_problems():
+    out = []
+    for n, seed in ((16, 0), (9, 1)):
+        r, x, src, _ = localization_field(n, signal_a=100.0, snr_db=-10.0,
+                                          seed=seed)
+        out.append(localization_mc_problem(r, x, src, 100.0))
+    return out
+
+
+def _logistic_problems():
+    out = []
+    for n in (8, 13):
+        X, y, _ = logistic_classification(n * 6, dim=16, seed=0)
+        out.append(logistic_mc_problem(X, y, n, lam=0.1))
+    return out
+
+
+@pytest.fixture(scope="module")
+def kinds():
+    loc, logi = _localization_problems(), _logistic_problems()
+    return {"localization": (loc, [port_problem(p) for p in loc]),
+            "logistic": (logi, [port_problem(p) for p in logi])}
+
+
+# (kind, problem indices, algos, channel (noise_std, energy), betas,
+#  keyword arguments)
+KIND_CASES = {
+    "localization-fig5-shape": (
+        "localization", (0,) * 3, ("gbma", "fdm", "centralized"),
+        (0.3, 16 ** -1.5), (0.8, 0.8, 1.0),
+        {"theta0": np.array([45.0, 45.0])}),
+    "localization-padded": (
+        "localization", (0, 1), "gbma", (0.3, 0.1), (0.8, 0.8),
+        {"theta0": np.array([45.0, 45.0])}),
+    "logistic-full-batch": (
+        "logistic", (0, 0), ("gbma", "centralized"), (0.5, 1 / 8),
+        (0.4, 0.5), {}),
+    "logistic-per-row-batch-frac": (
+        "logistic", (0,) * 3, "gbma", (0.5, 1 / 8), (0.4,) * 3,
+        {"batch_frac": (1.0, 0.5, 0.25)}),
+    "logistic-fig8-shape": (
+        "logistic", (0, 0, 1, 1), ("gbma", "blind", "gbma", "centralized"),
+        (0.5, 1 / 8), (0.4, 0.5, 0.4, 0.5),
+        {"batch_frac": 0.5, "n_antennas": (1, 3, 1, 1)}),
+    "logistic-blind-ec-minibatch": (
+        "logistic", (1, 1), ("blind_ec", "gbma"), (0.5, 1 / 13),
+        (0.5, 0.4), {"batch_frac": [0.5, 1.0], "n_antennas": 2,
+                     "power_budget": 0.05}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KIND_CASES))
+def test_problem_kinds_match_reference(kinds, case):
+    kind, idx, algo, (noise, energy), betas, kw = KIND_CASES[case]
+    jps, tps = kinds[kind]
+    cfgs = [ChannelConfig(fading="rayleigh", scale=1.0, noise_std=noise,
+                          energy=energy) for _ in idx]
+    with jax_original_layout():
+        ref = jax_run_mc([jps[i] for i in idx], cfgs, algo, list(betas),
+                         STEPS, SEEDS, **kw)
+    out = engine.run_mc([tps[i] for i in idx],
+                        [port_channel(c) for c in cfgs], algo, list(betas),
+                        STEPS, SEEDS, device="cpu", **kw)
+    assert np.all(np.isfinite(out.risks))
+    atol = 0.0
+    if kind == "logistic":  # 4 ulps of the f32 objective (F8)
+        atol = 4 * float(np.spacing(np.float32(max(
+            float(np.asarray(p.data["f_star"])) for p in jps))))
+    _assert_parity(out, ref, risk_atol=atol)
+
+
+def test_minibatch_lanes_follow_round_of_the_fraction(kinds):
+    """b = max(1, round(f·k)): with k = 6 local samples, fractions 0.5
+    and 0.55 both take 3 lanes (the same run), 0.01 takes 1."""
+    _, tps = kinds["logistic"]
+    ch = port_channel(ChannelConfig(fading="rayleigh", noise_std=0.5))
+    runs = {f: engine.run_mc(tps[0], [ch], "gbma", [0.4], 5, 2,
+                             batch_frac=f, device="cpu").risks
+            for f in (0.5, 0.55, 0.01)}
+    np.testing.assert_array_equal(runs[0.5], runs[0.55])
+    assert not np.array_equal(runs[0.5], runs[0.01])

@@ -7,7 +7,9 @@ This file imports torch and the port only (no JAX), so with
 `--noconftest` (tests/conftest.py imports JAX) it runs where JAX is not
 installed. Each kernel is held to its plain PyTorch version at the
 reference's bars (`tests/test_kernels.py`): the OTA aggregation (K1,
-also with per-trajectory node counts),
+also with per-trajectory node counts and with an antenna axis, whose
+M = 1 launch and each antenna of an M-antenna launch give the bits of a
+single-antenna launch, with and without counts),
 flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
 each at every reference case) and the WKV6 recurrence (K3), the last two
 also at their serving slices' shapes; K3 also at lengths off its chunk,
@@ -101,6 +103,55 @@ def test_per_trajectory_counts_match_plain_version(cuda, dtype):
     assert torch.equal(ota_edge_aggregate(g, h, w, noise_scale=0.37,
                                           n_true=full),
                        ota_edge_aggregate(g, h, w, noise_scale=0.37))
+
+
+@pytest.mark.parametrize("b,m,n,d", [(3, 5, 131, 37), (2, 1, 500, 90),
+                                     (4, 7, 33, 100), (16, 16, 4096, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_antenna_axis_matches_plain_version(cuda, b, m, n, d, dtype):
+    """gains (B, M, N), noise (B, M, d) -> (B, M, d) in one launch, at
+    odd M, N and d, against the plain version at the single-antenna
+    bars, with and without per-trajectory counts."""
+    g, _, _ = _inputs(b, n, d, dtype, b * m + n + d, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    h = torch.randn((b, m, n), generator=gen, device=cuda).abs()
+    w = torch.randn((b, m, d), generator=gen, device=cuda)
+    counts = torch.randint(1, n + 1, (b,), generator=gen,
+                           device=cuda).float()
+    atol = 2e-5 if dtype == torch.float32 else 5e-2
+    for n_true in (None, counts):
+        before = ops.launch_count
+        out = ota_edge_aggregate(g, h, w, noise_scale=0.37, n_true=n_true)
+        torch.cuda.synchronize()
+        assert ops.launch_count == before + 1
+        assert tuple(out.shape) == (b, m, d)
+        ref = ota_edge_aggregate_ref(g, h, w, noise_scale=0.37,
+                                     n_true=n_true)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=1e-2)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_antenna_launch_has_the_single_antenna_bits(cuda, with_counts):
+    """M = 1 gives the bits of the single-antenna launch (the count-free
+    and the count instantiations), and antenna j of an M-antenna launch
+    the bits of a single-antenna launch on its own gains and noise."""
+    b, m, n, d = 6, 4, 500, 90
+    g, h, w = _inputs(b, n, d, torch.float32, 21, cuda)
+    counts = torch.tensor([50.0, 500.0] * 3, device=cuda) if with_counts \
+        else None
+    single = ota_edge_aggregate(g, h, w, noise_scale=0.37, n_true=counts)
+    one = ota_edge_aggregate(g, h[:, None], w[:, None], noise_scale=0.37,
+                             n_true=counts)
+    assert torch.equal(one[:, 0], single)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    hm = torch.randn((b, m, n), generator=gen, device=cuda).abs()
+    wm = torch.randn((b, m, d), generator=gen, device=cuda)
+    out = ota_edge_aggregate(g, hm, wm, noise_scale=0.37, n_true=counts)
+    for j in range(m):
+        assert torch.equal(out[:, j], ota_edge_aggregate(
+            g, hm[:, j].contiguous(), wm[:, j], noise_scale=0.37,
+            n_true=counts))
 
 
 # ------------------------------------------------------------ attention (K2)

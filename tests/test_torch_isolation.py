@@ -73,9 +73,6 @@ def test_run_mc_without_device_raises_where_cuda_is_absent(monkeypatch):
 
 
 OUT_OF_SLICE = [
-    ({"n_antennas": 2}, "P3"),
-    ({"power_budget": 1.0}, "P3"),
-    ({"batch_frac": 0.5}, "P6"),
     ({"seed_chunk": 1}, "P8"),
     ({"resume_dir": "ckpt"}, "P8"),
     ({"plan": "auto"}, "P9"),
@@ -96,14 +93,41 @@ def test_out_of_slice_arguments_raise(kwargs, item):
 
 @pytest.mark.parametrize("algo", ["blind", "blind_ec"])
 def test_unported_algorithms_raise(algo):
-    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
+    """The blind family is ported; as in the reference, it needs the
+    edge's antenna count."""
+    with pytest.raises(ValueError, match="n_antennas"):
         run_mc(_problem(), [ChannelConfig()], algo, [0.01], 3, 2,
                device="cpu")
 
 
 def test_mixed_algo_rows_and_node_counts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP P5"):
-        problem_from_arrays("logistic", {}, 4, 2, device="cpu")
+    """Every problem kind of the reference is ported; a kind nobody
+    registered raises."""
+    with pytest.raises(ValueError, match="not registered"):
+        problem_from_arrays("svm", {}, 4, 2, device="cpu")
+
+
+BAD_ARGUMENTS = [
+    ({"n_antennas": (2, 3)}, "one antenna count per row"),
+    ({"n_antennas": [0]}, "antenna counts must be >= 1"),
+    ({"n_antennas": 0}, "antenna counts must be >= 1"),
+    ({"power_budget": [1.0, 2.0], "algo": "blind_ec", "n_antennas": 2},
+     "one power budget per row"),
+    ({"batch_frac": 0.5}, "stochastic problem kind"),
+    ({"batch_frac": 0.0}, "batch_frac must be in"),
+    ({"batch_frac": [0.5, 0.5]}, "one batch_frac per row"),
+]
+
+
+@pytest.mark.parametrize("kwargs,match", BAD_ARGUMENTS)
+def test_antenna_budget_and_batch_arguments_are_checked(kwargs, match):
+    """The reference's checks of `n_antennas`, `power_budget` and
+    `batch_frac` (a quadratic problem has no minibatch gradient)."""
+    kwargs = dict(kwargs)
+    algo = kwargs.pop("algo", "gbma")
+    with pytest.raises(ValueError, match=match):
+        run_mc(_problem(), [ChannelConfig()], algo, [0.01], 3, 2,
+               device="cpu", **kwargs)
 
 
 # ----------------------------------------------------------- serving slice
@@ -189,6 +213,10 @@ def test_participation_outside_the_unit_interval_raises(participation):
 
 @pytest.mark.parametrize("part", ["d", "f"])
 def test_antenna_ablations_raise(part):
-    with pytest.raises(NotImplementedError, match="ROADMAP P3"):
-        run_ablations(device="cpu", parts=("a", part), n=6, steps=2,
-                      seeds=1)
+    """The antenna ablations are ported: they give their rows, with
+    finite values; an unknown part raises."""
+    rows = run_ablations(device="cpu", parts=(part,), n=6, steps=2, seeds=1)
+    assert len(rows) == {"d": 3, "f": 4}[part]
+    assert all(np.isfinite(float(r.rpartition("=")[2])) for r in rows)
+    with pytest.raises(ValueError, match="unknown ablation part"):
+        run_ablations(device="cpu", parts=(part, "z"), n=6, steps=2, seeds=1)

@@ -3,7 +3,10 @@ CPU, where the wrapper takes the plain PyTorch version: held against the
 JAX oracle (`ota_edge_aggregate_ref`) AND the Pallas kernel in interpret
 mode, at the reference's own bars (`tests/test_kernels.py`): f32 atol
 2e-5, bf16 atol 5e-2, odd shapes atol 1e-6, noise-only probe == 0.37·w to
-1e-7. The CUDA kernel itself is checked on the card (`chip_smoke.py`,
+1e-7. The antenna axis (gains `(B, M, N)`, noise `(B, M, d)`) is held,
+antenna by antenna, to the Pallas kernel on that antenna's gains at the
+same bars (the reference reaches the kernel once per antenna). The CUDA
+kernel itself is checked on the card (`chip_smoke.py`,
 `tests/test_torch_gpu.py`)."""
 import pytest
 
@@ -16,6 +19,8 @@ from repro.kernels.ota.ops import ota_edge_aggregate as jax_ota  # noqa: E402
 from repro.kernels.ota.ref import ota_edge_aggregate_ref  # noqa: E402
 from repro_torch.kernels.ota import ops  # noqa: E402
 from repro_torch.kernels.ota.ops import ota_edge_aggregate  # noqa: E402
+from repro_torch.kernels.ota.ref import \
+    ota_edge_aggregate_ref as port_ref  # noqa: E402
 
 
 def _inputs(n, d, seed):
@@ -160,3 +165,83 @@ def test_counts_of_the_wrong_shape_raise():
     with pytest.raises(ValueError, match="counts"):
         ota_edge_aggregate(g, h, w, noise_scale=1.0,
                            n_true=torch.ones(g.shape[0] + 1))
+
+
+# ------------------------------------------------------------ antenna axis
+def _antenna_inputs(b, m, n, d, seed):
+    rs = np.random.default_rng(seed)
+    g = rs.standard_normal((b, n, d)).astype(np.float32)
+    h = np.abs(rs.standard_normal((b, m, n))).astype(np.float32)
+    w = rs.standard_normal((b, m, d)).astype(np.float32)
+    return g, h, w
+
+
+@pytest.mark.parametrize("b,m,n,d", [(2, 3, 100, 300), (1, 1, 130, 513),
+                                     (3, 5, 7, 90), (2, 16, 64, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_antenna_axis_matches_pallas_per_antenna(b, m, n, d, dtype):
+    """out[b, m] against the Pallas kernel (interpret mode) and the JAX
+    oracle on (g[b], h[b, m], w[b, m]): the single-antenna bars."""
+    g, h, w = _antenna_inputs(b, m, n, d, b * m * n + d)
+    out = ota_edge_aggregate(torch.tensor(g).to(getattr(torch, dtype)),
+                             torch.tensor(h), torch.tensor(w),
+                             noise_scale=0.37)
+    assert tuple(out.shape) == (b, m, d)
+    assert out.dtype == getattr(torch, dtype)
+    atol = 2e-5 if dtype == "float32" else 5e-2
+    for i in range(b):
+        for j in range(m):
+            ref, pallas = _both_jax(g[i], h[i, j], w[i, j],
+                                    getattr(jnp, dtype))
+            for target in (ref, pallas):
+                np.testing.assert_allclose(out[i, j].float().numpy(),
+                                           target, atol=atol, rtol=1e-2)
+
+
+def test_antenna_axis_with_counts_and_m1():
+    """Per-trajectory counts divide every antenna of a trajectory; M = 1
+    equals the single-antenna form; each antenna equals a single-antenna
+    call on its own gains and noise."""
+    g, h, w = (torch.tensor(a) for a in _ragged("float32"))
+    b, n, d = g.shape
+    rs = np.random.default_rng(9)
+    hm = torch.tensor(np.abs(rs.standard_normal((b, 4, n))),
+                      dtype=torch.float32) * (h > 0)[:, None]
+    wm = torch.tensor(rs.standard_normal((b, 4, d)), dtype=torch.float32)
+    counts = torch.tensor(RAGGED_COUNTS, dtype=torch.float32)
+    out = ota_edge_aggregate(g, hm, wm, noise_scale=0.37, n_true=counts)
+    for j in range(4):
+        single = ota_edge_aggregate(g, hm[:, j], wm[:, j], noise_scale=0.37,
+                                    n_true=counts)
+        np.testing.assert_allclose(out[:, j].numpy(), single.numpy(),
+                                   atol=1e-6, rtol=1e-6)
+    one = ota_edge_aggregate(g, h[:, None], w[:, None], noise_scale=0.37,
+                             n_true=counts)
+    np.testing.assert_allclose(
+        one[:, 0].numpy(),
+        ota_edge_aggregate(g, h, w, noise_scale=0.37, n_true=counts).numpy(),
+        atol=1e-6, rtol=1e-6)
+
+
+def test_antenna_noise_of_the_wrong_shape_raises():
+    g, h, w = (torch.tensor(a) for a in _antenna_inputs(2, 3, 8, 16, 0))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ota_edge_aggregate(g, h, w[:, 0], noise_scale=1.0)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ota_edge_aggregate(g, h[:, :, :-1], w, noise_scale=1.0)
+
+
+def test_plain_version_accumulates_f64_inputs_in_f64():
+    """f64 operands stay f64 (the card's checks of the antenna axis hold
+    the kernel to this evaluation): equal to numpy's f64 sum to 1e-12."""
+    g, h, w = _antenna_inputs(2, 3, 4096, 24, 11)
+    counts = np.array([4096.0, 1000.0])
+    out = port_ref(torch.tensor(g, dtype=torch.float64),
+                   torch.tensor(h, dtype=torch.float64),
+                   torch.tensor(w, dtype=torch.float64), noise_scale=0.37,
+                   n_true=torch.tensor(counts))
+    assert out.dtype == torch.float64
+    ref = np.einsum("bmn,bnd->bmd", h.astype(np.float64),
+                    g.astype(np.float64)) / counts[:, None, None] \
+        + 0.37 * w.astype(np.float64)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12, atol=1e-12)

@@ -101,3 +101,37 @@ def test_odd_and_even_counts_bit_exact(n):
     keys = rng.key(torch.tensor(SEEDS))
     np.testing.assert_array_equal(rng.random_bits(keys, (n,)).numpy(), bits)
     np.testing.assert_array_equal(rng.uniform(keys, (n,)).numpy(), u)
+
+
+# ------------------------------------------------- randint, fold_in on data
+RANDINT_CASES = [((), 0, 6), ((7,), 0, 6), ((5, 3), 3, 100_000),
+                 ((4,), -5, 2**31 - 1), ((9,), 0, 1), ((6,), 0, 70_000),
+                 ((33,), 0, 65_536)]
+
+
+@pytest.mark.parametrize("shape,lo,hi", RANDINT_CASES)
+def test_randint_bit_exact(shape, lo, hi):
+    """`rng.randint` against `jax.random.randint` (int32): equal values,
+    over spans below, at and above 2^16, where the multiplier
+    (2^16 mod span)^2 wraps in uint32."""
+    with jax_original_layout():
+        ref = np.stack([np.asarray(jax.random.randint(
+            _jax_key(s), shape, lo, hi)) for s in SEEDS]).astype(np.int64)
+    out = rng.randint(rng.key(torch.tensor(SEEDS)), shape, lo, hi).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_fold_in_on_tensor_data_bit_exact():
+    """A tensor `data` folds each entry in, broadcast against the keys:
+    `fold_in(k[:, None], arange(n))` equals n scalar folds per key."""
+    data = [0, 1, 7, 0x64617461, 2**32 - 1]
+    with jax_original_layout():
+        ref = np.stack([np.stack([_key_data(jax.random.fold_in(
+            _jax_key(s), x)) for x in data]) for s in SEEDS])
+    keys = rng.key(torch.tensor(SEEDS))
+    out = rng.fold_in(keys[:, None], torch.tensor(data))
+    assert tuple(out.shape) == (len(SEEDS), len(data), 2)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(
+        rng.fold_in(keys, torch.tensor(7)).numpy(), ref[:, 2])

@@ -187,3 +187,84 @@ def test_row_gains_takes_the_shaped_draw_for_one_count():
                                                     (N_MAX,)))
     dyn = tsampling._row_gains(tkeys, "rayleigh", pt, n, (6, N_MAX), N_MAX)
     assert torch.equal(dyn, one)
+
+
+# ------------------------------------- complex gains, antenna keys (blind)
+@pytest.mark.parametrize("fading", FADINGS)
+@pytest.mark.parametrize("n", [1, 6, 500])
+def test_complex_gains_match_reference(fading, n):
+    """Both parts of h·e^{jφ} with the full uniform phase, within 1e-6
+    relative (its cos and sin round per library)."""
+    keys, tkeys = _keys()
+    with jax_original_layout():
+        pj = {k: jnp.float32(v) for k, v in PARAMS.items()}
+        ref = [np.stack([np.asarray(x) for x in
+                         jsampling._sample_complex_gains(k, fading, pj,
+                                                         (n,))])
+               for k in keys]
+    pt = {k: torch.full((len(keys),), v, dtype=torch.float32)
+          for k, v in PARAMS.items()}
+    re, im = tsampling._sample_complex_gains(tkeys, fading, pt, (n,))
+    assert re.dtype == torch.float32 and tuple(re.shape) == (len(keys), n)
+    assert rel_err(re.numpy(), np.stack([r[0] for r in ref])) <= 1e-6
+    assert rel_err(im.numpy(), np.stack([r[1] for r in ref])) <= 1e-6
+
+
+@pytest.mark.parametrize("fading", FADINGS)
+def test_dynamic_complex_gains_match_shaped_draws(fading):
+    """The dynamic-N complex gains against the reference's shaped per-N
+    draws within 1e-6 relative, bit for bit against the port's shaped
+    draws, 0 past each count; `_row_complex_gains` picks the tier."""
+    keys, tkeys = _keys(len(COUNTS))
+    with jax_original_layout():
+        pj = {k: jnp.float32(v) for k, v in PARAMS.items()}
+        ref = [jsampling._sample_complex_gains(k, fading, pj, (n,))
+               for k, n in zip(keys, COUNTS)]
+        ref_re = _padded([np.asarray(r[0]) for r in ref], N_MAX)
+        ref_im = _padded([np.asarray(r[1]) for r in ref], N_MAX)
+    pt = {k: torch.full((len(keys),), v, dtype=torch.float32)
+          for k, v in PARAMS.items()}
+    counts = torch.tensor(COUNTS)
+    re, im = tsampling._row_complex_gains(tkeys, fading, pt, counts,
+                                          COUNTS, N_MAX)
+    assert rel_err(re.numpy(), ref_re) <= 1e-6
+    assert rel_err(im.numpy(), ref_im) <= 1e-6
+    for b, n in enumerate(COUNTS):
+        shaped = tsampling._sample_complex_gains(
+            tkeys[b:b + 1], fading, {k: v[b:b + 1] for k, v in pt.items()},
+            (n,))
+        assert torch.equal(re[b, :n], shaped[0][0])
+        assert torch.equal(im[b, :n], shaped[1][0])
+        assert not re[b, n:].any() and not im[b, n:].any()
+    one = tsampling._row_complex_gains(tkeys, fading, pt, counts, (N_MAX,),
+                                       N_MAX)
+    shaped = tsampling._sample_complex_gains(tkeys, fading, pt, (N_MAX,))
+    assert all(torch.equal(a, b) for a, b in zip(one, shaped))
+
+
+@pytest.mark.parametrize("m_sizes", [(1, 4), (3, 5, 8), (2, 64)])
+def test_antenna_keys_replay_split_per_row(m_sizes):
+    """Per-row antenna keys: lanes [0, m) equal `split(key, m)` for each
+    row's own m (equal bits), the reference's counts-as-data replay (its
+    fast path under the original layout) included; one count is the
+    plain split."""
+    keys, tkeys = _keys(len(m_sizes))
+    m_max = max(m_sizes)
+    with jax_original_layout():
+        ref = [np.asarray(jax.random.key_data(jax.random.split(k, m)))
+               for k, m in zip(keys, m_sizes)]
+        jrep = [np.asarray(jax.random.key_data(jsampling._antenna_keys(
+            k, tuple(sorted(set(m_sizes))),
+            {"n_antennas": jnp.float32(m),
+             "m_idx": jnp.int32(sorted(set(m_sizes)).index(m))})))
+            for k, m in zip(keys, m_sizes)]
+    m = torch.tensor(m_sizes, dtype=torch.float32)
+    out = tsampling._antenna_keys(tkeys, tuple(sorted(set(m_sizes))), m,
+                                  m_max)
+    assert tuple(out.shape) == (len(m_sizes), m_max, 2)
+    for b, mb in enumerate(m_sizes):
+        np.testing.assert_array_equal(out[b, :mb].numpy(), ref[b])
+        np.testing.assert_array_equal(out[b, :mb].numpy(), jrep[b][:mb])
+    np.testing.assert_array_equal(
+        tsampling._antenna_keys(tkeys, (m_max,), m, m_max).numpy(),
+        rng.split(tkeys, m_max).numpy())
