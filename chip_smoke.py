@@ -1292,20 +1292,26 @@ def check_attention_vs_plain() -> dict:
     """The attention kernels against their plain version on the card: at
     the reference tests' seven cases in f32 (the CUDA-core kernel; atol
     5e-5 + rtol 1e-4) and in bf16 (the Hopper kernel; atol 3e-2), at the
-    serving slice's shapes, and on (B, S, H, d) views read in place, bit
-    for bit against contiguous copies: in both dtypes views of the
-    projections' memory, and in f32 views offset by one float in 68-wide
-    rows, which the f32 kernel reads with its 4-byte copies. Each f32 line
-    names the copy width the check ran (`kernel.copy_bytes`). Returns the
-    max abs error per slice shape."""
+    serving slice's shapes, and on (B, S, H, d) views, bit for bit
+    against contiguous copies: in both dtypes views of the projections'
+    memory, read in place, and views offset by one element in 68-wide
+    rows, which the f32 kernel reads with its 4-byte copies and the bf16
+    kernel, whose TMA cannot load them, from copies (`ops.tma_ready`).
+    Each line names its route: the f32 copy width (`kernel.copy_bytes`),
+    or which bf16 operands were copied. Returns the max abs error per
+    slice shape."""
     import torch
 
     from repro_torch.kernels.attention import kernel
+    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ops import multi_head_attention
 
     def route(q, k, v):
         if q.dtype == torch.bfloat16:
-            return "TMA"
+            copied = [name for name, t in zip("qkv", (q, k, v))
+                      if not attn_ops.tma_loadable(t)]
+            return "TMA" + (f" on copies of {', '.join(copied)}"
+                            if copied else "")
         return f"{kernel.copy_bytes(q, k, v)}-byte copies"
 
     def compare(label, q, k, v, kw, atol, rtol):
@@ -1330,17 +1336,18 @@ def check_attention_vs_plain() -> dict:
         for i, (b, hq, hkv, s, d, kw) in enumerate(ATTN_TEST_SHAPES):
             q, k, v = attn_inputs(b, hq, hkv, s, d, dtype, 100 + i)
             compare("test shape", q, k, v, kw, atol, rtol)
-    # the projections' (B, S, H, d) memory seen as (B, H, S, d); in f32
-    # also q, k, v sliced at column 1 of 68-wide rows
+    # the projections' (B, S, H, d) memory seen as (B, H, S, d), and q,
+    # k, v sliced at column 1 of 68-wide rows
     gen = torch.Generator(device="cuda").manual_seed(5)
     views = {}
     for dtype in (torch.float32, torch.bfloat16):
         views[f"{dtype} strided views"] = [
             torch.randn((2, 100, h, 64), generator=gen, device="cuda")
             .to(dtype).transpose(1, 2) for h in (4, 2, 2)]
-    views["torch.float32 misaligned strided views"] = [
-        torch.randn((2, 100, h, 68), generator=gen, device="cuda")
-        [..., 1:65].transpose(1, 2) for h in (4, 2, 2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        views[f"{dtype} misaligned strided views"] = [
+            torch.randn((2, 100, h, 68), generator=gen, device="cuda")
+            .to(dtype)[..., 1:65].transpose(1, 2) for h in (4, 2, 2)]
     kw = {"scale": 0.125, "window": 30, "impl": "kernel"}
     for label, (q, k, v) in views.items():
         compare(label, q, k, v, {"window": 30}, *bars[q.dtype])

@@ -92,9 +92,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unit stride along d (any other strides): q and out (B, Hq, Sq, d), k
     and v (B, Hkv, Skv, d), Hq a multiple of Hkv, d in `HEAD_DIMS`. bf16
     goes to the Hopper kernel, which reads q, k and v by TMA (16-byte
-    aligned bases and strides, checked in `ops.py`); f32 to the CUDA-core
-    kernel, at the copy width `copy_bytes` picks. Raises if the launch is
-    refused."""
+    aligned bases and strides: `ops.tma_ready` copies other views); f32
+    to the CUDA-core kernel, at the copy width `copy_bytes` picks. Raises
+    if the launch is refused."""
     bf16 = q.dtype == torch.bfloat16
     fn, err, _ = _bind(bf16)
     batch, heads, sq, head_dim = q.shape

@@ -12,10 +12,12 @@ kernels read kv head h // group for GQA, mask ragged sequence lengths
 themselves (the non-causal padded-kv case included, which the TPU wrapper
 hands to the oracle), and take (batch, head, seq) strides, so q, k and v
 may be transposed views of the projections. bf16 goes to the Hopper
-kernel, f32 to the CUDA-core kernel (`kernel.py`); the bf16 kernel loads
-q, k and v by TMA, which needs 16-byte-aligned base addresses and strides
-that are multiples of 16 bytes: other views raise `ValueError`, they are
-not copied.
+kernel, f32 to the CUDA-core kernel (`kernel.py`). The bf16 kernel loads
+q, k and v by TMA, which needs 16-byte-aligned base addresses and
+(batch, head, seq) strides that are multiples of 16 bytes: an operand off
+either is copied (`tma_ready`) into the contiguous (B, H, S, d) layout,
+and the kernel runs on the copy; the views the model path makes need no
+copy.
 
 `launch_count` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
@@ -53,22 +55,32 @@ def _validate(q, k, v, *, window, softcap) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            strides = [st for st, n in zip(t.stride()[:3], t.shape[:3])
-                       if n > 1]
-            if t.data_ptr() % 16 or any(st % 8 for st in strides):
-                raise ValueError(
-                    f"the bf16 attention kernel loads {name} by TMA, which "
-                    "needs a 16-byte-aligned base address and (batch, head, "
-                    "seq) strides that are multiples of 16 bytes; got "
-                    f"address % 16 = {t.data_ptr() % 16}, strides "
-                    f"{tuple(t.stride())}")
+
+
+def tma_loadable(t: torch.Tensor) -> bool:
+    """Whether TMA can load the (B, H, S, d) view `t` as it is: a
+    16-byte-aligned base address and (batch, head, seq) strides of whole
+    16 bytes (a dimension of length 1 has no stride to check)."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st % step == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+        if n > 1)
+
+
+def tma_ready(*tensors) -> tuple:
+    """The bf16 kernel's operands: each view TMA can load as it is, and
+    a contiguous copy of each other one (a fresh allocation, so 16-byte
+    aligned, with strides of whole rows of d in `kernel.HEAD_DIMS`)."""
+    return tuple(t if tma_loadable(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in tensors)
 
 
 def _launch(q, k, v, *, scale, causal, window, softcap) -> torch.Tensor:
     global launch_count
     _validate(q, k, v, window=window, softcap=softcap)
+    if q.dtype == torch.bfloat16:
+        q, k, v = tma_ready(q, k, v)
     b, hq, sq, d = q.shape
     # (B, Sq, Hq, d) memory, so the caller's swap back to (B, S, H·d)
     # for the output projection is a view

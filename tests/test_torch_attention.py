@@ -244,20 +244,36 @@ def test_f32_kernel_copy_width_follows_the_view():
 
 @pytest.mark.parametrize("fault", ["base", "stride"])
 def test_bf16_kernel_route_refuses_what_tma_cannot_load(fault):
-    """The bf16 kernel loads q, k, v by TMA: a base address off 16 bytes
-    or a (batch, head, seq) stride that is not a multiple of 16 bytes
-    raises ValueError naming TMA (checked before the device), where f32,
-    read by plain loads, takes the same view."""
+    """The bf16 kernel loads q, k, v by TMA, which refuses a base address
+    off 16 bytes and a (batch, head, seq) stride that is not a multiple of
+    16 bytes. Such an operand, and only it, goes to the kernel as a
+    contiguous copy (`ops.tma_ready`, a function of address and strides
+    alone): the copy is 16-byte aligned with whole-row strides and holds
+    the same values; aligned views, strided ones included, pass as they
+    are. On CPU tensors the kernel route raises for the device, in
+    either dtype."""
     if fault == "base":
-        q = torch.zeros(2 * 4 * 64 + 1, dtype=torch.bfloat16)[1:]
+        q = torch.arange(2 * 4 * 64 + 1, dtype=torch.bfloat16)[1:]
         q = q.view(1, 2, 4, 64)
     else:
-        q = torch.zeros((1, 2, 4, 68), dtype=torch.bfloat16)[..., :64]
+        q = torch.arange(2 * 4 * 68, dtype=torch.bfloat16).view(
+            1, 2, 4, 68)[..., :64]
     kv = torch.zeros((1, 2, 4, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="TMA"):
+    kv_t = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert not ops.tma_loadable(q)
+    assert ops.tma_loadable(kv) and ops.tma_loadable(kv_t)
+    for args, faulty in (((q, kv, kv_t), 0), ((kv, kv_t, q), 2)):
+        ready = ops.tma_ready(*args)
+        for i, (t, r) in enumerate(zip(args, ready)):
+            if i != faulty:
+                assert r is t
+                continue
+            assert r is not t and r.data_ptr() != t.data_ptr()
+            assert r.data_ptr() % 16 == 0 and r.is_contiguous()
+            assert ops.tma_loadable(r)
+            assert torch.equal(r, t)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         multi_head_attention(q, kv, kv, scale=1.0, impl="kernel")
-    with pytest.raises(ValueError, match="TMA"):
-        multi_head_attention(kv, kv, q, scale=1.0, impl="kernel")
     with pytest.raises(ValueError, match="CUDA tensors"):
         multi_head_attention(q.float(), kv.float(), kv.float(), scale=1.0,
                              impl="kernel")

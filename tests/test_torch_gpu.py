@@ -248,13 +248,28 @@ def test_attention_kernel_reads_strided_views(cuda, dtype, row, col):
 
 
 def test_bf16_attention_kernel_refuses_views_tma_cannot_load(cuda):
-    q = torch.zeros((1, 2, 40, 68), dtype=torch.bfloat16,
-                    device=cuda)[..., :64]
-    kv = torch.zeros((1, 2, 40, 64), dtype=torch.bfloat16, device=cuda)
+    """TMA cannot load a bf16 view whose (batch, head, seq) stride is off
+    16 bytes (q: 68-wide rows sliced to 64) or whose base address is (v:
+    one element in): the kernel runs once on a contiguous copy of exactly
+    those operands, with the bits of a launch on contiguous copies of all
+    three, and matches the plain version at the bf16 bar."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((1, 2, 40, 68), generator=gen, device=cuda).to(
+        torch.bfloat16)[..., :64]
+    k = torch.randn((1, 2, 40, 64), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    v = torch.randn(2 * 40 * 64 + 1, generator=gen, device=cuda).to(
+        torch.bfloat16)[1:].view(1, 2, 40, 64)
+    assert not attn_ops.tma_loadable(q) and not attn_ops.tma_loadable(v)
+    assert attn_ops.tma_loadable(k)
     before = attn_ops.launch_count
-    with pytest.raises(ValueError, match="TMA"):
-        multi_head_attention(q, kv, kv, scale=0.125)
-    assert attn_ops.launch_count == before
+    out = multi_head_attention(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count == before + 1
+    dense = multi_head_attention(q.contiguous(), k, v.clone(), scale=0.125)
+    assert torch.equal(out, dense)
+    ref = multi_head_attention(q, k, v, scale=0.125, impl="ref")
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
 
 
 # ------------------------------------------------------------------ WKV6 (K3)
