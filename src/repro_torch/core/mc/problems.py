@@ -307,12 +307,16 @@ def _logistic_sgrad_from_idx_row(row: dict, theta: torch.Tensor,
 def _logistic_risk_row(row: dict, theta: torch.Tensor) -> torch.Tensor:
     """Excess risk F(θ) − F* of the GLOBAL objective: the masked mean of
     log(1 + e^{−m}) over the row's N·k samples plus the L2 term, minus
-    the host-side f64 Newton F* stored in the data."""
+    the host-side f64 Newton F* stored in the data. The samples' sum is
+    taken in f64 and rounded once to f32: F ≈ 0.5 carries that one
+    rounding, where an f32 sum in PyTorch's order sat an ulp of F from
+    XLA's more often (ROADMAP §3, F8)."""
     loss = torch.logaddexp(torch.zeros((), device=theta.device),
                            -_logistic_margin(row, theta))
     w = row["mask"][:, None, :, None]
     n_samples = row["mask"].sum(dim=1) * row["Xn"].shape[2]
-    f = (loss * w).sum(dim=(2, 3)) / n_samples[:, None] \
+    f = (loss * w).sum(dim=(2, 3), dtype=torch.float64).to(torch.float32) \
+        / n_samples[:, None] \
         + 0.5 * row["lam"][:, None] * (theta * theta).sum(dim=-1)
     return f - row["f_star"][:, None]
 

@@ -23,8 +23,10 @@ the repo uses; normals differ by an ulp and the iteration is contractive).
 ci95 is a spread across seeds — a difference of nearly equal risks — so
 its error is bounded by the risks' error, not by its own size: it is held
 to rtol 1e-5 plus atol 1e-5·|mean|. The logistic risk is an excess
-F − F* of an f32 objective F ≈ 0.5: its risks and mean also take atol
-4 ulps of F* (ROADMAP §3, F8). Theorem-1 bounds and energy_to_target
+F − F* of an f32 objective F ≈ 0.5, and θ drifts by ulps between the
+packages along a trajectory, which moves F − F* of one seed at one step
+past 1e-5 relative in the minibatch cases: its risks and mean also take
+atol 4 ulps of F* (ROADMAP §3, F8). Theorem-1 bounds and energy_to_target
 within 1e-6. The figure twins (`repro_torch.figures`) emit the same
 rows as `benchmarks.fig2_equal_gains`, `fig3_rayleigh`,
 `fig4_fdm_comparison`, `fig5_localization`, `fig6_energy_scaling`,
