@@ -382,23 +382,29 @@ def check_kernel_vs_plain() -> dict:
         f"{'bitwise ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError("uniform counts change the kernel's bits")
-    # the antenna axis at odd M, N and d, with and without counts; each
-    # antenna of an M-antenna launch has a single-antenna launch's bits
-    for b, m, n, d in ((3, 5, 131, 37), (4, 7, 33, 100)):
+    # the antenna axis at odd M, N and d, at M off the kernel's antenna
+    # chunks (17, 20) and past the largest (64), with and without counts;
+    # each antenna of an M-antenna launch has a single-antenna launch's
+    # bits, LARGE MRC's included
+    for b, m, n, d in ((3, 5, 131, 37), (4, 7, 33, 100), (2, 17, 131, 37),
+                       (2, 20, 500, 24), (2, 64, 160, 90)):
         for counts in (None, (n // 2 + 1, n, n)):
             seed += 1
             compare("antenna axis", b * 3, n, d, torch.float32, 1e-6, 1e-5,
-                    seed, n_true=trajectory_counts(b * 3, n, counts), m=m)
-    g, h, w = ota_inputs(6, 500, 90, torch.float32, 98, m=4)
-    full = ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel")
-    same = all(torch.equal(full[:, j], ota_edge_aggregate(
-        g, h[:, j].contiguous(), w[:, j].contiguous(), noise_scale=0.37,
-        impl="kernel")) for j in range(4))
-    log(f"antenna axis (B=6, M=4, N=500, d=90): each antenna == a "
-        f"single-antenna launch: {'bitwise ok' if same else 'FAIL'}")
-    if not same:
-        raise AssertionError("an antenna differs from a single-antenna "
-                             "launch")
+                    seed, n_true=trajectory_counts(b * 3, n, counts), m=m,
+                    f64=True)
+    for b, m, n, d in ((6, 4, 500, 90), (6, 20, 500, 37),
+                       MAIN_SHAPES["large mrc"][:4]):
+        g, h, w = ota_inputs(b, n, d, torch.float32, 98, m=m)
+        full = ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel")
+        same = all(torch.equal(full[:, j], ota_edge_aggregate(
+            g, h[:, j].contiguous(), w[:, j].contiguous(), noise_scale=0.37,
+            impl="kernel")) for j in range(m))
+        log(f"antenna axis (B={b}, M={m}, N={n}, d={d}): each antenna == a "
+            f"single-antenna launch: {'bitwise ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("an antenna differs from a single-antenna "
+                                 "launch")
     # main-path launches: gradients of mean 1 make v ~ 0.8, so a divisor
     # off by one node (N - 1) errs by v/N >= 2e-4 against a bar of ~9e-6
     errs = {}
@@ -876,45 +882,86 @@ def run_large_main_path(ops, label: str, mcs, chs, betas, steps: int,
     return launches, wall / steps
 
 
-def step_breakdown() -> None:
+def step_breakdown() -> dict:
     """CUDA-event times of the pieces of one LARGE step (B = 1024
-    trajectories): the draws, the gradient, the energy sum and the OTA
-    kernel — where a step's time goes."""
+    trajectories) and one LARGE MRC step (the same with M = 16 antennas):
+    the antenna keys, the gain draws (per antenna at MRC: B·M·N complex
+    gains) and the noise draws, the gradient, the risk, the energy sum,
+    the OTA kernel, the mean over the antennas and the θ update, and the
+    gbma slot whole — where a step's time goes. Returns ms per piece per
+    cell."""
     import torch
 
     from repro_torch.core import rng
     from repro_torch.core.mc.engine import ChannelBatch
     from repro_torch.core.mc.problems import MCProblemBatch
-    from repro_torch.core.mc.slots import SlotCtx, _ota_draw
+    from repro_torch.core.mc.slots import (SlotCtx, _antenna_mean, _gains,
+                                           _gbma_slot, _ota_draw,
+                                           _step_antenna_keys, with_antennas)
     from repro_torch.kernels.ota.ops import ota_edge_aggregate
 
-    mc, ch, _ = large_workload()
+    mc, ch, beta = large_workload()
     b, n, d = LARGE["seeds"], LARGE["n"], LARGE["dim"]
     batch = MCProblemBatch.stack([mc])
     p = {k: v.to("cuda").repeat(b) for k, v in
          ChannelBatch.stack([ch]).params.items()}
+    p["n_nodes"] = torch.full((b,), float(n), device="cuda")
     ctx = SlotCtx(fading="rayleigh", p=p,
                   mask=torch.ones((b, n), device="cuda"),
                   counts=torch.full((b,), n, device="cuda"), n_sizes=(n,),
                   phase_zero=True)
     keys = rng.key(torch.arange(b, device="cuda"))
     theta = torch.zeros((1, b, d), device="cuda")
+    mom = torch.zeros((b, d), device="cuda")
+    gamma = torch.zeros((b,), device="cuda")
+    betas = torch.full((b,), beta, device="cuda")
     g = batch.grad_fn(batch.data, theta).reshape(b, n, d)
     dr = _ota_draw(keys, ctx, n, d)
-    parts = {
-        "draws (gains + noise, threefry)": lambda: _ota_draw(keys, ctx, n, d),
+    common = {
         "gradient (B,N,d)": lambda: batch.grad_fn(batch.data, theta),
         "risk": lambda: batch.risk_fn(batch.data, theta),
         "energy sum": lambda: (g * g).sum(dim=(1, 2)),
+        "theta update": lambda: theta[0] - betas[:, None] * (
+            gamma[:, None] * mom + dr["w"]),
+    }
+    cells = {"LARGE": {
+        "draws (gains + noise, threefry)": lambda: _ota_draw(keys, ctx, n,
+                                                             d),
+        **common,
         "OTA kernel": lambda: ota_edge_aggregate(
             g, dr["h"], dr["w"], noise_scale=1.0, impl="kernel"),
+    }}
+    m = LARGE_MRC["m"]
+    mctx = with_antennas(ctx, m, ())
+    akeys = rng.split(_step_antenna_keys(keys, mctx))
+    h = _gains(akeys[:, 0], mctx.ant, n).view(b, m, n)
+    w = rng.normal(akeys[:, 1], (d,)).view(b, m, d)
+    v = ota_edge_aggregate(g, h, w, noise_scale=1.0, impl="kernel")
+    cells["LARGE MRC"] = {
+        "antenna keys (B -> B*M, then k_h, k_w)": lambda: rng.split(
+            _step_antenna_keys(keys, mctx)),
+        "gain draws (B*M*N gains)": lambda: _gains(
+            akeys[:, 0], mctx.ant, n),
+        "noise draws (B*M*d)": lambda: rng.normal(akeys[:, 1], (d,)),
+        **common,
+        "OTA kernel (B, M, N, d)": lambda: ota_edge_aggregate(
+            g, h, w, noise_scale=1.0, impl="kernel"),
+        "antenna mean": lambda: _antenna_mean(v, mctx),
+        "gbma slot whole (keys, draws, kernel, mean)": lambda: _gbma_slot(
+            g, keys, mctx),
     }
-    total = 0.0
-    for name, fn in parts.items():
-        ms = cuda_ms(fn, reps=20)
-        total += ms
-        log(f"LARGE step breakdown: {name}: {ms:.4f} ms")
-    log(f"LARGE step breakdown: sum of parts {total:.4f} ms")
+    out = {}
+    for cell, parts in cells.items():
+        total = 0.0
+        out[cell] = {}
+        for name, fn in parts.items():
+            ms = cuda_ms(fn, reps=20)
+            out[cell][name] = ms
+            if "whole" not in name:
+                total += ms
+            log(f"{cell} step breakdown: {name}: {ms:.4f} ms")
+        log(f"{cell} step breakdown: sum of parts {total:.4f} ms")
+    return out
 
 
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -982,7 +1029,7 @@ def _base_profile_cases() -> dict:
 def _new_path_profile_cases() -> dict:
     """The step profile's cases of the later slices' paths: fig4, fig5,
     fig6, fig7 (b), fig8 (a), one call of each ablation part, the LARGE
-    sweep."""
+    sweep and LARGE MRC."""
     import numpy as np
 
     from repro_torch.core.mc.engine import run_mc
@@ -1026,6 +1073,9 @@ def _new_path_profile_cases() -> dict:
     mcs, chs, betas = large_sweep_workload()
     cases["large sweep"] = case(mcs, chs, "gbma", betas,
                                 LARGE_SWEEP["seeds"])
+    mc, ch, beta = large_mrc_workload()
+    cases["large mrc"] = case(mc, [ch], "gbma", [beta], LARGE_MRC["seeds"],
+                              n_antennas=LARGE_MRC["m"])
     return cases
 
 
@@ -1072,10 +1122,11 @@ def step_profile(cases: dict) -> dict:
 def build_kernels() -> tuple:
     """Build every CUDA source at once (one nvcc each) and print what
     ptxas reports (registers, spills), the dynamic shared memory of each
-    attention kernel per head_dim, the SASS of the bf16 (`sass_summary`)
-    and the f32 (`f32_sass_summary`) attention kernels and the WKV
-    kernel's registers, spills and shared memory (`wkv_build_summary`),
-    which it returns."""
+    attention kernel per head_dim, K1's registers, spills and shared
+    memory per instantiation (`ota_build_summary`), the SASS of the bf16
+    (`sass_summary`) and the f32 (`f32_sass_summary`) attention kernels
+    and the WKV kernel's registers, spills and shared memory
+    (`wkv_build_summary`), which it returns."""
     import torch
 
     from repro_torch.kernels.attention import kernel as attn_kernel
@@ -1096,6 +1147,8 @@ def build_kernels() -> tuple:
     for name, info in infos.items():
         log(f"build: {builds[name][1].name} -> {info.path.name} in "
             f"{info.seconds:.2f} s")
+        if name == "ota_aggregate":  # 32 instantiations: their summary
+            continue
         for line in info.log.splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"  {line.strip()}")
@@ -1104,7 +1157,8 @@ def build_kernels() -> tuple:
                 for d in attn_kernel.HEAD_DIMS}
         log(f"flash_attention {dtype} dynamic shared memory per block by "
             f"head_dim: {smem}")
-    return (sass_summary(infos["flash_attention_sm90"].path),
+    return (ota_build_summary(infos["ota_aggregate"]),
+            sass_summary(infos["flash_attention_sm90"].path),
             f32_sass_summary(infos["flash_attention"]),
             wkv_build_summary(infos["wkv6"]))
 
@@ -1177,6 +1231,47 @@ def ptxas_by_kernel(log: str, key) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if name and m:
+            out.setdefault(name, {})["static_smem_bytes"] = int(m.group(1))
+    return out
+
+
+# K1's instantiations: (antennas per block, columns per thread)
+OTA_CHUNKS = ((1, 1), (4, 1), (8, 1), (8, 2))
+
+
+def ota_build_summary(info) -> dict:
+    """Per instantiation of K1, keyed "g=<f32|bf16> out=<f32|bf16>
+    counts=<0|1> chunk=<antennas per block> vec=<columns per thread>":
+    ptxas's registers, spill bytes and static shared memory. Raises if
+    the report is empty or lacks an instantiation."""
+    import re
+
+    def dt(code):  # a repeated bf16 is mangled as a substitution, S<n>_
+        return "f32" if code == "f" else "bf16"
+
+    def key(mangled):
+        m = re.search(r"ota_aggregate_kernelI(f|13__nv_bfloat16)"
+                      r"(f|13__nv_bfloat16|S\d*_)Lb(\d)ELi(\d+)ELi(\d+)E",
+                      mangled)
+        if not m:
+            return None
+        return (f"g={dt(m.group(1))} out={dt(m.group(2))} "
+                f"counts={m.group(3)} chunk={m.group(4)} vec={m.group(5)}")
+
+    out = ptxas_by_kernel(info.log, key)
+    want = {f"g={g} out={o} counts={c} chunk={k} vec={v}"
+            for g in ("f32", "bf16") for o in ("f32", "bf16")
+            for c in (0, 1) for k, v in OTA_CHUNKS}
+    spills = sum(r.get("spill_stores", 0) + r.get("spill_loads", 0)
+                 for r in out.values())
+    regs = sorted({r.get("registers") for r in out.values()})
+    log(f"ota_aggregate ptxas per instantiation (registers {regs}, spill "
+        f"bytes {spills} in all): {json.dumps(out)}")
+    if set(out) != want or not all("registers" in r for r in out.values()):
+        raise AssertionError(f"K1's ptxas report lacks instantiations: "
+                             f"{sorted(want - set(out))}")
     return out
 
 
@@ -1947,7 +2042,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    sass, f32_sass, wkv_build = build_kernels()
+    ota_build, sass, f32_sass, wkv_build = build_kernels()
     elapsed('the build')
 
     # K1 and the Monte Carlo path
@@ -1997,7 +2092,7 @@ def main() -> int:
     del mc
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    step_breakdown()
+    breakdown = step_breakdown()
     elapsed('the LARGE sweep, LARGE MRC and the step breakdown')
     torch.cuda.synchronize()
     prof = step_profile({**_base_profile_cases(),
@@ -2051,6 +2146,7 @@ def main() -> int:
         "large_ms_per_step": large_step_s * 1e3,
         "large_sweep_ms_per_step": sweep_step_s * 1e3,
         "large_mrc_ms_per_step": mrc_step_s * 1e3,
+        "step_breakdown": breakdown, "build": ota_build,
         "padded": next(r for r in timings if r["launch"] == "fig3 (a)"),
         "large_mrc": next(r for r in timings if r["launch"] == "large mrc"),
         "shapes": timings, "step_profile": prof,

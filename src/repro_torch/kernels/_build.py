@@ -35,7 +35,8 @@ _libs: dict = {}
 class BuildInfo:
     """One built library: its path, the seconds `nvcc` took (0.0 when an
     up-to-date build was reused) and the compiler's messages (`ptxas -v`:
-    registers, shared memory and spills per kernel)."""
+    registers, shared memory and spills per kernel), kept beside the
+    library so a reused build reports them too."""
 
     path: Path
     seconds: float
@@ -59,8 +60,10 @@ def build(source: Path, name: str) -> BuildInfo:
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return BuildInfo(out, 0.0, "")
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildInfo(out, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
@@ -70,8 +73,13 @@ def build(source: Path, name: str) -> BuildInfo:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{source}:\n{proc.stdout}\n{proc.stderr}")
+    log = (proc.stdout + proc.stderr).strip()
+    # the compiler's report first, so a reused build always finds it
+    log_tmp = log_path.with_name(f"{out.stem}.{os.getpid()}.tmp.log")
+    log_tmp.write_text(log)
+    os.replace(log_tmp, log_path)
     os.replace(tmp, out)
-    return BuildInfo(out, seconds, (proc.stdout + proc.stderr).strip())
+    return BuildInfo(out, seconds, log)
 
 
 def load(source: Path, name: str) -> ctypes.CDLL:

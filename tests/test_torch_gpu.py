@@ -106,11 +106,14 @@ def test_per_trajectory_counts_match_plain_version(cuda, dtype):
 
 
 @pytest.mark.parametrize("b,m,n,d", [(3, 5, 131, 37), (2, 1, 500, 90),
-                                     (4, 7, 33, 100), (16, 16, 4096, 24)])
+                                     (4, 7, 33, 100), (16, 16, 4096, 24),
+                                     (3, 17, 131, 37), (4, 20, 500, 24),
+                                     (2, 64, 160, 90)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_antenna_axis_matches_plain_version(cuda, b, m, n, d, dtype):
     """gains (B, M, N), noise (B, M, d) -> (B, M, d) in one launch, at
-    odd M, N and d, against the plain version at the single-antenna
+    odd M, N and d, M off the kernel's antenna chunks (17, 20) and past
+    the largest (64), against the plain version at the single-antenna
     bars, with and without per-trajectory counts."""
     g, _, _ = _inputs(b, n, d, dtype, b * m + n + d, cuda)
     gen = torch.Generator(device=cuda).manual_seed(m)
@@ -135,23 +138,27 @@ def test_antenna_axis_matches_plain_version(cuda, b, m, n, d, dtype):
 def test_antenna_launch_has_the_single_antenna_bits(cuda, with_counts):
     """M = 1 gives the bits of the single-antenna launch (the count-free
     and the count instantiations), and antenna j of an M-antenna launch
-    the bits of a single-antenna launch on its own gains and noise."""
-    b, m, n, d = 6, 4, 500, 90
-    g, h, w = _inputs(b, n, d, torch.float32, 21, cuda)
+    the bits of a single-antenna launch on its own gains and noise: at
+    M = 4, at M off the kernel's antenna chunks (17, 20) and past the
+    largest (64), at even d (column pairs for chunks of 8 and 16) and odd
+    d."""
+    b, n = 6, 500
     counts = torch.tensor([50.0, 500.0] * 3, device=cuda) if with_counts \
         else None
-    single = ota_edge_aggregate(g, h, w, noise_scale=0.37, n_true=counts)
-    one = ota_edge_aggregate(g, h[:, None], w[:, None], noise_scale=0.37,
-                             n_true=counts)
-    assert torch.equal(one[:, 0], single)
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    hm = torch.randn((b, m, n), generator=gen, device=cuda).abs()
-    wm = torch.randn((b, m, d), generator=gen, device=cuda)
-    out = ota_edge_aggregate(g, hm, wm, noise_scale=0.37, n_true=counts)
-    for j in range(m):
-        assert torch.equal(out[:, j], ota_edge_aggregate(
-            g, hm[:, j].contiguous(), wm[:, j], noise_scale=0.37,
-            n_true=counts))
+    for m, d in ((4, 90), (17, 90), (20, 37), (64, 24)):
+        g, h, w = _inputs(b, n, d, torch.float32, 21 + m, cuda)
+        single = ota_edge_aggregate(g, h, w, noise_scale=0.37, n_true=counts)
+        one = ota_edge_aggregate(g, h[:, None], w[:, None], noise_scale=0.37,
+                                 n_true=counts)
+        assert torch.equal(one[:, 0], single)
+        gen = torch.Generator(device=cuda).manual_seed(5 + m)
+        hm = torch.randn((b, m, n), generator=gen, device=cuda).abs()
+        wm = torch.randn((b, m, d), generator=gen, device=cuda)
+        out = ota_edge_aggregate(g, hm, wm, noise_scale=0.37, n_true=counts)
+        for j in range(m):
+            assert torch.equal(out[:, j], ota_edge_aggregate(
+                g, hm[:, j].contiguous(), wm[:, j], noise_scale=0.37,
+                n_true=counts)), (m, d, j)
 
 
 # ------------------------------------------------------------ attention (K2)

@@ -245,3 +245,60 @@ def test_plain_version_accumulates_f64_inputs_in_f64():
                     g.astype(np.float64)) / counts[:, None, None] \
         + 0.37 * w.astype(np.float64)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12, atol=1e-12)
+
+
+def _k1_order(g, h, w, n_true=None):
+    """The CUDA kernel's arithmetic, in PyTorch: g (B, N, d), h (B, M, N),
+    w (B, M, d), f32. Node group grp = n mod 8 sums its nodes in sequence,
+    one fmaf each (emulated in f64, where h·g is exact, then rounded to
+    f32); a fixed tree combines the groups (4, then 2, then 1 apart); the
+    count divides after the tree; w is added."""
+    b, n, d = g.shape
+    g64, h64 = g.double(), h.double()
+    parts = []
+    for grp in range(8):
+        acc = torch.zeros((b, h.shape[1], d), dtype=torch.float32)
+        for node in range(grp, n, 8):
+            acc = (h64[:, :, node, None] * g64[:, None, node, :]
+                   + acc.double()).float()
+        parts.append(acc)
+    for stride in (4, 2, 1):
+        for grp in range(stride):
+            parts[grp] = parts[grp] + parts[grp + stride]
+    count = float(n) if n_true is None else n_true[:, None, None]
+    return parts[0] / count + w
+
+
+@pytest.mark.parametrize("b,m,n,d,with_counts", [
+    (3, 5, 131, 37, False), (2, 17, 500, 24, True), (1, 16, 4096, 24, False),
+    (4, 1, 200, 90, True), (2, 20, 257, 90, False)])
+def test_kernel_order_holds_the_bar_whatever_m(b, m, n, d, with_counts):
+    """The order the CUDA kernel sums in (`_k1_order`) against the plain
+    version at K1's bars: f32 atol 2e-5 (`tests/test_kernels.py`), and the
+    f64 plain version at 1e-6 + 1e-5·|v| (the bar of antenna launches on
+    the card). Each antenna's result is the same, bit for bit, whether it
+    is summed alone or among M antennas: the order never depends on M, so
+    an M-antenna launch has each antenna's single-antenna bits."""
+    rs = np.random.default_rng(b * m + n + d)
+    g = torch.tensor(rs.standard_normal((b, n, d)) + 1.0,
+                     dtype=torch.float32)
+    h = torch.tensor(np.abs(rs.standard_normal((b, m, n))),
+                     dtype=torch.float32)
+    w = torch.tensor(rs.standard_normal((b, m, d)), dtype=torch.float32)
+    counts = None
+    if with_counts:
+        counts = torch.tensor(rs.integers(1, n + 1, b), dtype=torch.float32)
+        lanes = torch.arange(n) < counts[:, None]
+        g = g * lanes[..., None]
+        h = h * lanes[:, None]
+    out = _k1_order(g, h, w, counts)
+    plain = port_ref(g, h, w, noise_scale=1.0, n_true=counts)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=2e-5,
+                               rtol=0)
+    plain64 = port_ref(g.double(), h.double(), w.double(), noise_scale=1.0,
+                       n_true=None if counts is None else counts.double())
+    assert torch.all((out.double() - plain64).abs()
+                     <= 1e-6 + 1e-5 * plain64.abs())
+    for j in {0, m // 2, m - 1}:
+        alone = _k1_order(g, h[:, j:j + 1], w[:, j:j + 1], counts)
+        assert torch.equal(alone[:, 0], out[:, j])
