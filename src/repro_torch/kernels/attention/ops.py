@@ -60,11 +60,9 @@ def _validate(q, k, v, *, window, softcap) -> None:
 def tma_loadable(t: torch.Tensor) -> bool:
     """Whether TMA can load the (B, H, S, d) view `t` as it is: a
     16-byte-aligned base address and (batch, head, seq) strides of whole
-    16 bytes (a dimension of length 1 has no stride to check)."""
-    step = 16 // t.element_size()
-    return t.data_ptr() % 16 == 0 and all(
-        st % step == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
-        if n > 1)
+    16 bytes, the condition of 16-byte `cp.async` copies
+    (`kernel.copy_bytes`)."""
+    return kernel.copy_bytes(t) == 16
 
 
 def tma_ready(*tensors) -> tuple:

@@ -24,15 +24,15 @@
 //
 // Design:
 //   * one thread block per (trajectory b, chunk of kChunk antennas, column
-//     tile). kChunk is a template constant, 1, 4 or 8: the smallest that
-//     holds M, a larger M taking several chunks of 8 (LARGE MRC's 16
-//     antennas two blocks per trajectory, the second reading g[b] mostly
-//     from L2). Each thread keeps kChunk x kVec f32 accumulators in
+//     tile). kChunk is a template constant: 1 for a single antenna, else 8
+//     (the lanes past M masked), M > 8 taking several chunks: LARGE MRC's
+//     16 antennas are two blocks per trajectory, the second reading g[b]
+//     mostly from L2. Each thread keeps kChunk x kVec f32 accumulators in
 //     registers: it reads each of its g[b, n, col] once and uses it for
 //     every antenna of the chunk. The chunk's gains are staged in shared
 //     memory as hs[node][antenna] rows, a pass of 4096 / kChunk nodes at a
 //     time (16-byte loads of 4 nodes of one antenna where N % 4 == 0), so
-//     a thread reads a node's gains for the whole chunk as LDS.128s;
+//     a thread reads a node's 8 gains as two LDS.128s;
 //   * the block's threads are 8 node groups x `tile_lanes` column lanes,
 //     the lanes of a group covering a tile of ceil(d / tiles) columns (or
 //     column pairs, kVec = 2, for chunks of 8 at even d: one gain read
@@ -85,9 +85,8 @@ constexpr int kMaxLanes = 32;    // column lanes per group
 constexpr int kMaxThreads = kGroups * kMaxLanes;
 
 // Staged gains of a chunk: hs[j * stride + a] for node j of the pass and
-// antenna a. Rows are whole 16 bytes (LDS.128) where kChunk >= 4; the rows
-// of 8 are padded to 12 floats, so the 16-byte staging stores of a warp
-// put at most two to a bank.
+// antenna a. The rows of 8 are whole 16 bytes (LDS.128), padded to 12
+// floats so the 16-byte staging stores of a warp put at most two to a bank.
 template <int kChunk>
 struct Stage {
   static constexpr int kStride = kChunk == 8 ? 12 : kChunk;
@@ -110,13 +109,9 @@ template <typename GT, int kChunk>
 struct Tune {
   static constexpr int kUnroll = kChunk == 8 ? 8 : 4;
   static constexpr int kMinBlocks =
-      kChunk == 1 ? (sizeof(GT) == 4 ? 6 : 5) : kChunk == 4 ? 2 : 3;
+      kChunk == 1 ? (sizeof(GT) == 4 ? 6 : 5) : 3;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -208,7 +203,7 @@ __global__ void __launch_bounds__(kMaxThreads, Tune<GT, kChunk>::kMinBlocks)
     const int len = min(St::kNodes, n_nodes - n0);
     const float* hb = h + (static_cast<size_t>(b) * n_ant + m0) * n_nodes;
     __syncthreads();  // the previous pass's gains are read
-    if (kChunk >= 4 && h_vec4) {
+    if (kChunk > 1 && h_vec4) {
       // 4 nodes of one antenna per 16-byte load, antennas across lanes
       for (int e = threadIdx.x; e < (len / 4) * kChunk; e += blockDim.x) {
         const int a = e % kChunk, q = e / kChunk;
@@ -333,9 +328,6 @@ void launch(const void* g, const void* h, const void* w, const void* n_true,
                      reinterpret_cast<uintptr_t>(g) % (2 * sizeof(GT)) == 0;
   if (n_ant <= 1) {
     launch_chunk<GT, OT, 1, 1>(g, h, w, n_true, out, batch, n_ant, n_nodes,
-                               dim, stream);
-  } else if (n_ant <= 4) {
-    launch_chunk<GT, OT, 4, 1>(g, h, w, n_true, out, batch, n_ant, n_nodes,
                                dim, stream);
   } else if (pairs) {
     launch_chunk<GT, OT, 8, 2>(g, h, w, n_true, out, batch, n_ant, n_nodes,

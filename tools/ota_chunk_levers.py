@@ -38,7 +38,7 @@ SHAPE = (1024, 16, 4096, 24)  # LARGE MRC: B, M, N, d
 
 PAIRS_BRANCH = "  } else if (pairs) {\n"
 TUNE = """  static constexpr int kMinBlocks =
-      kChunk == 1 ? (sizeof(GT) == 4 ? 6 : 5) : kChunk == 4 ? 2 : 3;"""
+      kChunk == 1 ? (sizeof(GT) == 4 ? 6 : 5) : 3;"""
 
 
 def _chunk16(src: str, vec: int, min_blocks: int) -> str:
@@ -50,8 +50,7 @@ def _chunk16(src: str, vec: int, min_blocks: int) -> str:
     branch = (f"  }} else if ({cond}) {{\n"
               f"    launch_chunk<GT, OT, 16, {vec}>(g, h, w, n_true, out, "
               f"batch, n_ant, n_nodes, dim, stream);\n")
-    tune = TUNE.replace("kChunk == 4 ? 2 : 3",
-                        f"kChunk == 4 ? 2 : kChunk == 16 ? {min_blocks} : 3")
+    tune = TUNE.replace(": 3;", f": kChunk == 16 ? {min_blocks} : 3;")
     return src.replace(PAIRS_BRANCH, branch + PAIRS_BRANCH).replace(
         TUNE, tune)
 
