@@ -26,8 +26,16 @@ drives the port's main paths:
   Nesterov rows), (f) (blind power budgets; no K1 launch) and (g)
   (participation), the engine's LARGE throughput workload, LARGE as a
   node-count sweep (N in {1024, 2048, 4096}) and LARGE MRC (16
-  antennas), each route-checked against the plain version on the card,
-  with a step profile of each;
+  antennas) (these three pinned to the 'inscan' RNG plan: hoisted, LARGE
+  MRC's draws alone would take ~40 GB), each route-checked against the
+  plain version on the card, with a step profile of each (fig3's row
+  under the default 'hoisted' plan and under 'inscan');
+* execution plans at LARGE ("exec plans"): all seeds live per step and
+  hoisted, seed chunks of 32 hoisted and per step, `plan="auto"`, and
+  chunks of 128 run whole, stopped by an injected chunk fault and
+  resumed from their checkpoint, and retried after one fault; each
+  call's wall, K1 launches and peak device memory beside
+  `estimate_peak_bytes`, the plans held to each other bit for bit;
 * serving (`Engine.generate`: prefill, then decode) through the
   flash-attention kernels: olmo-1b at full width and depth in bf16 (the
   Hopper kernel: wgmma fed by TMA) at a 32- and a 2048-token prompt, and
@@ -882,6 +890,175 @@ def run_large_main_path(ops, label: str, mcs, chs, betas, steps: int,
     return launches, wall / steps
 
 
+# the "exec plans" phase at LARGE: the reference's chunk of its
+# hoisted throughput path (`bench_montecarlo.py:370-374`), and the resume
+# and retry run's chunk, stop offset and fault offset
+EXEC_CHUNK = 32
+EXEC_RESUME_CHUNK = 128
+EXEC_STOP_AT = 384
+EXEC_FAULT_AT = 512
+
+
+def run_exec_plans(ops) -> dict:
+    """Execution plans at LARGE (N = 4096, d = 24, 150 steps, 1,024
+    seeds, gbma, Rayleigh), every call through `run_mc`: (a) 'inscan', all
+    seeds live, curves kept; (b) 'hoisted', the same; (c) 'hoisted' in
+    chunks of 32, reduced; (e) `plan="auto"`; (f) 'hoisted' in chunks of
+    128, reduced, run uninterrupted, stopped by a chunk fault at offset
+    384 and resumed from its `resume_dir`, and with one fault at offset
+    512 under `RetryPolicy(max_attempts=2)`; then (d) 'inscan' in chunks
+    of 32, reduced, the long one (32 host-bound chunks), once the others
+    have warmed everything. Each prints its wall (host clock, ending in a
+    synchronize), K1's launches (150 a chunk), and its measured peak
+    device memory beside `estimate_peak_bytes`. Checks (b) == (a), (c) ==
+    (d) and (e) == (c) bit for bit, (e) resolving to chunks of 32, (c)'s
+    mean within 1e-5 rel of (a)'s and its ci95 within F3's bar, and the
+    resumed and retried runs equal to the uninterrupted one bit for bit.
+    Returns (K1's launches per call, each call's record)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.mc import exec as exec_mod
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.core.mc.plan import ExecPlan, RetryPolicy
+
+    mc, ch, beta = large_workload()
+    n, d, steps, seeds = (LARGE["n"], LARGE["dim"], LARGE["steps"],
+                          LARGE["seeds"])
+    args = (mc, [ch], "gbma", [beta], steps, seeds)
+    launches, record = {}, {}
+
+    def call(label: str, chunks: int, est: dict, stops: bool = False,
+             **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.launch_count = 0
+        t0 = time.perf_counter()
+        try:
+            res = run_mc(*args, device="cuda", **kw)
+        except RuntimeError as err:
+            if not stops:
+                raise
+            res = None
+            log(f"exec plans {label}: the sweep stopped as injected: {err}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        count = ops.launch_count
+        peak = torch.cuda.max_memory_allocated()
+        if stops and res is not None:
+            raise AssertionError(f"exec plans {label}: the injected fault "
+                                 "did not stop the sweep")
+        estimate = exec_mod.estimate_peak_bytes(
+            n_rows=1, seeds=seeds, steps=steps, n_max=n, dim=d,
+            **est)["device_peak_bytes"]
+        record[label] = {"wall_s": wall, "launches": count,
+                         "chunks": chunks, "peak_bytes": peak,
+                         "resident_bytes": base,
+                         "estimate_bytes": estimate,
+                         "peak_over_estimate": peak / estimate}
+        launches[f"exec plans {label}"] = count
+        log(f"exec plans {label}: wall {wall:.3f} s, {count} OTA kernel "
+            f"launches ({chunks} chunk(s) x {steps}), peak device memory "
+            f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB resident "
+            f"before the call), estimate_peak_bytes {estimate / 2**20:.1f} "
+            f"MiB, peak / estimate {peak / estimate:.3f}")
+        if count != steps * chunks:
+            raise AssertionError(f"exec plans {label}: expected "
+                                 f"{steps * chunks} launches, got {count}")
+        return res
+
+    def same(label: str, a, b, fields) -> None:
+        for f in fields:
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"exec plans: {label} differ in {f}")
+        log(f"exec plans: {label} equal bit for bit in {fields}")
+
+    whole = {"seed_chunk": None, "keep_seed_curves": True}
+    chunked = {"seed_chunk": EXEC_CHUNK, "keep_seed_curves": False}
+    a = call("(a) inscan, all live, curves", 1,
+             {"rng_plan": "inscan", **whole}, rng_plan="inscan")
+    b = call("(b) hoisted, all live, curves", 1,
+             {"rng_plan": "hoisted", **whole}, rng_plan="hoisted")
+    same("(b) and (a)", b, a, ("risks", "cum_energy", "mean", "ci95"))
+    c = call("(c) hoisted, chunks of 32, reduced", seeds // EXEC_CHUNK,
+             {"rng_plan": "hoisted", **chunked}, rng_plan="hoisted",
+             **chunked)
+    e = call("(e) plan='auto'", seeds // EXEC_CHUNK,
+             {"rng_plan": "hoisted", **chunked}, plan="auto")
+    log(f"exec plans (e): auto_plan resolved {e.plan}")
+    if e.plan.seed_chunk != EXEC_CHUNK or e.plan.keep_seed_curves:
+        raise AssertionError(f"exec plans (e): expected chunks of "
+                             f"{EXEC_CHUNK}, reduced; got {e.plan}")
+    same("(e) and (c)", e, c, ("mean", "ci95"))
+    rel = float(np.max(np.abs(c.mean - a.mean) / np.abs(a.mean)))
+    ci_ok = bool(np.all(np.abs(c.ci95 - a.ci95)
+                        <= 1e-5 * np.abs(a.ci95) + 1e-5 * np.abs(a.mean)))
+    log(f"exec plans: (c) mean vs (a): max rel {rel:.3e} (bar 1e-05); ci95 "
+        f"within F3's bar (rtol 1e-5 + atol 1e-5 |mean|): {ci_ok}")
+    if rel > 1e-5 or not ci_ok:
+        raise AssertionError("exec plans: (c) moments off (a)'s curves")
+
+    plan = ExecPlan(seed_chunk=EXEC_RESUME_CHUNK, keep_seed_curves=False)
+    per = seeds // EXEC_RESUME_CHUNK
+    est = {"rng_plan": "hoisted", "seed_chunk": EXEC_RESUME_CHUNK,
+           "keep_seed_curves": False}
+    f_clean = call("(f) hoisted, chunks of 128, uninterrupted", per, est,
+                   plan=plan)
+
+    def fault_at(off: int, times: int):
+        fired = []
+
+        def hook(info):
+            if info["off"] == off and info["attempt"] <= times:
+                fired.append(info)
+                raise RuntimeError(f"injected chunk fault at off={off}")
+        return fired, exec_mod.install_chunk_fault_hook(hook)
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as resume_dir:
+        fired, remove = fault_at(EXEC_STOP_AT, 1)
+        try:
+            call("(f) stopped at 384", EXEC_STOP_AT // EXEC_RESUME_CHUNK,
+                 est, stops=True, plan=plan, resume_dir=resume_dir)
+        finally:
+            remove()
+        if len(fired) != 1:
+            raise AssertionError(f"exec plans (f): {len(fired)} faults "
+                                 "fired at the stop")
+        saved = ckpt.peek(os.path.join(resume_dir, exec_mod._RESUME_FILE))
+        if int(saved["next_off"]) != EXEC_STOP_AT:
+            raise AssertionError(f"exec plans (f): checkpoint at "
+                                 f"{int(saved['next_off'])}, not "
+                                 f"{EXEC_STOP_AT}")
+        resumed = call("(f) resumed from 384",
+                       per - EXEC_STOP_AT // EXEC_RESUME_CHUNK, est,
+                       plan=plan, resume_dir=resume_dir)
+    same("(f) resumed and uninterrupted", resumed, f_clean, ("mean", "ci95"))
+    fired, remove = fault_at(EXEC_FAULT_AT, 1)
+    try:
+        retried = call("(f) one fault at 512, retried", per, est,
+                       plan=plan.replace(retry=RetryPolicy(
+                           max_attempts=2, sleep=lambda dt: None)))
+    finally:
+        remove()
+    if len(fired) != 1:
+        raise AssertionError(f"exec plans (f): {len(fired)} faults fired")
+    same("(f) retried and uninterrupted", retried, f_clean, ("mean", "ci95"))
+
+    dd = call("(d) inscan, chunks of 32, reduced", seeds // EXEC_CHUNK,
+              {"rng_plan": "inscan", **chunked}, rng_plan="inscan",
+              **chunked)
+    same("(c) and (d)", c, dd, ("mean", "ci95"))
+    log(f"exec plans: {json.dumps(record)}")
+    return launches, record
+
+
 def step_breakdown() -> dict:
     """CUDA-event times of the pieces of one LARGE step (B = 1024
     trajectories) and one LARGE MRC step (the same with M = 16 antennas):
@@ -1003,8 +1180,10 @@ def _profile_counts(fn, kernel: str = "ota_aggregate") -> dict:
 
 def _base_profile_cases() -> dict:
     """The step profile's cases that every slice of the port runs: one
-    N = 500 fig3 row of 4 seeds, and LARGE. name -> (run(steps), n, dim,
-    trajectories)."""
+    N = 500 fig3 row of 4 seeds under `run_mc`'s default RNG plan
+    ('hoisted' since execution plans; the tree of `--profile-src` must
+    take `rng_plan`) and under 'inscan', and LARGE ('inscan': hoisted, it
+    holds 2.5 GB of draws). name -> (run(steps), n, dim, trajectories)."""
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.mc.engine import run_mc
     from repro_torch.core.theory import stepsize_theorem1
@@ -1013,15 +1192,18 @@ def _base_profile_cases() -> dict:
     prob = MSDProblem.make(500)
     fig3_ch = ChannelConfig(fading="rayleigh", scale=1.0, noise_std=1.0,
                             energy=1.0)
-    cases = {"fig3": (prob.to_mc("cuda"), fig3_ch,
-                      stepsize_theorem1(prob.pc, fig3_ch, 500, safety=0.9),
-                      4),
-             "large": large_workload() + (LARGE["seeds"],)}
+    fig3 = (prob.to_mc("cuda"), fig3_ch,
+            stepsize_theorem1(prob.pc, fig3_ch, 500, safety=0.9), 4)
+    cases = {"fig3": fig3 + ({},),
+             "fig3 (inscan)": fig3 + ({"rng_plan": "inscan"},),
+             "large": large_workload() + (LARGE["seeds"],
+                                          {"rng_plan": "inscan"})}
     out = {}
-    for name, (mc, ch, beta, seeds) in cases.items():
-        out[name] = (lambda steps, mc=mc, ch=ch, beta=beta, seeds=seeds:
-                     run_mc(mc, [ch], "gbma", [beta], steps, seeds,
-                            keep_seed_curves=False, device="cuda"),
+    for name, (mc, ch, beta, seeds, kw) in cases.items():
+        out[name] = (lambda steps, mc=mc, ch=ch, beta=beta, seeds=seeds,
+                     kw=kw: run_mc(mc, [ch], "gbma", [beta], steps, seeds,
+                                   keep_seed_curves=False, device="cuda",
+                                   **kw),
                      mc.n_nodes, mc.dim, seeds)
     return out
 
@@ -1072,10 +1254,10 @@ def _new_path_profile_cases() -> dict:
                                            ABLATIONS["seeds"], **kw)
     mcs, chs, betas = large_sweep_workload()
     cases["large sweep"] = case(mcs, chs, "gbma", betas,
-                                LARGE_SWEEP["seeds"])
+                                LARGE_SWEEP["seeds"], rng_plan="inscan")
     mc, ch, beta = large_mrc_workload()
     cases["large mrc"] = case(mc, [ch], "gbma", [beta], LARGE_MRC["seeds"],
-                              n_antennas=LARGE_MRC["m"])
+                              n_antennas=LARGE_MRC["m"], rng_plan="inscan")
     return cases
 
 
@@ -2059,7 +2241,8 @@ def main() -> int:
     torch.cuda.synchronize()
     mc, ch, beta = large_workload()
     mc_launches["large"], large_step_s = run_large_main_path(
-        ops, "LARGE", mc, [ch], [beta], LARGE["steps"], LARGE["seeds"])
+        ops, "LARGE", mc, [ch], [beta], LARGE["steps"], LARGE["seeds"],
+        rng_plan="inscan")
     del mc
     torch.cuda.synchronize()
     mc_launches["fig4"] = run_fig4_main_path(ops)
@@ -2079,7 +2262,7 @@ def main() -> int:
     mcs, chs, betas = large_sweep_workload()
     mc_launches["large sweep"], sweep_step_s = run_large_main_path(
         ops, f"LARGE sweep N={LARGE_SWEEP['n_grid']}", mcs, chs, betas,
-        LARGE_SWEEP["steps"], LARGE_SWEEP["seeds"])
+        LARGE_SWEEP["steps"], LARGE_SWEEP["seeds"], rng_plan="inscan")
     del mcs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2088,12 +2271,17 @@ def main() -> int:
         ops, f"LARGE MRC M={LARGE_MRC['m']}", mc, [ch], [beta],
         LARGE_MRC["steps"], LARGE_MRC["seeds"],
         route_seeds=LARGE_MRC["seeds"], route_steps=LARGE_MRC_ROUTE_STEPS,
-        n_antennas=LARGE_MRC["m"])
+        n_antennas=LARGE_MRC["m"], rng_plan="inscan")
     del mc
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     breakdown = step_breakdown()
     elapsed('the LARGE sweep, LARGE MRC and the step breakdown')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    exec_launches, exec_record = run_exec_plans(ops)
+    mc_launches.update(exec_launches)
+    elapsed('the exec plans')
     torch.cuda.synchronize()
     prof = step_profile({**_base_profile_cases(),
                          **_new_path_profile_cases()})
@@ -2146,7 +2334,8 @@ def main() -> int:
         "large_ms_per_step": large_step_s * 1e3,
         "large_sweep_ms_per_step": sweep_step_s * 1e3,
         "large_mrc_ms_per_step": mrc_step_s * 1e3,
-        "step_breakdown": breakdown, "build": ota_build,
+        "step_breakdown": breakdown, "exec_plans": exec_record,
+        "build": ota_build,
         "padded": next(r for r in timings if r["launch"] == "fig3 (a)"),
         "large_mrc": next(r for r in timings if r["launch"] == "large mrc"),
         "shapes": timings, "step_profile": prof,

@@ -9,12 +9,14 @@ the device. Arguments keep the reference's names.
 
 The port covers `gbma`, `centralized`, `fdm`, `power_control`,
 `momentum`, `nesterov`, `blind` and `blind_ec` on the `quadratic`,
-`localization` and `logistic` problems, all seeds live: rows may differ
-in node count (padded to N_max, one call), in algorithm, in node
-participation, in antenna count, power budget and minibatch fraction.
-Every argument outside that (seed chunks and resume, execution plans,
-seed placement) raises `NotImplementedError` naming the ROADMAP item that
-brings it.
+`localization` and `logistic` problems: rows may differ in node count
+(padded to N_max, one call), in algorithm, in node participation, in
+antenna count, power budget and minibatch fraction. HOW a sweep runs is
+one `plan.ExecPlan` (RNG plan, seed chunks with Chan-merged moments,
+retry and resume), given, derived (`plan="auto"`) or built from the
+legacy knobs, as in the reference. A call runs on one device: placement
+over several (`n_shards` or `row_shards` >= 2) raises
+`NotImplementedError` naming ROADMAP M8.
 """
 from __future__ import annotations
 
@@ -27,15 +29,13 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.mc import exec as exec_mod
+from repro_torch.core.mc.plan import (ExecPlan, auto_plan,
+                                      resolve_seed_shards, validate_plan)
 from repro_torch.core.mc.problems import MCProblem, MCProblemBatch
 from repro_torch.core.mc.slots import ALGO_REGISTRY
 from repro_torch.core.theory import ProblemConstants, theorem1_bound
 
 _OTA_IMPLS = ("auto", "kernel", "ref")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +81,7 @@ class MCResult:
                 (None unless problem constants were given, every row is
                 gbma and no antenna setting was given).
     device:     the device the sweep ran on.
+    plan:       the resolved `ExecPlan` the sweep ran under.
     """
 
     risks: Optional[np.ndarray]
@@ -89,31 +90,11 @@ class MCResult:
     cum_energy: Optional[np.ndarray]
     bounds: Optional[np.ndarray]
     device: Optional[str] = None
+    plan: Optional[ExecPlan] = None
 
 
 def _is_scalar(v) -> bool:
     return isinstance(v, (int, float, np.integer, np.floating))
-
-
-def _reject_out_of_slice(*, shard_seeds, seed_chunk, rng_plan, plan,
-                         resume_dir, memory_budget_bytes) -> None:
-    if shard_seeds:
-        raise _not_ported("shard_seeds=True (seed placement)",
-                          "M8: multi-GPU placement")
-    if seed_chunk is not None:
-        raise _not_ported("seed_chunk", "P8: seed_chunk, Chan merge and "
-                          "resume")
-    if resume_dir is not None:
-        raise _not_ported("resume_dir", "P8: seed_chunk, Chan merge and "
-                          "resume")
-    if rng_plan is not None:
-        raise _not_ported(f"rng_plan={rng_plan!r} (the port draws per step)",
-                          "P9: execution plans")
-    if plan is not None:
-        raise _not_ported(f"plan={plan!r}", "P9: execution plans")
-    if memory_budget_bytes is not None:
-        raise _not_ported("memory_budget_bytes (plan='auto')",
-                          "P9: execution plans")
 
 
 def _per_row(value, n_rows: int, name: str, cast=float) -> tuple:
@@ -177,11 +158,11 @@ def run_mc(
     power_budget=None,
     shard_seeds: Optional[bool] = None,
     batch_frac: Union[float, Sequence[float]] = 1.0,
-    ota_impl: str = "auto",
+    ota_impl: Optional[str] = None,
     rng_plan: Optional[str] = None,
     seed_chunk: Optional[int] = None,
-    keep_seed_curves: bool = True,
-    plan: Optional[str] = None,
+    keep_seed_curves: Optional[bool] = None,
+    plan: Union[ExecPlan, str, None] = None,
     resume_dir: Optional[str] = None,
     memory_budget_bytes: Optional[int] = None,
     participation: Union[float, Sequence[float]] = 1.0,
@@ -218,20 +199,59 @@ def run_mc(
     `device`: None runs on the CUDA card and raises without one; pass
     `device="cpu"` for the CPU. The problem data moves to this device.
 
-    `ota_impl`: the route of `kernels.ota.ota_edge_aggregate` — 'auto'
-    (the CUDA kernel on the card, the plain version on the CPU), 'kernel'
-    or 'ref' (the plain version on either device).
-    `keep_seed_curves=False` reduces curves to (mean, ci95) on the device.
-    The other arguments keep the reference's names; any value but their
-    defaults is outside the port so far and raises `NotImplementedError`.
+    `ota_impl` (None: 'auto'): the route of
+    `kernels.ota.ota_edge_aggregate` — 'auto' (the CUDA kernel on the
+    card, the plain version on the CPU), 'kernel' or 'ref' (the plain
+    version on either device).
+
+    Execution strategy: HOW the sweep runs is one `plan.ExecPlan`, as in
+    the reference. `plan=` an `ExecPlan` pins every field; `plan="auto"`
+    derives one with `plan.auto_plan` from the memory model and
+    `memory_budget_bytes` (default 80 % of the card's memory, 2 GiB on
+    the CPU); or leave `plan=None` and set the legacy knobs below, which
+    build the equivalent plan. Mixing them with `plan=` raises. The
+    resolved plan is `MCResult.plan`.
+
+    `rng_plan` (None: 'hoisted'): 'hoisted' draws every random stream of
+    a single-algorithm call for all steps before the step loop; 'inscan'
+    draws them step by step. The streams are identical; hoisting needs
+    O(B·steps·N) device memory for the draws (`exec` module docstring).
+
+    `seed_chunk`: run the seeds in blocks of this size (it must divide
+    `seeds`), so device memory scales with the chunk; None runs all seeds
+    at once. `keep_seed_curves` (None: True): False reduces the per-seed
+    curves to (mean, ci95) on the device (Chan-merged moments under
+    chunking), and `risks` / `cum_energy` are None.
+
+    `resume_dir`: a chunked reduced sweep (`seed_chunk` set,
+    `keep_seed_curves=False`) checkpoints its chunk cursor and moments
+    there after every chunk and resumes from them on the next call, bit
+    for bit (`exec.run_chunked`). `shard_seeds`: seed placement; on the
+    one device of a port call True and None place nothing.
     """
-    _reject_out_of_slice(
-        shard_seeds=shard_seeds, seed_chunk=seed_chunk, rng_plan=rng_plan,
-        plan=plan, resume_dir=resume_dir,
-        memory_budget_bytes=memory_budget_bytes)
-    if ota_impl not in _OTA_IMPLS:
-        raise ValueError(f"ota_impl must be one of {_OTA_IMPLS}, got "
-                         f"{ota_impl!r}")
+    if rng_plan is not None and rng_plan not in ("hoisted", "inscan"):
+        raise ValueError(
+            f"rng_plan must be 'hoisted' or 'inscan', got {rng_plan!r}")
+    if plan is not None:
+        clash = [name for name, v in (
+            ("rng_plan", rng_plan), ("seed_chunk", seed_chunk),
+            ("keep_seed_curves", keep_seed_curves),
+            ("ota_impl", ota_impl), ("shard_seeds", shard_seeds))
+            if v is not None]
+        if clash:
+            raise ValueError(
+                f"plan= already pins the execution strategy; drop the "
+                f"conflicting legacy knob(s) {clash} or encode them in "
+                "the ExecPlan")
+        if isinstance(plan, str) and plan != "auto":
+            raise ValueError(
+                f"plan must be an ExecPlan or the string 'auto', "
+                f"got {plan!r}")
+    if memory_budget_bytes is not None and plan != "auto":
+        raise ValueError(
+            "memory_budget_bytes only parameterizes plan='auto' — an "
+            "explicit ExecPlan or the legacy knobs already fix the chunk "
+            "size")
     if seeds < 1:
         raise ValueError(f"need seeds >= 1, got {seeds}")
     dev = resolve_device(device)
@@ -312,22 +332,69 @@ def run_mc(
                                          device=dev)
 
     dim = batch_prob.dim
+
+    # ---- the execution plan: given, derived, or from the legacy knobs --
+    if isinstance(plan, ExecPlan):
+        eff_plan = plan
+    elif plan == "auto":
+        eff_plan = auto_plan(
+            n_rows=n_rows, seeds=seeds, steps=steps, n_max=batch_prob.n_max,
+            dim=dim, algo_set=tuple(dict.fromkeys(algos)),
+            n_antennas=m_static,
+            m_sizes=() if m_per_row is None else tuple(sorted(set(
+                m_per_row))),
+            b_max=0 if stochastic is None else stochastic[2],
+            invert_channel=invert_channel,
+            participation_on=any(q < 1.0 for q in parts),
+            memory_budget_bytes=memory_budget_bytes, device=dev)
+    else:
+        # the reference's legacy rule: shard_seeds=True takes every
+        # device, one on a port call, which places nothing
+        eff_plan = ExecPlan(
+            rng_plan="hoisted" if rng_plan is None else rng_plan,
+            seed_chunk=seed_chunk,
+            n_shards={None: None, False: 0, True: 1}[shard_seeds],
+            keep_seed_curves=(True if keep_seed_curves is None
+                              else keep_seed_curves),
+            ota_impl="auto" if ota_impl is None else ota_impl)
+    validate_plan(eff_plan, seeds=seeds, n_rows=n_rows)
+    resolve_seed_shards(eff_plan, seeds)
+    if resume_dir is not None and (eff_plan.seed_chunk is None
+                                   or eff_plan.keep_seed_curves):
+        raise ValueError(
+            "resume_dir requires a chunked reduced sweep — a plan with "
+            "seed_chunk set and keep_seed_curves=False (only the chunk "
+            "cursor and moment accumulators are checkpointed)")
+    if eff_plan.ota_impl not in _OTA_IMPLS:
+        raise ValueError(f"ota_impl must be one of {_OTA_IMPLS}, got "
+                         f"{eff_plan.ota_impl!r}")
+
     t0 = torch.zeros(dim, dtype=torch.float32, device=dev) if theta0 is None \
         else torch.as_tensor(np.asarray(theta0, np.float32), device=dev)
     seed_ints = np.arange(seed0, seed0 + seeds, dtype=np.int64)
-    out = exec_mod.run_core(
-        params, betas_t, t0, seed_ints, batch_prob.data,
+    core_kwargs = dict(
         grad_fn=batch_prob.grad_fn, risk_fn=batch_prob.risk_fn,
         algos=algos, fading=ch_batch.fading, steps=steps, n_sizes=n_sizes,
         invert_channel=invert_channel, h_min=float(h_min),
-        ota_impl=ota_impl, phase_zero=phase_zero, n_antennas=m_static,
-        m_per_row=m_per_row, stochastic=stochastic,
-        reduce_moments=not keep_seed_curves)
-    if keep_seed_curves:
-        risks, cum_e = (x.cpu().numpy() for x in out)
+        ota_impl=eff_plan.ota_impl, phase_zero=phase_zero,
+        n_antennas=m_static, m_per_row=m_per_row, stochastic=stochastic,
+        rng_plan=eff_plan.rng_plan)
+    if eff_plan.seed_chunk is not None:
+        risks, cum_e, mean, ci95 = exec_mod.run_chunked(
+            params, betas_t, t0, seed_ints, batch_prob.data,
+            seed_chunk=eff_plan.seed_chunk,
+            keep_seed_curves=eff_plan.keep_seed_curves,
+            core_kwargs=core_kwargs, resume_dir=resume_dir,
+            retry=eff_plan.retry)
+    elif eff_plan.keep_seed_curves:
+        risks, cum_e = (x.cpu().numpy() for x in exec_mod.run_core(
+            params, betas_t, t0, seed_ints, batch_prob.data, **core_kwargs))
         mean, ci95 = exec_mod.host_seed_stats(risks)
     else:
-        mean, ci95 = (x.cpu().numpy() for x in out)
+        mean, ci95 = (x.cpu().numpy() for x in exec_mod.device_seed_stats(
+            *exec_mod.run_core(params, betas_t, t0, seed_ints,
+                               batch_prob.data, reduce_moments=True,
+                               **core_kwargs), seeds))
         risks = cum_e = None
 
     bounds = None
@@ -344,18 +411,20 @@ def run_mc(
                     betas_t.cpu().numpy(), ch_batch.configs, pcs, n_nodes)])
     return MCResult(risks=risks, mean=mean.astype(np.float32),
                     ci95=ci95.astype(np.float32), cum_energy=cum_e,
-                    bounds=bounds, device=str(dev))
+                    bounds=bounds, device=str(dev), plan=eff_plan)
 
 
 def slice_result(res: MCResult, rows: Union[slice, Sequence[int]]
                  ) -> MCResult:
     """A per-row view of an `MCResult`: the given row slice (or index
-    sequence) of every (C, ...) array, `None` leaves passed through."""
+    sequence) of every (C, ...) array, `None` leaves passed through; the
+    device and plan (whole-call properties) ride along."""
     idx = rows if isinstance(rows, slice) else list(rows)
     pick = lambda a: None if a is None else a[idx]
     return MCResult(risks=pick(res.risks), mean=pick(res.mean),
                     ci95=pick(res.ci95), cum_energy=pick(res.cum_energy),
-                    bounds=pick(res.bounds), device=res.device)
+                    bounds=pick(res.bounds), device=res.device,
+                    plan=res.plan)
 
 
 def energy_to_target(res: MCResult, target: float) -> np.ndarray:

@@ -22,6 +22,19 @@ in one OTA kernel launch and averages over each row's antennas (MRC);
 the blind family combines its complex receptions in plain PyTorch, as
 the reference computes them outside any kernel.
 
+Hoisted draws: each algorithm that draws registers a `hoist_draws`
+twin of its per-step draw (`_gbma_draw`, `_fdm_draw`, `_ota_draw` for
+power_control, `_blind_draw`). The twin applies that same function to
+the `(T, B, 2)` step keys of all T steps at once, flattened step-major,
+with every per-trajectory tensor it reads tiled T-fold (`_steps_ctx`):
+threefry and the bits→float maps are elementwise, so step t's slice is
+the per-step draw bit for bit, one leading axis over the same counters.
+Under the 'hoisted' RNG plan the engine passes step t's slice of the
+twin's output as `ctx.draws`, and the slot draws nothing. The
+reference's `hoist_gains` and its inscan node-count-sweep gain hoist
+exist only to keep `lax.switch` branches out of an XLA scan and draw the
+same streams, so the port has neither.
+
 Registered: `gbma` (single antenna and MRC), `centralized`, `fdm`,
 `power_control`, `momentum`, `nesterov`, `blind` and `blind_ec`.
 """
@@ -45,7 +58,8 @@ class SlotCtx:
 
     p:          per-trajectory params, each `(B,)` (channel scalars,
                 n_nodes, gamma, nest).
-    mask:       `(B, N_max)` validity mask of the padded node axis.
+    mask:       `(B, N_max)` validity mask of the padded node axis (None
+                in a hoisted draw's context, `_steps_ctx`).
     counts:     `(B,)` int64 true node counts (the dynamic-N draws' sizes;
                 `p['n_nodes']` holds the same counts in f32).
     n_sizes:    the call's distinct node counts (static): one count takes
@@ -67,11 +81,14 @@ class SlotCtx:
                 repeated M-fold (trajectory b's antenna m at b·M + m), so
                 the single-antenna draws serve the flattened antenna keys
                 (`with_antennas`).
+    draws:      this step's slice of the algorithm's hoisted draws (the
+                'hoisted' RNG plan), or None: the slot draws from its
+                key.
     """
 
     fading: str
     p: dict
-    mask: torch.Tensor
+    mask: Optional[torch.Tensor]
     counts: torch.Tensor
     n_sizes: tuple
     invert_channel: bool = False
@@ -82,6 +99,7 @@ class SlotCtx:
     m_sizes: tuple = ()
     m_max: int = 1
     ant: Optional["SlotCtx"] = None
+    draws: Optional[dict] = None
 
     @property
     def antennas(self) -> bool:
@@ -119,6 +137,11 @@ class AlgoSpec:
     nesterov:   gradient evaluated at the lookahead θ − βγm.
     error_feedback: the row carries the per-node residual and the power
                 budget's truncation (`blind_ec`).
+    hoist_draws: `(step_keys (T, B, 2), ctx, n, d) -> dict` of every
+                stream the slot draws, for all T steps: a dict of
+                `(T, …)` tensors whose step-t slice the slot takes as
+                `ctx.draws`. None: the algorithm draws nothing, or only
+                per step.
     theorem1:   the Theorem-1 bound applies.
     """
 
@@ -129,6 +152,7 @@ class AlgoSpec:
     uses_gamma: bool = False
     nesterov: bool = False
     error_feedback: bool = False
+    hoist_draws: Optional[Callable] = None
     theorem1: bool = False
 
 
@@ -138,6 +162,7 @@ ALGO_REGISTRY: dict = {}  # name -> AlgoSpec, insertion-ordered
 def register_algo(name: str, slot_fn: Callable, *, ota: bool = False,
                   blind: bool = False, uses_gamma: bool = False,
                   nesterov: bool = False, error_feedback: bool = False,
+                  hoist_draws: Optional[Callable] = None,
                   theorem1: bool = False,
                   overwrite: bool = False) -> AlgoSpec:
     """Register a per-slot algorithm under `name` (the `run_mc(algo=)`
@@ -147,13 +172,18 @@ def register_algo(name: str, slot_fn: Callable, *, ota: bool = False,
                          "(pass overwrite=True to replace it)")
     spec = AlgoSpec(name=name, slot_fn=slot_fn, ota=ota, blind=blind,
                     uses_gamma=uses_gamma, nesterov=nesterov,
-                    error_feedback=error_feedback, theorem1=theorem1)
+                    error_feedback=error_feedback, hoist_draws=hoist_draws,
+                    theorem1=theorem1)
     ALGO_REGISTRY[name] = spec
     return spec
 
 
 # --------------------------------------------------------------------------
 # slot implementations
+#
+# Each slot takes `ctx.draws` when the hoisted RNG plan gives them and
+# otherwise draws from its key with its per-step draw function; each
+# family's `*_hoist_draws` twin runs that same function over all steps.
 # --------------------------------------------------------------------------
 def _gains_deterministic(ctx: SlotCtx) -> bool:
     """Equal fading with the phase stream statically zero consumes no
@@ -176,8 +206,8 @@ def _gains(key: torch.Tensor, ctx: SlotCtx, n: int) -> torch.Tensor:
 
 def _ota_draw(key: torch.Tensor, ctx: SlotCtx, n: int, d: int) -> dict:
     """One OTA slot's draws — the key → (k_h, k_w) chain of the
-    reference's `_ota_slot` (and `_pc_draw`): the `(B, N)` channel gains
-    and the `(B, d)` edge noise."""
+    reference's `_ota_slot` (and `_pc_draw`, so power_control's draw
+    too): the `(B, N)` channel gains and the `(B, d)` edge noise."""
     k = rng.split(key)
     out = {"w": rng.normal(k[:, 1], (d,))}
     if not _gains_deterministic(ctx):
@@ -185,11 +215,9 @@ def _ota_draw(key: torch.Tensor, ctx: SlotCtx, n: int, d: int) -> dict:
     return out
 
 
-def _draw_gains_noise(key: torch.Tensor, ctx: SlotCtx, n: int,
-                      d: int) -> tuple:
-    """(h, w) of an OTA-type slot: drawn gains, or the deterministic ones
-    recomputed inline, and the raw edge noise."""
-    draws = _ota_draw(key, ctx, n, d)
+def _gains_noise(draws: dict, ctx: SlotCtx, n: int) -> tuple:
+    """(h, w) of an OTA-type slot from its draws: the drawn gains, or the
+    deterministic ones recomputed inline, and the raw edge noise."""
     h = draws.get("h")
     if h is None:  # deterministic gains were (rightly) not drawn
         h = _deterministic_gains(ctx, n)
@@ -206,6 +234,14 @@ def _step_antenna_keys(key: torch.Tensor, ctx: SlotCtx) -> torch.Tensor:
     else:
         keys = rng.split(key, ctx.m_max)
     return keys.reshape(-1, 2)
+
+
+def _gbma_draw(key: torch.Tensor, ctx: SlotCtx, n: int, d: int) -> dict:
+    """`_gbma_slot`'s draws: the single-antenna `_ota_draw`, or with an
+    antenna axis the `_ota_draw` of each of the `(B·M)` antenna keys."""
+    if ctx.antennas:
+        return _ota_draw(_step_antenna_keys(key, ctx), ctx.ant, n, d)
+    return _ota_draw(key, ctx, n, d)
 
 
 def _antenna_mean(v: torch.Tensor, ctx: SlotCtx) -> torch.Tensor:
@@ -237,12 +273,14 @@ def _ota_slot(g: torch.Tensor, key: torch.Tensor,
     std = p["noise_std"] / (p["n_nodes"] * torch.sqrt(p["energy"]))
     n_true = p["n_nodes"] if len(ctx.n_sizes) > 1 else None
     out_dtype = torch.promote_types(g.dtype, torch.float32)
+    draws = ctx.draws if ctx.draws is not None \
+        else _gbma_draw(key, ctx, n, d)
     if not ctx.antennas:
-        h, w = _draw_gains_noise(key, ctx, n, d)
+        h, w = _gains_noise(draws, ctx, n)
         return ota_edge_aggregate(g, h, std[:, None] * w, noise_scale=1.0,
                                   impl=ctx.ota_impl, out_dtype=out_dtype,
                                   n_true=n_true)
-    h, w = _draw_gains_noise(_step_antenna_keys(key, ctx), ctx.ant, n, d)
+    h, w = _gains_noise(draws, ctx.ant, n)
     m = ctx.m_max
     return ota_edge_aggregate(
         g, h.view(b, m, n), std[:, None, None] * w.view(b, m, d),
@@ -265,7 +303,8 @@ def _gbma_slot(g: torch.Tensor, key: torch.Tensor,
 
 def _centralized_slot(g: torch.Tensor, key: torch.Tensor,
                       ctx: SlotCtx) -> torch.Tensor:
-    """Noiseless benchmark GD: the slot key is unused."""
+    """Noiseless benchmark GD: the slot key is unused (and nothing is
+    hoisted: it draws nothing)."""
     return g.sum(dim=1) / ctx.p["n_nodes"][:, None]
 
 
@@ -293,7 +332,8 @@ def _fdm_slot(g: torch.Tensor, key: torch.Tensor,
     the reference computes it outside any kernel."""
     p = ctx.p
     n, d = g.shape[1], g.shape[2]
-    draws = _fdm_draw(key, ctx, n, d)
+    draws = ctx.draws if ctx.draws is not None \
+        else _fdm_draw(key, ctx, n, d)
     noise = (p["noise_std"] / torch.sqrt(p["energy"]))[:, None, None] \
         * draws["noise_raw"]
     if ctx.invert_channel:
@@ -304,6 +344,23 @@ def _fdm_slot(g: torch.Tensor, key: torch.Tensor,
             h = _deterministic_gains(ctx, n)
         rx = h[:, :, None] * g + noise
     return (rx * ctx.mask[:, :, None]).sum(dim=1) / p["n_nodes"][:, None]
+
+
+def _blind_antenna_draw(key: torch.Tensor, ant: SlotCtx, n: int,
+                        d: int) -> dict:
+    """Each antenna's draw chain in `_blind_slot`, over `(B·M, 2)`
+    antenna keys and the per-antenna context `ant`: key → (k_h, k_w),
+    k_h the complex gain parts (a, b) `(B·M, N)`, k_w the stacked
+    real/imag edge noise `(B·M, 2, d)`."""
+    k = rng.split(key)
+    a, b = _row_complex_gains(k[:, 0], ant.fading, ant.p, ant.counts,
+                              ant.n_sizes, n)
+    return {"a": a, "b": b, "z": rng.normal(k[:, 1], (2, d))}
+
+
+def _blind_draw(key: torch.Tensor, ctx: SlotCtx, n: int, d: int) -> dict:
+    """`_blind_slot`'s draws: `_blind_antenna_draw` of its antenna keys."""
+    return _blind_antenna_draw(_step_antenna_keys(key, ctx), ctx.ant, n, d)
 
 
 def _blind_slot(g: torch.Tensor, key: torch.Tensor,
@@ -318,12 +375,10 @@ def _blind_slot(g: torch.Tensor, key: torch.Tensor,
     p = ctx.p
     b, n, d = g.shape
     m = ctx.m_max
-    k = rng.split(_step_antenna_keys(key, ctx))
-    ant = ctx.ant
-    re, im = _row_complex_gains(k[:, 0], ctx.fading, ant.p, ant.counts,
-                                ctx.n_sizes, n)
-    z = rng.normal(k[:, 1], (2, d)).view(b, m, 2, d)
-    re, im = re.view(b, m, n), im.view(b, m, n)
+    draws = ctx.draws if ctx.draws is not None \
+        else _blind_draw(key, ctx, n, d)
+    re, im = draws["a"].view(b, m, n), draws["b"].view(b, m, n)
+    z = draws["z"].view(b, m, 2, d)
     std = (p["noise_std"] / torch.sqrt(p["energy"]))[:, None, None]
     y_r = torch.einsum("bmn,bnd->bmd", re, g) + std * z[:, :, 0]
     y_i = torch.einsum("bmn,bnd->bmd", im, g) + std * z[:, :, 1]
@@ -343,7 +398,10 @@ def _power_control_slot(g: torch.Tensor, key: torch.Tensor,
     with a_n = [h_n >= h_min], A = max(Σ a_n, 1) and std = σ_w / (A √E_N):
     the OTA kernel with gains a and each trajectory's count A."""
     p = ctx.p
-    h, w = _draw_gains_noise(key, ctx, g.shape[1], g.shape[2])
+    n, d = g.shape[1], g.shape[2]
+    draws = ctx.draws if ctx.draws is not None \
+        else _ota_draw(key, ctx, n, d)
+    h, w = _gains_noise(draws, ctx, n)
     active = (h >= ctx.h_min).to(g.dtype) * ctx.mask
     n_active = active.sum(dim=1).clamp_min(1.0)
     std = p["noise_std"] / (n_active * torch.sqrt(p["energy"]))
@@ -354,14 +412,96 @@ def _power_control_slot(g: torch.Tensor, key: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# hoisted draws (the 'hoisted' RNG plan)
+# --------------------------------------------------------------------------
+def _steps_ctx(ctx: SlotCtx, steps: int) -> SlotCtx:
+    """The draw context of `steps` × B step-major keys (key t·B + b is
+    trajectory b's step t): `p` and `counts` tiled `steps`-fold, in the
+    per-antenna context too (its key (t·B + b)·M + m is antenna m of that
+    step). The mask is left out: no draw reads it."""
+    def tile(c: SlotCtx) -> SlotCtx:
+        return dataclasses.replace(
+            c, p={k: v.repeat(steps) for k, v in c.p.items()},
+            counts=c.counts.repeat(steps), mask=None, ant=None, draws=None)
+
+    out = tile(ctx)
+    return out if ctx.ant is None \
+        else dataclasses.replace(out, ant=tile(ctx.ant))
+
+
+def _all_steps(draw: Callable, step_keys: torch.Tensor, ctx: SlotCtx,
+               n: int, d: int) -> dict:
+    """`draw(keys, ctx, n, d)` — a per-step draw function — over the
+    `(T, B, 2)` step keys of all T steps at once: a dict of `(T, …)`
+    tensors whose step-t slice is `draw(step_keys[t], ctx, n, d)` bit for
+    bit."""
+    steps = step_keys.shape[0]
+    out = draw(step_keys.reshape(-1, 2), _steps_ctx(ctx, steps), n, d)
+    return {k: v.unflatten(0, (steps, -1)) for k, v in out.items()}
+
+
+def _gbma_hoist_draws(step_keys: torch.Tensor, ctx: SlotCtx, n: int,
+                      d: int) -> dict:
+    """All-steps twin of `_gbma_slot`'s draws (momentum and nesterov share
+    it): 'h' `(T, B, N)` (absent for deterministic gains) and 'w'
+    `(T, B, d)`, or per antenna `(T, B·M, …)`."""
+    return _all_steps(_gbma_draw, step_keys, ctx, n, d)
+
+
+def _blind_hoist_draws(step_keys: torch.Tensor, ctx: SlotCtx, n: int,
+                       d: int) -> dict:
+    """All-steps twin of `_blind_slot`'s draws: 'a', 'b' `(T, B·M, N)`
+    and 'z' `(T, B·M, 2, d)`."""
+    return _all_steps(_blind_draw, step_keys, ctx, n, d)
+
+
+def _fdm_hoist_draws(step_keys: torch.Tensor, ctx: SlotCtx, n: int,
+                     d: int) -> dict:
+    """All-steps twin of `_fdm_slot`'s draws: 'noise_raw' `(T, B, N, d)`
+    and, unless inverted or deterministic, 'h' `(T, B, N)`."""
+    return _all_steps(_fdm_draw, step_keys, ctx, n, d)
+
+
+def _pc_hoist_draws(step_keys: torch.Tensor, ctx: SlotCtx, n: int,
+                    d: int) -> dict:
+    """All-steps twin of `_power_control_slot`'s draws: 'h' `(T, B, N)`
+    (absent for deterministic gains) and 'w' `(T, B, d)`."""
+    return _all_steps(_ota_draw, step_keys, ctx, n, d)
+
+
+# --------------------------------------------------------------------------
 # built-in registrations (the reference's flags)
 # --------------------------------------------------------------------------
-register_algo("gbma", _gbma_slot, ota=True, theorem1=True)
+register_algo("gbma", _gbma_slot, ota=True, hoist_draws=_gbma_hoist_draws,
+              theorem1=True)
 register_algo("centralized", _centralized_slot)
-register_algo("fdm", _fdm_slot)
-register_algo("power_control", _power_control_slot)
-register_algo("momentum", _gbma_slot, ota=True, uses_gamma=True)
+register_algo("fdm", _fdm_slot, hoist_draws=_fdm_hoist_draws)
+register_algo("power_control", _power_control_slot,
+              hoist_draws=_pc_hoist_draws)
+register_algo("momentum", _gbma_slot, ota=True, uses_gamma=True,
+              hoist_draws=_gbma_hoist_draws)
 register_algo("nesterov", _gbma_slot, ota=True, uses_gamma=True,
-              nesterov=True)
-register_algo("blind", _blind_slot, blind=True)
-register_algo("blind_ec", _blind_slot, blind=True, error_feedback=True)
+              nesterov=True, hoist_draws=_gbma_hoist_draws)
+register_algo("blind", _blind_slot, blind=True,
+              hoist_draws=_blind_hoist_draws)
+register_algo("blind_ec", _blind_slot, blind=True, error_feedback=True,
+              hoist_draws=_blind_hoist_draws)
+
+
+def hoist_draw_elems(name: str, *, steps: int, n_max: int, dim: int,
+                     m_live: int, invert_channel: bool) -> int:
+    """f32-element count of one trajectory's hoisted draws for the named
+    algorithm — the registry's side of the memory model
+    (`exec.estimate_peak_bytes`), the reference's terms. Unregistered
+    algorithms and those without a hoist twin hoist nothing."""
+    spec = ALGO_REGISTRY.get(name)
+    if spec is None or spec.hoist_draws is None:
+        return 0
+    if spec.blind:
+        # complex gain pair (m, n_max) + edge noise (m, 2, dim)
+        return steps * m_live * 2 * (n_max + dim)
+    if name == "fdm":
+        # per-node noise (n_max, dim) + gains unless inverted
+        return steps * n_max * (dim + (0 if invert_channel else 1))
+    # gbma family / power_control: gains + edge noise
+    return steps * m_live * (n_max + dim)

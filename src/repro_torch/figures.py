@@ -20,6 +20,7 @@ batch-fraction sweep, one call each.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -104,9 +105,11 @@ def fmt_curve(name: str, ks: np.ndarray, values: np.ndarray,
 
 def run_msd_figure(fading: str, prefix: str, n_grid, eps_grid, steps: int,
                    seeds: int, *, device: DeviceLike = None,
-                   ota_impl: str = "auto") -> list:
+                   ota_impl: Optional[str] = None, plan=None) -> list:
     """Shared body of Figs. 2 (equal gains) and 3 (Rayleigh): the CSV rows
-    of (a) the node-count sweep and (b) the energy sweep."""
+    of (a) the node-count sweep and (b) the energy sweep. `plan` passes
+    through to `run_mc(plan=...)` (an `ExecPlan` or "auto"), as in
+    `benchmarks/common.py`; None keeps `run_mc`'s defaults."""
     dev = resolve_device(device)
     rows = []
     ks = np.arange(steps + 1)
@@ -117,7 +120,7 @@ def run_msd_figure(fading: str, prefix: str, n_grid, eps_grid, steps: int,
              for p, ch, n in zip(probs, chs, n_grid)]
     res = run_mc([p.to_mc(dev) for p in probs], chs, "gbma", betas, steps,
                  seeds, pc=[p.pc for p in probs], ota_impl=ota_impl,
-                 device=dev)
+                 plan=plan, device=dev)
     for i, n in enumerate(n_grid):
         emp, bound = res.mean[i], res.bounds[i]
         rows.append(f"{prefix}a,N={n},final_emp,{emp[-1]:.6e}")
@@ -133,7 +136,7 @@ def run_msd_figure(fading: str, prefix: str, n_grid, eps_grid, steps: int,
            for eps in eps_grid]
     betas = [stepsize_theorem1(prob.pc, ch, n, safety=0.9) for ch in chs]
     res = run_mc(prob.to_mc(dev), chs, "gbma", betas, steps, seeds,
-                 pc=prob.pc, ota_impl=ota_impl, device=dev)
+                 pc=prob.pc, ota_impl=ota_impl, plan=plan, device=dev)
     for i, eps in enumerate(eps_grid):
         rows.append(f"{prefix}b,eps={eps},final_emp,{res.mean[i][-1]:.6e}")
         rows.append(f"{prefix}b,eps={eps},final_bound,"

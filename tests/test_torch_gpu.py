@@ -14,7 +14,10 @@ flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
 each at every reference case) and the WKV6 recurrence (K3), the last two
 also at their serving slices' shapes; K3 also at lengths off its chunk,
 on views off 16 bytes and for repeatability. The port's threefry is
-checked to draw an odd count without a host-to-device copy.
+checked to draw an odd count without a host-to-device copy. The execution
+plans run through K1: hoisted draws give the per-step bits, chunked
+moments match unchunked ones, and a sweep resumed after an injected
+fault equals the uninterrupted one bit for bit.
 """
 import pytest
 
@@ -427,3 +430,92 @@ def test_odd_count_draw_copies_nothing_to_the_card(cuda):
     assert not [n for n in names if "HtoD" in n
                 or n == "cudaStreamSynchronize"], names
     assert bits.shape == (4, 7)
+
+
+# ----------------------------------------------------- execution plans (P8, P9)
+
+def _exec_problem(device, n=300, d=24):
+    import numpy as np
+
+    from repro_torch.core.mc.problems import quadratic_mc_problem
+
+    rs = np.random.default_rng(0)
+    X = rs.standard_normal((n, d))
+    y = X @ rs.standard_normal(d) + 0.1 * rs.standard_normal(n)
+    return quadratic_mc_problem(X, y, 0.1, np.zeros(d), device=device)
+
+
+@pytest.mark.parametrize("algo,kw", [
+    ("gbma", {}), ("gbma", {"n_antennas": 4}), ("fdm", {}),
+    ("power_control", {}), ("blind", {"n_antennas": (2, 3)}),
+    ("nesterov", {"participation": [0.7, 1.0]})])
+def test_hoisted_run_mc_has_the_inscan_bits_on_the_card(cuda, algo, kw):
+    """The hoisted RNG plan draws the per-step streams bit for bit, so
+    `run_mc` through K1 gives the same curves under both plans."""
+    import numpy as np
+
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.mc.engine import run_mc
+
+    mc = _exec_problem(cuda)
+    chs = [ChannelConfig(fading="rayleigh", noise_std=0.5, energy=e)
+           for e in (1.0, 0.5)]
+    out = {plan: run_mc(mc, chs, algo, [0.01, 0.02], 20, 8, rng_plan=plan,
+                        device=cuda, **kw)
+           for plan in ("hoisted", "inscan")}
+    np.testing.assert_array_equal(out["hoisted"].risks, out["inscan"].risks)
+    np.testing.assert_array_equal(out["hoisted"].cum_energy,
+                                  out["inscan"].cum_energy)
+
+
+def test_chunked_moments_match_unchunked_on_the_card(cuda):
+    """Chan-merged chunk moments against the unchunked call's (mean,
+    ci95), at the engine bar and F3's ci95 bar."""
+    import numpy as np
+
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.mc.engine import run_mc
+
+    mc = _exec_problem(cuda)
+    ch = ChannelConfig(fading="rayleigh", noise_std=0.5)
+    whole = run_mc(mc, [ch], "gbma", [0.01], 30, 64, keep_seed_curves=False,
+                   device=cuda)
+    chunked = run_mc(mc, [ch], "gbma", [0.01], 30, 64, seed_chunk=8,
+                     keep_seed_curves=False, device=cuda)
+    np.testing.assert_allclose(chunked.mean, whole.mean, rtol=1e-5, atol=0)
+    assert np.all(np.abs(chunked.ci95 - whole.ci95)
+                  <= 1e-5 * np.abs(whole.ci95) + 1e-5 * np.abs(whole.mean))
+
+
+def test_resume_after_an_injected_fault_is_bit_identical_on_the_card(
+        cuda, tmp_path):
+    """A chunk fault stops the sweep; rerun with the same resume_dir, it
+    starts at the first unfinished chunk and equals the uninterrupted
+    sweep bit for bit."""
+    import numpy as np
+
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.mc import exec as exec_mod
+    from repro_torch.core.mc.engine import run_mc
+
+    mc = _exec_problem(cuda)
+    args = (mc, [ChannelConfig(fading="rayleigh", noise_std=0.5)], "gbma",
+            [0.01], 20, 32)
+    kw = dict(seed_chunk=8, keep_seed_curves=False, device=cuda)
+    clean = run_mc(*args, **kw)
+
+    def hook(info):
+        if info["off"] == 16:
+            raise RuntimeError("injected chunk fault")
+
+    remove = exec_mod.install_chunk_fault_hook(hook)
+    try:
+        with pytest.raises(RuntimeError, match="injected"):
+            run_mc(*args, resume_dir=str(tmp_path), **kw)
+    finally:
+        remove()
+    before = ops.launch_count
+    resumed = run_mc(*args, resume_dir=str(tmp_path), **kw)
+    assert ops.launch_count - before == 2 * 20  # chunks at 16 and 24
+    np.testing.assert_array_equal(resumed.mean, clean.mean)
+    np.testing.assert_array_equal(resumed.ci95, clean.ci95)

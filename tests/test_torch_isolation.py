@@ -20,6 +20,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core.channel import ChannelConfig  # noqa: E402
 from repro_torch.core.mc.engine import run_mc  # noqa: E402
+from repro_torch.core.mc.plan import ExecPlan  # noqa: E402
 from repro_torch.core.mc.problems import (problem_from_arrays,  # noqa: E402
                                           quadratic_mc_problem)
 
@@ -72,15 +73,12 @@ def test_run_mc_without_device_raises_where_cuda_is_absent(monkeypatch):
         quadratic_mc_problem(np.ones((2, 2)), np.ones(2), 0.5, np.zeros(2))
 
 
+# every execution argument of the reference is ported but placement over
+# several devices: a port call runs on the one device it is given
 OUT_OF_SLICE = [
-    ({"seed_chunk": 1}, "P8"),
-    ({"resume_dir": "ckpt"}, "P8"),
-    ({"plan": "auto"}, "P9"),
-    ({"memory_budget_bytes": 2**30}, "P9"),
-    ({"shard_seeds": True}, "M8"),
-    ({"rng_plan": "hoisted"}, "P9"),
-    ({"rng_plan": "inscan"}, "P9"),
-    ({"plan": "hoisted"}, "P9"),
+    ({"plan": ExecPlan(n_shards=2)}, "M8"),
+    ({"plan": ExecPlan(n_shards=2, seed_chunk=2,
+                       keep_seed_curves=False)}, "M8"),
 ]
 
 
