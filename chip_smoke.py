@@ -35,7 +35,17 @@ drives the port's main paths:
   chunks of 128 run whole, stopped by an injected chunk fault and
   resumed from their checkpoint, and retried after one fault; each
   call's wall, K1 launches and peak device memory beside
-  `estimate_peak_bytes`, the plans held to each other bit for bit;
+  `estimate_peak_bytes` and the server's price (plus
+  `draw_scratch_bytes`), the plans held to each other bit for bit;
+* the MC sweep server ("serve mc"): the launcher's selftests on the
+  card; the reference's serving mix per request, monolithic and bucketed
+  (walls, K1 launches, engine calls, program shapes, each batch's layout,
+  pad ratio and wall beside `predict_run_us`; demuxed curves within
+  1e-6 of the per-request calls, then within 1e-5 of the plain route);
+  a LARGE-shaped whale beside fig3-shaped minnows at the card's budget
+  (each batch's admission price against its measured peak, the minnows
+  before the whale's last quantum); the committed `cuda/1` calibration
+  and a smoke calibration into a temporary file;
 * serving (`Engine.generate`: prefill, then decode) through the
   flash-attention kernels: olmo-1b at full width and depth in bf16 (the
   Hopper kernel: wgmma fed by TMA) at a 32- and a 2048-token prompt, and
@@ -956,17 +966,29 @@ def run_exec_plans(ops) -> dict:
         estimate = exec_mod.estimate_peak_bytes(
             n_rows=1, seeds=seeds, steps=steps, n_max=n, dim=d,
             **est)["device_peak_bytes"]
+        # the sweep server's price: the estimate plus the draw scratch of
+        # LARGE's channel (Rayleigh, no phase error, one N)
+        scratch = exec_mod.draw_scratch_bytes(
+            n_rows=1, seeds=seeds, steps=steps, n_max=n, dim=d,
+            fading="rayleigh", phase_zero=True, **est)
+        price = estimate + scratch
         record[label] = {"wall_s": wall, "launches": count,
                          "chunks": chunks, "peak_bytes": peak,
                          "resident_bytes": base,
                          "estimate_bytes": estimate,
-                         "peak_over_estimate": peak / estimate}
+                         "scratch_bytes": scratch,
+                         "peak_over_estimate": peak / estimate,
+                         "price_over_peak": price / peak,
+                         "price_over_own_peak": price / (peak - base)}
         launches[f"exec plans {label}"] = count
         log(f"exec plans {label}: wall {wall:.3f} s, {count} OTA kernel "
             f"launches ({chunks} chunk(s) x {steps}), peak device memory "
             f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB resident "
             f"before the call), estimate_peak_bytes {estimate / 2**20:.1f} "
-            f"MiB, peak / estimate {peak / estimate:.3f}")
+            f"MiB, peak / estimate {peak / estimate:.3f}; "
+            f"draw_scratch_bytes {scratch / 2**20:.1f} MiB, price / peak "
+            f"{price / peak:.3f}, price / (peak - resident) "
+            f"{price / (peak - base):.3f}")
         if count != steps * chunks:
             raise AssertionError(f"exec plans {label}: expected "
                                  f"{steps * chunks} launches, got {count}")
@@ -1298,6 +1320,361 @@ def step_profile(cases: dict) -> dict:
             if hi["device_events"] else None}
         log(f"step profile {name}: {json.dumps(out[name])}")
     return out
+
+
+# ------------------------------------------------------------- serve mc
+# the reference's serving mix (`benchmarks/bench_montecarlo.py:61-75,
+# 108-116, 585-660`): MSD problems at these node counts (two N-buckets,
+# {96, 100, 120} -> 128 and {384, 400} -> 512), 300 steps, 4 seeds,
+# Rayleigh at E_N = N^-1.5 and noise 1, the Theorem-1 stepsize at 0.9;
+# served per request, monolithically and bucketed after 5 passes
+SERVE_MC_N_GRID = (96, 100, 120, 384, 400)
+SERVE_MC_STEPS = 300
+SERVE_MC_SEEDS = 4
+SERVE_MC_PASSES = 5
+# the whale and its minnows: a LARGE-shaped request beside fig3-shaped
+# ones (fig3 part (a)'s three rows and part (b)'s first), quanta of 64
+WHALE_QUANTUM = 64
+
+
+def _recording_server(ops, cfg):
+    """A sweep server on the card (inline executor) that records each
+    engine call: its job, seed offset, wall (host clock; the call ends in
+    the host copy of its curves), K1 launches, its own peak device memory
+    (`max_memory_allocated` over the call, less what was allocated when
+    it started) and how many batches had finished before it; and each
+    finished job, in the order of `stats.batches`."""
+    import torch
+
+    from repro_torch.serving.mc_server import InlineExecutor, McSweepServer
+
+    class RecordingServer(McSweepServer):
+        def __init__(self):
+            super().__init__(cfg, executor=InlineExecutor(), device="cuda")
+            self.calls, self.finished = [], []
+
+        def _engine_call(self, job, off, q):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            k0 = ops.launch_count
+            t0 = time.perf_counter()
+            out = super()._engine_call(job, off, q)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            top = torch.cuda.max_memory_allocated()
+            self.calls.append({
+                "job": job, "off": off, "wall_s": wall,
+                "launches": ops.launch_count - k0,
+                "max_memory_allocated": top, "peak_bytes": top - base,
+                "resident_bytes": base,
+                "finished_before": len(self.finished)})
+            return out
+
+        def _finish(self, job):
+            super()._finish(job)
+            self.finished.append(job)
+
+    return RecordingServer()
+
+
+def _serve_mc_mix():
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.theory import stepsize_theorem1
+    from repro_torch.figures import MSDProblem
+    from repro_torch.serving.mc_server import SweepRequest
+
+    probs = [MSDProblem.make(n) for n in SERVE_MC_N_GRID]
+    chs = [ChannelConfig(fading="rayleigh", scale=1.0, noise_std=1.0,
+                         energy=float(n) ** (-1.5)) for n in SERVE_MC_N_GRID]
+    betas = [stepsize_theorem1(p.pc, ch, n, safety=0.9)
+             for p, ch, n in zip(probs, chs, SERVE_MC_N_GRID)]
+    return [SweepRequest(problem=p.to_mc("cuda"), channels=[ch],
+                         algo="gbma", betas=[b], steps=SERVE_MC_STEPS,
+                         seeds=SERVE_MC_SEEDS)
+            for p, ch, b in zip(probs, chs, betas)]
+
+
+def _solo_mc(req, **kw):
+    """A request as one dedicated `run_mc` call on the server's row path."""
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.core.mc.problems import MCProblemBatch
+
+    return run_mc(MCProblemBatch.stack([req.problem]), req.channels,
+                  req.algo, req.betas, req.steps, req.seeds,
+                  seed0=req.seed0, shard_seeds=False, device="cuda", **kw)
+
+
+def _max_rel(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def run_serve_mc(ops) -> tuple:
+    """The sweep server (`serving.mc_server`) on the card:
+
+    (a) the launcher's `--selftest` and `--selftest --chaos`;
+    (b) the reference's serving mix served per request (one `run_mc`
+        each), monolithically (`bucket_base=0`) and bucketed on a
+        persistent server after 5 passes: each serving's wall, K1
+        launches, engine calls, `trace_count()`, and each batch's layout,
+        pad_flops_ratio and measured wall beside `predict_run_us`; every
+        demuxed curve within 1e-6 rel of its per-request call and K1 at
+        300 launches an engine call (each batch one quantum);
+    (c) a whale (LARGE-shaped) and four fig3-shaped minnows at quanta of
+        64 and the card's budget: each batch's admission price
+        (`estimate_peak_bytes` + `draw_scratch_bytes`) against its
+        measured peak (each quantum's own, over what was allocated when
+        it started), failing if a peak exceeds its price; the minnows
+        resolve before the whale's last quantum;
+    (d) (b)'s bucketed results against the requests through the plain
+        route (`ota_impl="ref"`) on the card, within 1e-5 rel;
+    (e) the committed `cuda/1` calibration entry loads as 'measured', and
+        a `CalibrationConfig.smoke()` run into a temporary file gives
+        finite, non-negative coefficients.
+
+    Returns (K1 launches of the main-path servings, the record)."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.mc import costmodel
+    from repro_torch.core.mc import exec as exec_mod
+    from repro_torch.core.mc.plan import (ExecPlan,
+                                          device_memory_budget_bytes)
+    from repro_torch.core.theory import stepsize_theorem1
+    from repro_torch.figures import FIG3, MSDProblem
+    from repro_torch.launch import serve_mc
+    from repro_torch.serving.mc_server import (McServeConfig, PartialResult,
+                                               SweepRequest, serve_sync)
+
+    record, launches = {}, {}
+    t_phase = time.perf_counter()
+
+    # (a) the launcher's selftests, in-process on the card
+    for argv in (["--selftest", "--device", "cuda"],
+                 ["--selftest", "--chaos", "--device", "cuda"]):
+        try:
+            serve_mc.main(argv)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        log(f"serve mc (a): serve_mc {' '.join(argv)} on the card: exit "
+            f"{code}")
+        if code != 0:
+            raise AssertionError(f"serve mc (a): {argv} exited {code}")
+
+    # (b) the serving mix
+    reqs = _serve_mc_mix()
+    k = len(reqs)
+    bucketed = _recording_server(ops, McServeConfig(
+        quantum_seeds=SERVE_MC_SEEDS))
+    mono = _recording_server(ops, McServeConfig(
+        quantum_seeds=SERVE_MC_SEEDS, bucket_base=0))
+    model = bucketed.cost_model()
+    log(f"serve mc (b): routing cost model source={model.source}, "
+        f"dispatch_us={model.dispatch_us}, compile_s={model.compile_s}")
+    for _ in range(SERVE_MC_PASSES):  # convergence: first sight, layouts
+        serve_sync(reqs, server=bucketed)
+    per_req = [_solo_mc(r) for r in reqs]  # warm the solo shapes too
+    serve_sync(reqs, server=mono)
+
+    def serving(label, run, server=None):
+        torch.cuda.synchronize()
+        n0 = len(server.calls) if server else 0
+        b0 = len(server.stats.batches) if server else 0
+        exec_mod.trace_count(reset=True)
+        ops.launch_count = 0
+        t0 = time.perf_counter()
+        results = run()
+        wall = time.perf_counter() - t0
+        count = ops.launch_count
+        shapes = exec_mod.trace_count()
+        calls = server.calls[n0:] if server else [{"wall_s": None}] * k
+        batches = server.stats.batches[b0:] if server else []
+        rows = []
+        for b, c in zip(batches, calls):
+            wl = costmodel.Workload(
+                n_rows=b["rows"], seeds=b["seeds"], steps=SERVE_MC_STEPS,
+                n_max=b["n_max"], dim=reqs[0].problem.dim)
+            plan = ExecPlan(seed_chunk=min(SERVE_MC_SEEDS, b["seeds"]),
+                            n_shards=0, row_shards=1)
+            rows.append({**{key: b[key] for key in (
+                "requests", "rows", "n_max", "bucket", "layout",
+                "pad_flops_ratio")}, "wall_s": c["wall_s"],
+                "predict_run_s": model.predict_run_us(
+                    plan, wl, device_count=1) / 1e6})
+        n_calls = len(calls)
+        rec = {"wall_s": wall, "launches": count, "engine_calls": n_calls,
+               "trace_count": shapes, "batches": rows}
+        log(f"serve mc (b) {label}: wall {wall:.4f} s, {count} OTA kernel "
+            f"launches, {n_calls} engine calls, trace_count {shapes}")
+        for r in rows:
+            log(f"serve mc (b) {label} batch: {json.dumps(r)}")
+        if count != SERVE_MC_STEPS * n_calls:
+            raise AssertionError(f"serve mc (b) {label}: {count} launches "
+                                 f"for {n_calls} engine calls")
+        launches[f"serve mc (b) {label}"] = count
+        record[f"(b) {label}"] = rec
+        return results
+
+    per_req = serving("per request", lambda: [_solo_mc(r) for r in reqs])
+    mono_res = serving("monolithic", lambda: serve_sync(reqs, server=mono),
+                       mono)
+    buck_res = serving("bucketed", lambda: serve_sync(
+        reqs, server=bucketed), bucketed)
+    for label, res in (("monolithic", mono_res), ("bucketed", buck_res)):
+        rel = max(max(_max_rel(r.risks, s.risks), _max_rel(r.mean, s.mean))
+                  for r, s in zip(res, per_req))
+        log(f"serve mc (b) {label} vs per request: max rel {rel:.3e} "
+            "(bar 1e-06)")
+        if not rel <= 1e-6:
+            raise AssertionError(f"serve mc (b): {label} demux off the "
+                                 "per-request calls")
+        record[f"(b) {label}"]["max_rel_vs_per_request"] = rel
+    record["(b) layouts"] = bucketed.stats.layouts
+    record["(b) bucket_occupancy"] = {
+        str(b): n for b, n in bucketed.stats.bucket_occupancy.items()}
+
+    # (d) the bucketed results against the plain route on the card
+    plain = [_solo_mc(r, ota_impl="ref") for r in reqs]
+    rel = max(max(_max_rel(r.risks, p.risks), _max_rel(r.mean, p.mean),
+                  _max_rel(r.cum_energy, p.cum_energy))
+              for r, p in zip(buck_res, plain))
+    log(f"serve mc (d): bucketed (kernel route) vs plain route on the "
+        f"card: max rel {rel:.3e} (bar 1e-05)")
+    if not rel <= 1e-5:
+        raise AssertionError("serve mc (d): kernel and plain routes differ")
+    record["(d) max_rel_vs_plain"] = rel
+
+    # (c) a whale and its minnows at the card's budget
+    torch.cuda.empty_cache()
+    whale_p = MSDProblem.make(LARGE["n"], dim=LARGE["dim"])
+    whale = SweepRequest(
+        problem=whale_p.to_mc("cuda"),
+        channels=[ChannelConfig(fading="rayleigh", scale=1.0, noise_std=1.0,
+                                energy=1.0 / LARGE["n"])],
+        algo="gbma", betas=[0.01], steps=LARGE["steps"],
+        seeds=LARGE["seeds"])
+    minnows = []
+    for n in FIG3["n_grid"]:
+        p = MSDProblem.make(n)
+        ch = ChannelConfig(fading=FIG3["fading"], scale=1.0, noise_std=1.0,
+                           energy=1.0)
+        minnows.append(SweepRequest(
+            problem=p.to_mc("cuda"), channels=[ch], algo="gbma",
+            betas=[stepsize_theorem1(p.pc, ch, n, safety=0.9)],
+            steps=FIG3["steps"], seeds=FIG3["seeds"]))
+    n = FIG3["n_grid"][-1]
+    p = MSDProblem.make(n)
+    ch = ChannelConfig(fading=FIG3["fading"], scale=1.0, noise_std=1.0,
+                       energy=float(n) ** (FIG3["eps_grid"][0] - 2.0))
+    minnows.append(SweepRequest(
+        problem=p.to_mc("cuda"), channels=[ch], algo="gbma",
+        betas=[stepsize_theorem1(p.pc, ch, n, safety=0.9)],
+        steps=FIG3["steps"], seeds=FIG3["seeds"]))
+    budget = device_memory_budget_bytes("cuda")
+    srv = _recording_server(ops, McServeConfig(
+        quantum_seeds=WHALE_QUANTUM, memory_budget_bytes=budget))
+    whale_sig = srv._normalize(whale).signature
+
+    async def drive():
+        tasks = [asyncio.ensure_future(srv.submit(r))
+                 for r in [whale] + minnows]
+        await asyncio.sleep(0)
+        await srv.drain()
+        return await asyncio.gather(*tasks)
+
+    ops.launch_count = 0
+    t0 = time.perf_counter()
+    results = asyncio.run(drive())
+    wall = time.perf_counter() - t0
+    count = ops.launch_count
+    if any(isinstance(r, PartialResult) or not np.all(np.isfinite(r.mean))
+           for r in results):
+        raise AssertionError("serve mc (c): a request did not finish")
+    rows, ok = [], True
+    for b, job in zip(srv.stats.batches, srv.finished):
+        calls = [c for c in srv.calls if c["job"] is job]
+        peak = max(c["peak_bytes"] for c in calls)
+        price = b["estimate_bytes"] + b["scratch_bytes"]
+        top = max(c["max_memory_allocated"] for c in calls)
+        rows.append({"signature": b["signature"], "rows": b["rows"],
+                     "n_max": b["n_max"], "seeds": b["seeds"],
+                     "quanta": b["quanta"],
+                     "estimate_bytes": b["estimate_bytes"],
+                     "scratch_bytes": b["scratch_bytes"],
+                     "price_bytes": price, "peak_bytes": peak,
+                     "max_memory_allocated": top,
+                     "price_over_peak": price / peak,
+                     "peak_over_estimate": peak / b["estimate_bytes"]})
+        log(f"serve mc (c) batch {b['signature']} rows={b['rows']} "
+            f"N_max={b['n_max']} seeds={b['seeds']} quanta={b['quanta']}: "
+            f"price {price / 2**20:.1f} MiB (estimate "
+            f"{b['estimate_bytes'] / 2**20:.1f} + scratch "
+            f"{b['scratch_bytes'] / 2**20:.1f}); max_memory_allocated "
+            f"{top / 2**20:.1f} MiB, of it {peak / 2**20:.1f} the "
+            f"quantum's own peak over what was allocated when it started; "
+            f"price / peak {price / peak:.3f}, peak / estimate "
+            f"{peak / b['estimate_bytes']:.3f}")
+        ok = ok and peak <= price
+    whale_calls = [c for c in srv.calls
+                   if c["job"].signature == whale_sig]
+    minnow_jobs = [j for j in srv.finished if j.signature != whale_sig]
+    early = all(srv.finished.index(j) < whale_calls[-1]["finished_before"]
+                for j in minnow_jobs)
+    log(f"serve mc (c): wall {wall:.3f} s, {count} OTA kernel launches, "
+        f"{len(srv.calls)} engine calls ({len(whale_calls)} whale quanta "
+        f"of {WHALE_QUANTUM}); budget {budget / 2**30:.2f} GiB; "
+        f"{len(minnow_jobs)} minnow batch(es) resolved before the "
+        f"whale's last quantum: {early}")
+    if count != sum(c["launches"] for c in srv.calls) \
+            or count != LARGE["steps"] * len(whale_calls) \
+            + FIG3["steps"] * (len(srv.calls) - len(whale_calls)):
+        raise AssertionError(f"serve mc (c): {count} launches")
+    if not ok:
+        raise AssertionError("serve mc (c): a batch peaked above its "
+                             "admission price")
+    if not early:
+        raise AssertionError("serve mc (c): the whale starved its minnows")
+    launches["serve mc (c)"] = count
+    record["(c)"] = {"wall_s": wall, "launches": count,
+                     "budget_bytes": budget, "batches": rows}
+
+    # (e) the calibration
+    committed = costmodel.load_cost_model(device="cuda")
+    key = costmodel.platform_key(device="cuda")
+    log(f"serve mc (e): committed calibration for {key}: "
+        f"{None if committed is None else committed.source}")
+    if committed is None or committed.source != "measured":
+        raise AssertionError("serve mc (e): no measured cuda/1 entry in "
+                             f"{costmodel.default_calibration_path()}")
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        entry = costmodel.calibrate(costmodel.CalibrationConfig.smoke(),
+                                    path=os.path.join(tmp, "cal.json"),
+                                    device="cuda")
+        cal_s = time.perf_counter() - t0
+    values = [c[key] for c in entry["coeffs"].values()
+              for key in ("c0_us", "c1_us")] + [entry["dispatch_us"],
+                                                entry["compile_s"]]
+    log(f"serve mc (e): smoke calibration in {cal_s:.1f} s: coeffs "
+        f"{entry['coeffs']}, dispatch_us {entry['dispatch_us']}, "
+        f"compile_s {entry['compile_s']}, peaks {entry['peaks']}")
+    if not all(math.isfinite(v) and v >= 0 for v in values):
+        raise AssertionError("serve mc (e): bad smoke calibration")
+    record["(e)"] = {"committed": key,
+                     "smoke_s": cal_s, "smoke_coeffs": entry["coeffs"]}
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve mc: {json.dumps(record)}")
+    return launches, record
 
 
 # ---------------------------------------------------------------- serving
@@ -2283,6 +2660,11 @@ def main() -> int:
     mc_launches.update(exec_launches)
     elapsed('the exec plans')
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    serve_mc_launches, serve_mc_record = run_serve_mc(ops)
+    mc_launches.update(serve_mc_launches)
+    elapsed('serve mc')
+    torch.cuda.synchronize()
     prof = step_profile({**_base_profile_cases(),
                          **_new_path_profile_cases()})
     elapsed('the step profile')
@@ -2335,6 +2717,7 @@ def main() -> int:
         "large_sweep_ms_per_step": sweep_step_s * 1e3,
         "large_mrc_ms_per_step": mrc_step_s * 1e3,
         "step_breakdown": breakdown, "exec_plans": exec_record,
+        "serve_mc": serve_mc_record,
         "build": ota_build,
         "padded": next(r for r in timings if r["launch"] == "fig3 (a)"),
         "large_mrc": next(r for r in timings if r["launch"] == "large mrc"),

@@ -64,6 +64,22 @@ rolled back and run again, replaying its streams.
 
 `estimate_peak_bytes` is the reference's analytic memory model, its
 terms unchanged; `plan.auto_plan` sizes seed chunks with it.
+`draw_scratch_bytes` adds what that model leaves out: the buffers the
+port's eager threefry and its bits→gain/noise chain hold while they draw
+(int64 counters and hashes, f64 intermediates), which XLA fuses away in
+the reference. The sweep server prices admission as the sum of the two.
+
+Program shapes: the port has no jit, so nothing compiles. Its
+counterpart of the reference's trace is the first execution of a
+distinct program shape by `run_core`: the static facets the reference's
+jit keys on (algorithm set, fading, steps, node and antenna counts,
+flags, registry callables) plus the shapes of every operand (rows ×
+seeds, N_max, d, …). `trace_count()` counts the distinct shapes run since
+the last `clear_cache()` (or reset), so the sweep server's "unseen shape
+class" pricing and its "a first sight pollutes the warm timing" guard
+read as they do in the reference. On the card a first sight costs the
+caching allocator's growth and the library handles' set-up, not a
+compile.
 """
 from __future__ import annotations
 
@@ -86,6 +102,58 @@ from repro_torch.core.mc.slots import ALGO_REGISTRY, SlotCtx, with_antennas
 # from each other
 _DATA_STREAM = 0x64617461
 _PART_STREAM = 0x70617274
+
+# program shapes `run_core` has run (module docstring), the count of first
+# sights since the last reset, and the epoch `clear_cache` bumps
+_SEEN_SHAPES: set = set()
+_TRACE_COUNT = 0
+_CACHE_EPOCH = 0
+
+
+def cache_epoch() -> int:
+    """Monotone counter bumped by every `clear_cache()`. Consumers that
+    key decisions on "has this program shape run before" (the sweep
+    server's shape-class registry) compare epochs to forget their
+    seen-sets exactly when the registry they mirror is emptied."""
+    return _CACHE_EPOCH
+
+
+def trace_count(reset: bool = False) -> int:
+    """Number of distinct program shapes `run_core` has run for the first
+    time since import, the last reset or the last `clear_cache()` — the
+    counterpart of the reference's trace count. `reset=True` returns the
+    count and zeroes it, keeping the registry (a shape already run does
+    not count again)."""
+    global _TRACE_COUNT
+    count = _TRACE_COUNT
+    if reset:
+        _TRACE_COUNT = 0
+    return count
+
+
+def clear_cache() -> bool:
+    """Forget every program shape run so far (the next run of each counts
+    again), zero the count and bump `cache_epoch()`. The port keeps no
+    other per-shape cache. Returns True: the registry is always
+    clearable."""
+    global _TRACE_COUNT, _CACHE_EPOCH
+    _SEEN_SHAPES.clear()
+    _TRACE_COUNT = 0
+    _CACHE_EPOCH += 1
+    return True
+
+
+def _shapes(tensors: dict) -> tuple:
+    return tuple(sorted((name, tuple(v.shape), str(v.dtype))
+                        for name, v in tensors.items()))
+
+
+def _note_program_shape(key: tuple) -> None:
+    """Count `key`'s first sight (`trace_count`)."""
+    global _TRACE_COUNT
+    if key not in _SEEN_SHAPES:
+        _SEEN_SHAPES.add(key)
+        _TRACE_COUNT += 1
 
 
 def _slot_groups(algos: tuple) -> tuple:
@@ -153,6 +221,13 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
     device = betas.device
     dim = theta0.shape[0]
     n_max = data["mask"].shape[1]
+    _note_program_shape((
+        reduce_moments, tuple(dict.fromkeys(algos)), fading, steps, n_sizes,
+        n_antennas, () if m_per_row is None else tuple(sorted(set(
+            m_per_row))), invert_channel, h_min, ota_impl, phase_zero,
+        rng_plan, stochastic, grad_fn, risk_fn, _shapes(params),
+        tuple(betas.shape), tuple(theta0.shape), n_seeds, _shapes(data),
+        device.type))
 
     order, groups = _slot_groups(algos)
     permuted = bool(np.any(order != np.arange(n_rows)))
@@ -595,9 +670,9 @@ def estimate_peak_bytes(*, n_rows: int, seeds: int, steps: int, n_max: int,
     plan, the participation stream under both), the per-seed curves and
     two `(N_max, d)` gradient temporaries per trajectory. It does not
     count what the port's eager threefry holds while it draws (int64
-    counters and hashes, f64 intermediates): `chip_smoke.py` prints the
-    card's measured peak beside this estimate. `per_device_peak_bytes`
-    divides by the (row_shards × n_shards) mesh."""
+    counters and hashes, f64 intermediates): `draw_scratch_bytes` does.
+    `per_device_peak_bytes` divides by the (row_shards × n_shards)
+    mesh."""
     from repro_torch.core.mc import slots
 
     s_live = seeds if seed_chunk is None else min(seed_chunk, seeds)
@@ -630,3 +705,119 @@ def estimate_peak_bytes(*, n_rows: int, seeds: int, steps: int, n_max: int,
         "host_curve_bytes": host_bytes,
         "s_live": s_live,
     }
+
+
+# Bytes held per drawn element while the eager chain of `core/rng.py`
+# draws it (the draw's own f32 output excluded), read off the code:
+# - a shaped uniform: threefry keeps 4 int64 words per counter pair (x0,
+#   x1 and the two rotation shifts: 16 B an element), the concatenated
+#   halves 16, then `bits_to_u01` holds the int64 bits and two int64
+#   temporaries (24);
+# - the dynamic-N bits (`rng.dynamic_bits`): the per-trajectory counters
+#   (4), both hash halves (8), the gathered bits0 and bits1 and the
+#   gather's index, all int64 at full width (24), the select (1 + 8): 37;
+# - a normal: XLA's f32 erfinv copy evaluates each fused multiply-add in
+#   f64 (three 8-byte operands live) beside ~25 B of f32 and bool
+#   temporaries (u01, u, w, the branch mask, arg, p, the coefficient): 49;
+# - a logistic minibatch index (`randint` on keys folded twice): the
+#   (…, 2) int64 node keys, their split and its threefry words, the bits
+#   of both halves: 96.
+_UNIFORM_B = 24
+_DYNAMIC_B = 37
+_NORMAL_B = 49
+_INDEX_B = 96
+# Per drawn key (a trajectory's step, or one antenna of it): the (T, B)
+# step-major key copy (16), the two `split`s of the chain (32 + 32) and
+# the threefry words of one (64), and the per-trajectory params and
+# counts tiled over the keys (~10 words: 64).
+_KEY_B = 208
+
+
+def _gain_scratch(fading: str, dynamic: bool, phase: bool) -> int:
+    """Bytes a node lane holds while one gain draws (`sampling._row_gains`
+    and its complex twin): the magnitude's draw, or, with a phase stream,
+    the finished magnitude (4) beside the phase's uniform."""
+    bits = _DYNAMIC_B if dynamic else _UNIFORM_B
+    mag = {"equal": 0, "rayleigh": bits, "lognormal": _NORMAL_B,
+           "rician": 2 * _NORMAL_B}[fading]
+    return max(mag, 4 + bits if phase else 0)
+
+
+def _slot_scratch(algo: str, *, n_max: int, dim: int, m_live: int,
+                  fading: str, dynamic: bool, phase_zero: bool,
+                  invert_channel: bool, with_outputs: bool) -> int:
+    """Bytes one trajectory holds while one step's slot draws run (the
+    per-step draw functions of `slots`), the outputs added when the
+    memory model does not count them ('inscan')."""
+    from repro_torch.core.mc import slots
+
+    spec = slots.ALGO_REGISTRY.get(algo)
+    if spec is None or spec.hoist_draws is None:  # draws nothing
+        return 0
+    det = fading == "equal" and phase_zero  # no gain drawn
+    if spec.blind:  # complex gains (full phase) and (2, d) noise per antenna
+        gain = _gain_scratch(fading, dynamic, True)
+        per_key = max(_NORMAL_B * 2 * dim, gain * n_max)
+        out = 4 * 2 * (n_max + dim)
+        return m_live * (_KEY_B + per_key + (out if with_outputs else 0))
+    if algo == "fdm":  # per-node (N, d) noise, gains unless inverted
+        gain = 0 if (invert_channel or det) \
+            else _gain_scratch(fading, dynamic, not phase_zero)
+        out = 4 * n_max * (dim + 1)
+        return _KEY_B + max(_NORMAL_B * n_max * dim, gain * n_max) \
+            + (out if with_outputs else 0)
+    # the gbma family and power_control: (N,) gains and (d,) noise a key
+    gain = 0 if det else _gain_scratch(fading, dynamic, not phase_zero)
+    per_key = max(_NORMAL_B * dim, gain * n_max)
+    out = 4 * (n_max + dim)
+    m = m_live if spec.ota else 1
+    return m * (_KEY_B + per_key + (out if with_outputs else 0))
+
+
+def draw_scratch_bytes(*, n_rows: int, seeds: int, steps: int, n_max: int,
+                       dim: int, algo_set=("gbma",), seed_chunk=None,
+                       n_antennas=None, m_sizes=(), b_max: int = 0,
+                       keep_seed_curves: bool = True,
+                       rng_plan: str = "hoisted",
+                       invert_channel: bool = False,
+                       participation_on: bool = False,
+                       n_shards: int = 1, row_shards: int = 1,
+                       fading: str = "rayleigh", phase_zero: bool = False,
+                       n_distinct: int = 1) -> int:
+    """Device bytes the port's eager draw chain holds beyond
+    `estimate_peak_bytes` in one engine call (port only; same arguments,
+    plus the call's fading family, whether every row's phase error is 0
+    and its count of distinct node counts, which picks the dynamic-N
+    draws).
+
+    Terms, from the code (`core/rng.py`, `sampling`, `slots`, `run_core`):
+    the step keys `(B, T, 2)` int64 held through the loop (16 B per
+    trajectory-step); the largest transient of the draws a call holds at
+    once — a single-algorithm call under 'hoisted' draws every step's
+    streams in one chain (`slots.*_hoist_draws`), 'inscan' and mixed
+    calls one step's (with its outputs, which the reference's model does
+    not count there), the participation uniforms over all steps under
+    both plans, the minibatch indices with the slot draws; and the hoisted
+    indices' int64 over the model's 4 bytes. The transients are the
+    per-element constants above: int64 counters and hashes, f64
+    fused-multiply-add operands. `keep_seed_curves` is accepted for
+    symmetry (curves are in the estimate). Returns device bytes; divide by
+    the (row_shards × n_shards) mesh for one device's share."""
+    s_live = seeds if seed_chunk is None else min(seed_chunk, seeds)
+    traj = n_rows * s_live
+    m_live = max(m_sizes) if m_sizes else (n_antennas or 1)
+    dynamic = n_distinct > 1
+    hoist = rng_plan == "hoisted" and len(algo_set) == 1
+    t_draw = steps if hoist else 1
+    held = traj * steps * 16  # the step keys
+    stages = [traj * t_draw * _slot_scratch(
+        a, n_max=n_max, dim=dim, m_live=m_live, fading=fading,
+        dynamic=dynamic, phase_zero=phase_zero,
+        invert_channel=invert_channel, with_outputs=not hoist)
+        for a in algo_set]
+    if participation_on:
+        stages.append(traj * steps * n_max * _UNIFORM_B)
+    if b_max > 0:
+        stages.append(traj * t_draw * n_max * b_max * _INDEX_B)
+        held += traj * t_draw * n_max * b_max * (4 if hoist else 8)
+    return held + max(stages, default=0)

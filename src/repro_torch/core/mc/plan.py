@@ -11,9 +11,9 @@ per-device budget), or builds the equivalent one from its legacy knobs
 
 A port call runs on the one device it is given, so the device count is
 1: a plan that places seeds or rows over two or more devices raises
-`NotImplementedError` naming ROADMAP M8 (multi-GPU placement), as does
-`auto_plan(cost_model="measured")`, whose calibrated cost model M8 also
-brings.
+`NotImplementedError` naming ROADMAP M8 (multi-GPU placement).
+`auto_plan(cost_model="measured")` re-prices the seed chunk with the
+calibrated cost model (`costmodel`), as in the reference.
 """
 from __future__ import annotations
 
@@ -195,6 +195,8 @@ def auto_plan(*, n_rows: int, seeds: int, steps: int, n_max: int, dim: int,
               target_chunk_bytes: Optional[int] = None,
               device_count: Optional[int] = None,
               cost_model: str = "analytic",
+              calibration_path: Optional[str] = None,
+              _model=None,
               device: DeviceLike = None) -> ExecPlan:
     """Derive an `ExecPlan` from the workload, the memory model and the
     device count (1 unless given), as the reference's analytic rule
@@ -212,8 +214,16 @@ def auto_plan(*, n_rows: int, seeds: int, steps: int, n_max: int, dim: int,
     (device)`), else the smallest outright.
 
     `keep_seed_curves=None` resolves to False exactly when the plan
-    chunks. `cost_model="measured"` (the reference's calibrated
-    re-pricing of the chunk) is not ported yet.
+    chunks.
+
+    `cost_model="measured"` re-prices the chunk with the calibrated cost
+    model (`costmodel.load_cost_model` for this device's platform and
+    the device count): every shardable chunk that fits the memory budget
+    is a candidate, ranked by `CostModel.predict_run_us`, and the choice
+    leaves the analytic chunk only for a predicted win above 5 %. With
+    no matching calibration entry the analytic path runs exactly.
+    `_model` injects a `CostModel` (tests); `calibration_path` overrides
+    the artifact's location.
     """
     from repro_torch.core.mc.exec import estimate_peak_bytes
 
@@ -221,10 +231,6 @@ def auto_plan(*, n_rows: int, seeds: int, steps: int, n_max: int, dim: int,
         raise ValueError(
             f"cost_model must be 'analytic' or 'measured', "
             f"got {cost_model!r}")
-    if cost_model == "measured":
-        raise NotImplementedError(
-            "cost_model='measured' is not ported yet (ROADMAP M8: the cost "
-            "model and its cuda/1 calibration)")
 
     ndev = 1 if device_count is None else int(device_count)
     budget = device_memory_budget_bytes(device) \
@@ -263,6 +269,43 @@ def auto_plan(*, n_rows: int, seeds: int, steps: int, n_max: int, dim: int,
                           else candidates[0])
         if seed_chunk >= seeds:
             seed_chunk = None  # chunking the full axis is the all-live call
+
+    if cost_model == "measured":
+        model = _model
+        if model is None:
+            from repro_torch.core.mc import costmodel
+
+            model = costmodel.load_cost_model(
+                calibration_path, device_count=ndev, device=device)
+        if model is not None:
+            from repro_torch.core.mc.costmodel import Workload
+
+            wl = Workload(n_rows=n_rows, seeds=seeds, steps=steps,
+                          n_max=n_max, dim=dim, algo_set=tuple(algo_set),
+                          m_sizes=tuple(m_sizes), b_max=b_max)
+
+            def candidate(chunk: Optional[int]) -> ExecPlan:
+                return ExecPlan(
+                    rng_plan=rng_plan, seed_chunk=chunk,
+                    n_shards=0 if n_sh <= 1 else n_sh,
+                    row_shards=max(row_sh, 1),
+                    keep_seed_curves=False, ota_impl=ota_impl)
+
+            chunks = [None if c >= seeds else c
+                      for c in _divisors_desc(seeds)
+                      if c % max(n_sh, 1) == 0]
+            fits = [c for c in chunks if per_device(c) <= budget]
+            if fits:
+                pred = {c: model.predict_run_us(candidate(c), wl,
+                                                device_count=ndev)
+                        for c in fits}
+                best = min(fits, key=lambda c: (pred[c], -(c or seeds)))
+                # conservative: keep the analytic chunk inside a 5 %
+                # prediction band; deviate only for a clear win
+                if seed_chunk in pred \
+                        and pred[seed_chunk] <= 1.05 * pred[best]:
+                    best = seed_chunk
+                seed_chunk = best
 
     if keep_seed_curves is None:
         keep_seed_curves = seed_chunk is None

@@ -17,7 +17,9 @@ on views off 16 bytes and for repeatability. The port's threefry is
 checked to draw an odd count without a host-to-device copy. The execution
 plans run through K1: hoisted draws give the per-step bits, chunked
 moments match unchunked ones, and a sweep resumed after an injected
-fault equals the uninterrupted one bit for bit.
+fault equals the uninterrupted one bit for bit. The MC sweep server runs
+on the card: the launcher's selftests, and a served mix through K1 held
+to the plain route.
 """
 import pytest
 
@@ -519,3 +521,57 @@ def test_resume_after_an_injected_fault_is_bit_identical_on_the_card(
     assert ops.launch_count - before == 2 * 20  # chunks at 16 and 24
     np.testing.assert_array_equal(resumed.mean, clean.mean)
     np.testing.assert_array_equal(resumed.ci95, clean.ci95)
+
+
+# --------------------------------------------------------------- the server
+def test_serve_mc_selftests_pass_on_the_card(cuda):
+    """The launcher's `--selftest` and `--selftest --chaos` on the card:
+    one program shape per signature, each demuxed request within 1e-6
+    of a solo `run_mc`, the chunk and quantum retries and the deadline."""
+    from repro_torch.launch import serve_mc
+
+    for argv in (["--selftest", "--device", "cuda"],
+                 ["--selftest", "--chaos", "--device", "cuda"]):
+        with pytest.raises(SystemExit) as done:
+            serve_mc.main(argv)
+        assert done.value.code == 0, argv
+
+
+def test_served_results_match_the_plain_route_on_the_card(cuda):
+    """A small mix served bucketed through K1 (one launch a step of each
+    engine call) against each request through the plain route on the
+    card, within the route checks' 1e-5 rel."""
+    import numpy as np
+
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.core.mc.problems import (MCProblemBatch,
+                                              quadratic_mc_problem)
+    from repro_torch.serving.mc_server import (InlineExecutor,
+                                               McServeConfig, McSweepServer,
+                                               SweepRequest, serve_sync)
+
+    steps, seeds = 20, 4
+    reqs = []
+    for i, n in enumerate((6, 9, 24, 40)):
+        rs = np.random.default_rng(i)
+        mc = quadratic_mc_problem(
+            rs.standard_normal((n, 3)).astype(np.float32),
+            rs.standard_normal(n).astype(np.float32), 0.1,
+            np.zeros(3, np.float32), device=cuda)
+        reqs.append(SweepRequest(
+            problem=mc, channels=[ChannelConfig(noise_std=0.5 + 0.1 * i)],
+            algo="gbma", betas=[0.05], steps=steps, seeds=seeds))
+    srv = McSweepServer(McServeConfig(quantum_seeds=seeds),
+                        executor=InlineExecutor(), device=cuda)
+    before = ops.launch_count
+    served = serve_sync(reqs, server=srv)
+    assert ops.launch_count - before == steps * len(srv.stats.batches)
+    for res, req in zip(served, reqs):
+        plain = run_mc(MCProblemBatch.stack([req.problem]), req.channels,
+                       req.algo, req.betas, steps, seeds, ota_impl="ref",
+                       shard_seeds=False, device=cuda)
+        for name in ("risks", "mean", "cum_energy"):
+            np.testing.assert_allclose(getattr(res, name),
+                                       getattr(plain, name), rtol=1e-5,
+                                       atol=0)

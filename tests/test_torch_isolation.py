@@ -38,10 +38,14 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro."))
 print(",".join(names), bad)
 """
-# the RWKV6 slice's modules, which the walk above must reach
+# the RWKV6 slice's modules and the sweep server's, which the walk above
+# must reach
 RWKV_MODULES = {"repro_torch.configs.rwkv6_7b", "repro_torch.models.rwkv",
                 "repro_torch.kernels.wkv", "repro_torch.kernels.wkv.kernel",
                 "repro_torch.kernels.wkv.ops", "repro_torch.kernels.wkv.ref"}
+SERVER_MODULES = {"repro_torch.serving.mc_server",
+                  "repro_torch.launch.serve_mc",
+                  "repro_torch.core.mc.costmodel"}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -52,6 +56,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     names, loaded = set(out[0].split(",")), out[1].strip()
     assert len(names) >= 40
     assert RWKV_MODULES <= names, RWKV_MODULES - names
+    assert SERVER_MODULES <= names, SERVER_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
@@ -71,6 +76,44 @@ def test_run_mc_without_device_raises_where_cuda_is_absent(monkeypatch):
                device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quadratic_mc_problem(np.ones((2, 2)), np.ones(2), 0.5, np.zeros(2))
+
+
+def test_sweep_server_entry_points_without_device_raise_where_cuda_is_absent(
+        monkeypatch):
+    """The server, its launcher, `serve_sync` and the cost model's
+    calibration mean the card without `device` and raise without CUDA;
+    with `device="cpu"` they run."""
+    from repro_torch.core.mc import costmodel
+    from repro_torch.launch import serve_mc
+    from repro_torch.serving.mc_server import McSweepServer, serve_sync
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (McSweepServer, lambda: McSweepServer(device="cuda"),
+                 lambda: serve_mc.main(["--selftest"]),
+                 lambda: serve_sync([]),
+                 lambda: costmodel.calibrate(
+                     costmodel.CalibrationConfig.smoke()),
+                 costmodel.platform_key):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert McSweepServer(device="cpu").device.type == "cpu"
+    assert costmodel.platform_key(device="cpu") == "cpu/1"
+
+
+def test_measured_cost_model_is_ported_but_placement_is_not():
+    """`auto_plan(cost_model="measured")` runs (the analytic plan where
+    no calibration entry matches); a plan over two or more devices still
+    raises naming M8."""
+    from repro_torch.core.mc.plan import auto_plan, resolve_seed_shards
+
+    kw = dict(n_rows=1, seeds=64, steps=10, n_max=8, dim=3,
+              memory_budget_bytes=1 << 30)
+    assert auto_plan(**kw, cost_model="measured", device="cpu") == \
+        auto_plan(**kw)
+    for plan in (ExecPlan(n_shards=2), ExecPlan(row_shards=2),
+                 ExecPlan(n_shards=4, seed_chunk=8)):
+        with pytest.raises(NotImplementedError, match="ROADMAP M8"):
+            resolve_seed_shards(plan, 64, device_count=4)
 
 
 # every execution argument of the reference is ported but placement over

@@ -14,7 +14,8 @@
   participation and `invert_channel`); `chan_merge` and
   `finalize_merged_stats` against numpy and the reference; `run_mc`'s
   plan errors and `NotImplementedError` for placement over several
-  devices and the measured cost model (ROADMAP M8); `MCResult.plan`.
+  devices (ROADMAP M8); the measured cost model the analytic plan where
+  no calibration entry matches; `MCResult.plan`.
 * Chunks (`exec.run_chunked`): chunked curves and moments against the
   reference's chunked `run_mc` per family at the engine bar (rtol 1e-5;
   ci95 at F3's bar, ROADMAP §3; the logistic risks with F8's 4-ulp
@@ -311,8 +312,10 @@ def test_auto_plan_budget_defaults_and_measured_cost_model():
     kw = dict(n_rows=1, seeds=1024, steps=150, n_max=4096, dim=24)
     assert auto_plan(**kw, device="cpu") == auto_plan(
         **kw, memory_budget_bytes=plan_mod.DEFAULT_MEMORY_BUDGET_BYTES)
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        auto_plan(**kw, device="cpu", cost_model="measured")
+    # the measured cost model is ported: no cpu/1 calibration entry
+    # matches here, so it is the analytic plan exactly
+    assert auto_plan(**kw, device="cpu", cost_model="measured") == \
+        auto_plan(**kw, device="cpu")
     with pytest.raises(ValueError, match="cost_model"):
         auto_plan(**kw, device="cpu", cost_model="guess")
 
