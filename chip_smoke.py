@@ -46,6 +46,17 @@ drives the port's main paths:
   (each batch's admission price against its measured peak, the minnows
   before the whale's last quantum); the committed `cuda/1` calibration
   and a smoke calibration into a temporary file;
+* the channel-transport substrate ("transport") at repro-100m's full
+  width (112,248,960 parameters, N = 8 nodes, the reference launcher's
+  channel): every registered algorithm through `transport.aggregate`
+  untiled, tiled at 2^20 columns and as one concatenated block (K1 one
+  launch per block for the gbma family and power_control, each block a
+  strided view; the tied embedding and every other leaf past
+  gridDim.y's 65,535 tiles in one launch), kernel vs plain route, bf16
+  transmit, the card vs the CPU on the reduced tree, gbma's slot timed
+  (wall, K1 alone against its bound, the draw alone, peak memory),
+  `GBMASimulator` (300 K1 launches) and the three baselines at fig3's
+  point, and `shard_map_aggregate` over NCCL at world size 1;
 * serving (`Engine.generate`: prefill, then decode) through the
   flash-attention kernels: olmo-1b at full width and depth in bf16 (the
   Hopper kernel: wgmma fed by TMA) at a 32- and a 2048-token prompt, and
@@ -423,6 +434,43 @@ def check_kernel_vs_plain() -> dict:
         if not same:
             raise AssertionError("an antenna differs from a single-antenna "
                                  "launch")
+    # a column block of a leaf whose rows lie 7e7 elements apart: a step of
+    # kUnroll nodes of a node group (4 or 8 of them, 8 rows each) passes
+    # 2^31 elements at N = 64, so the node offsets must be 64-bit; the
+    # leaf outside the block is NaN, which a wrapped address would read
+    size, lo, hi = 70_000_000, 70_000_000 - 4098, 70_000_000 - 2
+    for m in (None, 8):
+        full = torch.full((64, size), float("nan"), dtype=torch.bfloat16,
+                          device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(64)
+        full[:, lo:hi] = torch.randn((64, hi - lo), generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+        g = full[None, :, lo:hi]
+        h = torch.rand((1, 64) if m is None else (1, m, 64), generator=gen,
+                       device="cuda")
+        w = torch.randn(h.shape[:-1] + (hi - lo,), generator=gen,
+                        device="cuda")
+        out = ota_edge_aggregate(g, h, w, noise_scale=0.37, impl="kernel",
+                                 out_dtype=torch.float32)
+        dense = g.contiguous()
+        del full
+        same = torch.equal(out, ota_edge_aggregate(
+            dense, h, w, noise_scale=0.37, impl="kernel",
+            out_dtype=torch.float32))
+        ref = ota_edge_aggregate_ref(dense, h, w, noise_scale=0.37,
+                                     out_dtype=torch.float32)
+        err = (out.double() - ref.double()).abs()
+        ok = same and bool(torch.all(
+            err <= 1e-6 + 1e-5 * ref.double().abs()))
+        log(f"kernel-vs-plain row stride {size:,} (B=1, "
+            f"{'' if m is None else f'M={m}, '}N=64, d={hi - lo}, bf16 "
+            f"in, f32 out): == a contiguous copy {same}, max_abs_err="
+            f"{err.max().item():.3e} atol=1e-06 rtol=1e-05 "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the OTA kernel misreads rows 7e7 apart")
+        del dense, out, ref, err
+        torch.cuda.empty_cache()
     # main-path launches: gradients of mean 1 make v ~ 0.8, so a divisor
     # off by one node (N - 1) errs by v/N >= 2e-4 against a bar of ~9e-6
     errs = {}
@@ -1677,6 +1725,420 @@ def run_serve_mc(ops) -> tuple:
     return launches, record
 
 
+# ---------------------------------------------------------------- transport
+# the "transport" phase (M7): the reference launcher's defaults
+# (src/repro/launch/train.py:37-48): repro-100m's parameter tree, N = 8
+# nodes, Rayleigh fading, sigma_w = 0.01, E_N = 1; the reference tests'
+# algorithm settings (tests/test_transport.py:44-55: gamma 0.9, budget
+# 2.0) with M = 4 edge antennas for the blind family
+TRANSPORT_ARCH = "repro-100m"
+TRANSPORT_NODES = 8
+TRANSPORT_NOISE_STD = 0.01
+TRANSPORT_ANTENNAS = 4
+TRANSPORT_BUDGET = 2.0
+TRANSPORT_BLOCK_D = 2**20
+# K1's route bar (kernel against the plain route): atol + rtol * |v|
+TRANSPORT_ROUTE_BAR = (1e-6, 1e-5)
+# tier (i) and the baselines at fig3's operating point
+TRANSPORT_SIM = {"n": 500, "dim": 90, "steps": 300}
+
+
+def transport_cfg(algo: str, **kw):
+    """The phase's TransportConfig for `algo` (module constants above)."""
+    from repro_torch.core import transport
+    from repro_torch.core.channel import ChannelConfig
+
+    spec = transport.resolve(algo)
+    extra = {"n_antennas": TRANSPORT_ANTENNAS} if spec.blind else {}
+    if spec.error_feedback:
+        extra["power_budget"] = TRANSPORT_BUDGET
+    return transport.TransportConfig(
+        n_nodes=TRANSPORT_NODES, channel=ChannelConfig(
+            fading="rayleigh", noise_std=TRANSPORT_NOISE_STD, energy=1.0),
+        gamma=0.9, **extra, **kw)
+
+
+def transport_tree(arch_cfg, device: str, seed: int = 0) -> tuple:
+    """(the model's parameter tree, per-node gradients (N, *leaf.shape)
+    from a generator seeded `seed` on `device`): there are no real
+    gradients before the training substrate (T1-T3)."""
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.model import build_model
+
+    params = build_model(arch_cfg).init_params(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    grads = tree_map(lambda p: torch.randn(
+        (TRANSPORT_NODES,) + tuple(p.shape), generator=gen, device=device),
+        params)
+    return params, grads
+
+
+def _tree_err(out, ref, atol: float, rtol: float) -> tuple:
+    """(max |out - ref| over the trees' leaves, whether every element is
+    within atol + rtol·|ref|)."""
+    from repro_torch.core.tree import tree_leaves
+
+    err, ok = 0.0, True
+    for o, r in zip(tree_leaves(out), tree_leaves(ref)):
+        diff = (o.double() - r.double()).abs()
+        err = max(err, diff.max().item())
+        ok = ok and bool((diff <= atol + rtol * r.double().abs()).all())
+    return err, ok
+
+
+def _tree_rel_to_max(out, ref) -> float:
+    """max over leaves of max |out - ref| / max |ref| (ref on any
+    device)."""
+    from repro_torch.core.tree import tree_leaves
+
+    return max(((o.double().cpu() - r.double().cpu()).abs().max()
+                / r.double().abs().max().clamp_min(1e-30)).item()
+               for o, r in zip(tree_leaves(out), tree_leaves(ref)))
+
+
+def _slot(algo, grads, params, key, cfg):
+    """One `transport.aggregate` slot from a fresh state."""
+    from repro_torch.core import transport
+
+    state = transport.init_state(algo, params, cfg) \
+        if transport.has_state(algo) else None
+    return transport.aggregate(algo, grads, key, cfg, state)
+
+
+def _peak_mib(fn):
+    """(fn(), its peak device memory over what was allocated before, MiB).
+    Garbage is collected first: memory freed late, inside `fn`, would
+    let its peak read low."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _plain_simulator(gbma, grad_fn, ch, theta0, steps: int, key):
+    """`GBMASimulator(grad_fn, ch, 1.0).run` with each slot's
+    superposition on the plain route (`ota_aggregate(use_kernel=False)`):
+    the same keys, the same loop."""
+    import torch
+
+    from repro_torch.core import rng
+
+    keys = rng.split(key, steps)
+    theta, traj = theta0, [theta0]
+    for k in range(steps):
+        theta = theta - gbma.ota_aggregate(grad_fn(theta), keys[k], ch,
+                                           use_kernel=False)
+        traj.append(theta)
+    return torch.stack(traj)
+
+
+def run_transport(ops) -> tuple:
+    """The channel-transport substrate (`core.transport`, `core.gbma`,
+    `core.baselines`) on the card, at repro-100m's full width:
+
+    (a) every registered algorithm through `transport.aggregate`, one slot
+        each from a fresh state: the default route (K1 for the gbma
+        family and power_control: one launch per block) against the plain
+        route (`ota_impl='ref'`) at K1's bar; tiled (block_d = 2^20) and
+        FULL_CONCAT against untiled within 1e-6; `tx_energy` rtol 1e-5;
+        gbma with bf16 transmit (f32 out, a bf16-sized step off f32,
+        the kernel within K1's bar of the plain route on the same bf16
+        blocks);
+        each variant's peak device memory beside the card's;
+    (b) every algorithm on the reduced repro-100m tree on the card and on
+        the CPU, within 1e-5 of each leaf's largest |v|;
+    (c) gbma at full width untiled, tiled and with bf16 transmit: ms per
+        slot (host clock), K1 launches per slot, K1's bare launches over
+        the slot's blocks (CUDA events) beside its byte bound, the
+        draw's ms alone, peak memory; the plain route's and (f32) one
+        addmm's ms over the same blocks;
+    (d) `GBMASimulator` (one K1 launch a step) and the three baselines
+        at fig3's operating point (N = 500, d = 90, 300 steps, Rayleigh)
+        on a least-squares problem: finite trajectories, the simulator's
+        kernel route within 1e-5 of the largest |theta| of its plain
+        route;
+    (e) `shard_map_aggregate` under NCCL at world size 1 (tcp on
+        127.0.0.1): equal to h·g/N + the edge noise within K1's bar.
+
+    Returns (K1 launches of the main-path slots, the record)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import baselines, gbma, rng, transport
+    from repro_torch.core.channel import ChannelConfig, sample_gains
+    from repro_torch.core.mc.slots import ALGO_REGISTRY
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.ota import kernel
+    from repro_torch.kernels.ota.ref import ota_edge_aggregate_ref
+
+    t_phase = time.perf_counter()
+    record, launches = {}, {}
+    total_mib = torch.cuda.get_device_properties(0).total_memory / 2**20
+    arch = get_config(TRANSPORT_ARCH)
+    params, grads = transport_tree(arch, "cuda")
+    sizes = [p.numel() for p in tree_leaves(params)]
+    n_params = sum(sizes)
+    n_blocks = len(transport._block_ranges(sizes, TRANSPORT_BLOCK_D))
+    log(f"transport: {TRANSPORT_ARCH} at full width, {n_params:,} f32 "
+        f"parameters in {len(sizes)} leaves (largest {max(sizes):,} "
+        f"columns), N = {TRANSPORT_NODES} nodes, {n_blocks} blocks of <= "
+        f"{TRANSPORT_BLOCK_D:,} columns; the card holds {total_mib:.0f} MiB")
+    key = rng.key(3, "cuda")
+
+    # (a) every algorithm, one slot each
+    ota_algos = ("gbma", "momentum", "nesterov", "power_control")
+    rows = {}
+    ops.launch_count = 0
+    for algo in ALGO_REGISTRY:
+        k1 = algo in ota_algos
+        row = {}
+        runs = {}
+        variants = [("untiled", {}), ("tiled", {"block_d": TRANSPORT_BLOCK_D}),
+                    ("full concat", {"block_d": transport.FULL_CONCAT})]
+        if algo == "gbma":
+            variants.append(("bf16 transmit", {"transmit_dtype": "bfloat16"}))
+        for label, kw in variants:
+            before = ops.launch_count
+            runs[label], mib = _peak_mib(lambda: _slot(
+                algo, grads, params, key, transport_cfg(algo, **kw)))
+            n_k1 = ops.launch_count - before
+            want = 0 if not k1 else {"untiled": len(sizes),
+                                     "tiled": n_blocks, "full concat": 1,
+                                     "bf16 transmit": len(sizes)}[label]
+            row[label] = {"k1_launches": n_k1, "peak_mib": mib}
+            if n_k1 != want:
+                raise AssertionError(f"transport (a) {algo} {label}: {n_k1} "
+                                     f"K1 launches, expected {want}")
+        torch.cuda.synchronize()
+        v, st, aux = runs["untiled"]
+        energy = float(aux["tx_energy"])
+        checks = {}
+        if k1:  # the plain route on the card
+            ref, mib = _peak_mib(lambda: _slot(
+                algo, grads, params, key, transport_cfg(algo,
+                                                        ota_impl="ref")))
+            checks["kernel vs plain route"] = _tree_err(
+                v, ref[0], *TRANSPORT_ROUTE_BAR)
+            row["plain route"] = {"peak_mib": mib}
+            del ref
+        for label in ("tiled", "full concat"):
+            checks[f"{label} vs untiled"] = _tree_err(runs[label][0], v,
+                                                      1e-6, 0.0)
+            e = float(runs[label][2]["tx_energy"])
+            checks[f"{label} tx_energy"] = (
+                abs(e - energy) / energy, abs(e - energy) <= 1e-5 * energy)
+            if st is not None and "e" in st:
+                checks[f"{label} residual"] = _tree_err(
+                    runs[label][1]["e"], st["e"], 1e-6, 0.0)
+        if algo == "gbma":  # bf16 transmit: K1 on bf16 blocks, f32 sums
+            ref = _slot(algo, grads, params, key, transport_cfg(
+                algo, transmit_dtype="bfloat16", ota_impl="ref"))
+            checks["bf16 transmit: kernel vs plain route"] = _tree_err(
+                runs["bf16 transmit"][0], ref[0], *TRANSPORT_ROUTE_BAR)
+            del ref
+            bf = tree_leaves(runs["bf16 transmit"][0])
+            dev = _tree_err(runs["bf16 transmit"][0], v, 0.0, 0.0)[0]
+            checks["bf16 transmit: f32 out, 0 < |dv| < 0.05"] = (
+                dev, all(x.dtype == torch.float32 for x in bf)
+                and 0.0 < dev < 0.05)
+        finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(v))
+        checks["finite"] = (0.0, finite)
+        row["checks"] = {k: {"value": c[0], "ok": c[1]}
+                         for k, c in checks.items()}
+        row["tx_energy"] = energy
+        log(f"transport (a) {algo}: {json.dumps(row)}")
+        if not all(c[1] for c in checks.values()):
+            raise AssertionError(f"transport (a) {algo}: a check failed")
+        rows[algo] = row
+        del runs, v, st
+        torch.cuda.empty_cache()
+    launches["transport (a) full width"] = ops.launch_count
+    record["(a)"] = rows
+
+    # (b) the card against the CPU on the reduced tree
+    small_params, small = transport_tree(arch.reduced(), "cpu", seed=1)
+    small_cuda = tree_map(lambda g: g.to("cuda"), small)
+    small_params_cuda = tree_map(lambda p: p.to("cuda"), small_params)
+    rels, card_launches = {}, 0
+    for algo in ALGO_REGISTRY:
+        cfg = transport_cfg(algo)
+        ops.launch_count = 0
+        card, _, card_aux = _slot(algo, small_cuda, small_params_cuda, key,
+                                  cfg)
+        card_launches += ops.launch_count
+        cpu, _, cpu_aux = _slot(algo, small, small_params, key.cpu(), cfg)
+        rels[algo] = max(_tree_rel_to_max(card, cpu), abs(
+            float(card_aux["tx_energy"]) / float(cpu_aux["tx_energy"]) - 1))
+    launches["transport (b) reduced"] = card_launches
+    small_n = sum(x.numel() for x in tree_leaves(small_params))
+    log(f"transport (b) card vs CPU on the reduced tree ({small_n:,} "
+        f"parameters), max |card - cpu| / max |cpu| per algorithm (bar "
+        f"1e-5): {json.dumps(rels)}; {card_launches} K1 launches")
+    if card_launches != 4 * len(tree_leaves(small_params)) \
+            or not all(r <= 1e-5 for r in rels.values()):
+        raise AssertionError("transport (b): the card disagrees with the "
+                             "CPU or K1 was not launched per leaf")
+    record["(b)"] = {"parameters": small_n, "rel_to_max": rels}
+    del small_cuda, small_params_cuda
+
+    # (c) gbma's slot at full width: wall, K1 alone, the draw alone
+    spec = transport.resolve("gbma")
+    timing = {}
+    for label, kw, g_bytes in (
+            ("untiled", {}, 4),
+            ("tiled", {"block_d": TRANSPORT_BLOCK_D}, 4),
+            ("bf16 transmit", {"transmit_dtype": "bfloat16"}, 2)):
+        cfg = transport_cfg("gbma", **kw)
+        slot = lambda: transport.aggregate("gbma", grads, key, cfg)
+        ops.launch_count = 0
+        _, mib = _peak_mib(slot)
+        per_slot = ops.launch_count
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            slot()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        ctx = transport.make_ctx(cfg, spec, "cuda")
+        draw_ms = cuda_ms(lambda: spec.hoist_draws(
+            key[None, None], ctx, TRANSPORT_NODES, n_params), reps, warmup=1)
+        # K1's bare launches over the slot's blocks on prepared operands
+        dtype = torch.bfloat16 if g_bytes == 2 else torch.float32
+        flat = [g.reshape(TRANSPORT_NODES, -1).to(dtype)
+                for g in tree_leaves(grads)]
+        h = torch.rand((1, TRANSPORT_NODES), device="cuda")
+        w = torch.randn((1, n_params), device="cuda")
+        out = torch.empty((1, n_params), device="cuda")
+        blocks = [(flat[li][None, :, lo:hi], w[:, off + lo:off + hi],
+                   out[:, off + lo:off + hi])
+                  for li, lo, hi, off in transport._block_ranges(
+                      [f.shape[1] for f in flat], cfg.block_d)]
+        k1_ms = cuda_ms(lambda: [kernel.launch(gv, h, wv, ov)
+                                 for gv, wv, ov in blocks], reps)
+        plain_ms = cuda_ms(lambda: [ota_edge_aggregate_ref(
+            gv, h, wv, noise_scale=1.0, out_dtype=torch.float32)
+            for gv, wv, _ in blocks], reps)
+        # one addmm a block, w + (1/N)·h@g; none takes bf16 g and f32 h
+        lib_ms = None if g_bytes == 2 else cuda_ms(lambda: [torch.addmm(
+            wv, h, gv[0], alpha=1.0 / TRANSPORT_NODES)
+            for gv, wv, _ in blocks], reps)
+        bound = sum(ota_bound(1, TRANSPORT_NODES, gv.shape[2],
+                              g_bytes=g_bytes)[0] for gv, _, _ in blocks)
+        timing[label] = {
+            "ms_per_slot": wall_ms, "k1_launches_per_slot": per_slot,
+            "k1_ms": k1_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "k1_bound_ms": bound, "k1_bound_by": "bytes",
+            "draw_ms": draw_ms, "peak_mib": mib, "card_mib": total_mib}
+        log(f"transport (c) gbma {label}: {wall_ms:.3f} ms per slot (host "
+            f"clock), {per_slot} K1 launches; K1 alone {k1_ms:.4f} ms "
+            f"against its {bound:.4f} ms bound (bytes: N·D·{g_bytes} + "
+            f"2·D·4 + gains), {bound / k1_ms:.1%} of it; plain route "
+            f"{plain_ms:.4f} ms, addmm "
+            f"{'n/a (bf16)' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+            f"the draw alone "
+            f"{draw_ms:.3f} ms; peak {mib:.0f} MiB of the card's "
+            f"{total_mib:.0f}")
+        del flat, w, out, blocks
+        torch.cuda.empty_cache()
+    record["(c)"] = timing
+
+    # (d) tier (i) and the baselines at fig3's operating point
+    n, d, steps = (TRANSPORT_SIM[k] for k in ("n", "dim", "steps"))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    X = torch.randn((n, d), generator=gen, device="cuda") / math.sqrt(d)
+    y = X @ torch.randn((d,), generator=gen, device="cuda")
+    grad_fn = lambda th: (X @ th - y)[:, None] * X + 0.1 * th[None, :]
+    ch = ChannelConfig(fading="rayleigh", noise_std=TRANSPORT_NOISE_STD)
+    theta0 = torch.zeros((d,), device="cuda")
+    sim_key = rng.key(5, "cuda")
+    runs = {
+        "GBMASimulator": lambda: gbma.GBMASimulator(grad_fn, ch, 1.0).run(
+            theta0, steps, sim_key),
+        "GBMASimulator plain route": lambda: _plain_simulator(
+            gbma, grad_fn, ch, theta0, steps, sim_key),
+        "CentralizedGD": lambda: baselines.CentralizedGD(grad_fn, 1.0).run(
+            theta0, steps),
+        "FDMGD": lambda: baselines.FDMGD(grad_fn, ch, 1.0).run(
+            theta0, steps, sim_key),
+        "PowerControlOTA": lambda: baselines.PowerControlOTA(
+            grad_fn, ch, 1.0).run(theta0, steps, sim_key)}
+    trajs, sim = {}, {}
+    for name, run in runs.items():
+        ops.launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trajs[name] = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        traj = trajs[name]
+        sim[name] = {"k1_launches": ops.launch_count, "wall_s": wall,
+                     "finite": bool(torch.isfinite(traj).all()),
+                     "shape": list(traj.shape),
+                     "final_dist": (traj[-1] - traj[0]).norm().item()}
+        if name == "GBMASimulator":
+            launches["transport (d) GBMASimulator"] = ops.launch_count
+    err = (trajs["GBMASimulator"] - trajs["GBMASimulator plain route"]) \
+        .abs().max().item()
+    scale = trajs["GBMASimulator plain route"].abs().max().item()
+    log(f"transport (d) at N = {n}, d = {d}, {steps} steps, Rayleigh: "
+        f"{json.dumps(sim)}; simulator kernel vs plain route max |dtheta| "
+        f"{err:.3e} (bar 1e-5 x {scale:.3f})")
+    want = {"GBMASimulator": steps}
+    if any(not s["finite"] or s["shape"] != [steps + 1, d]
+           or s["k1_launches"] != want.get(k, 0) for k, s in sim.items()) \
+            or not err <= 1e-5 * scale:
+        raise AssertionError("transport (d): a trajectory failed")
+    record["(d)"] = {**sim, "route_err": err}
+    del trajs
+
+    # (e) tier (iii) over NCCL at world size 1
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        gcfg = gbma.GBMAConfig(n_nodes=TRANSPORT_NODES, channel=ch)
+        local = tree_map(lambda g: g[0], grads)
+        k_h, k_w = rng.split(key)
+        gain = sample_gains(k_h, ch, (1,))[0]
+        t0 = time.perf_counter()
+        v = gbma.shard_map_aggregate(local, gain, k_w, gcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = gbma.perturb_gradients(tree_map(
+            lambda g: g * gain / TRANSPORT_NODES, local), k_w, gcfg)
+        err, ok = _tree_err(v, want, *TRANSPORT_ROUTE_BAR)
+    finally:
+        dist.destroy_process_group()
+    log(f"transport (e) shard_map_aggregate, NCCL at world size 1, "
+        f"{n_params:,} parameters: {wall * 1e3:.2f} ms, max |v - (h g / N "
+        f"+ w)| = {err:.3e} (bar {TRANSPORT_ROUTE_BAR[0]} + "
+        f"{TRANSPORT_ROUTE_BAR[1]}·|v|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("transport (e): shard_map_aggregate differs")
+    record["(e)"] = {"ms": wall * 1e3, "max_abs_err": err}
+    del params, grads, local, v, want
+    torch.cuda.empty_cache()
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"transport: phase {record['phase_s']:.1f} s, K1 launches "
+        f"{json.dumps(launches)}")
+    return launches, record
+
+
 # ---------------------------------------------------------------- serving
 def build_kernels() -> tuple:
     """Build every CUDA source at once (one nvcc each) and print what
@@ -2665,6 +3127,11 @@ def main() -> int:
     mc_launches.update(serve_mc_launches)
     elapsed('serve mc')
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    transport_launches, transport_record = run_transport(ops)
+    mc_launches.update(transport_launches)
+    elapsed('transport')
+    torch.cuda.synchronize()
     prof = step_profile({**_base_profile_cases(),
                          **_new_path_profile_cases()})
     elapsed('the step profile')
@@ -2717,7 +3184,7 @@ def main() -> int:
         "large_sweep_ms_per_step": sweep_step_s * 1e3,
         "large_mrc_ms_per_step": mrc_step_s * 1e3,
         "step_breakdown": breakdown, "exec_plans": exec_record,
-        "serve_mc": serve_mc_record,
+        "serve_mc": serve_mc_record, "transport": transport_record,
         "build": ota_build,
         "padded": next(r for r in timings if r["launch"] == "fig3 (a)"),
         "large_mrc": next(r for r in timings if r["launch"] == "large mrc"),

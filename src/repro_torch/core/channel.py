@@ -9,8 +9,9 @@ Nodes apply phase correction ``e^{-j phi_{n,k}}``; with a residual phase error
 
 Port of `repro.core.channel`: `ChannelConfig`, `edge_noise_std` and
 `received_snr_db` are the reference's pure-Python code, copied as is;
-`sample_gains` draws from the port's threefry through the engine's
-sampler, so a fixed key gives the reference's gains.
+`sample_gains` and `sample_complex_gains` draw from the port's threefry
+through the engine's sampler, so a fixed key gives the reference's
+gains.
 """
 from __future__ import annotations
 
@@ -144,12 +145,39 @@ def sample_gains(key: torch.Tensor, cfg: ChannelConfig,
 
     lead = key.shape[:-1]
     keys = key.reshape(-1, 2)
-    p = {name: torch.full((keys.shape[0],), float(getattr(cfg, name)),
-                          dtype=torch.float32, device=key.device)
-         for name in ("scale", "rician_k", "phase_error_max")}
+    p = _cfg_params(cfg, keys, ("scale", "rician_k", "phase_error_max"))
     h = _sample_gains(keys, cfg.fading, p, tuple(shape),
                       phase_zero=cfg.phase_error_max <= 0.0)
     return h.reshape(lead + tuple(shape))
+
+
+def _cfg_params(cfg: ChannelConfig, keys: torch.Tensor, names) -> dict:
+    """The config's scalars as the engine's per-trajectory `(B,)` f32
+    params, one per key of `keys (B, 2)`."""
+    return {name: torch.full((keys.shape[0],), float(getattr(cfg, name)),
+                             dtype=torch.float32, device=keys.device)
+            for name in names}
+
+
+def sample_complex_gains(key: torch.Tensor, cfg: ChannelConfig,
+                         shape: tuple) -> tuple:
+    """Complex channel gains h~ = h e^{jφ} as (real, imag) f32 parts.
+
+    The blind-transmitter setting: nodes apply NO phase correction, so the
+    full uniform phase φ ~ Unif[-π, π) survives (vs `sample_gains`, whose
+    residual phase error is bounded by `phase_error_max`). The magnitude
+    takes the same key half as `sample_gains`, so the magnitudes coincide
+    for a fixed key. `key` is `(..., 2)`; each part comes out
+    `(..., *shape)`. Twin of `repro.core.channel.sample_complex_gains`
+    through the engine's sampler (`_sample_complex_gains`)."""
+    from repro_torch.core.mc.sampling import _sample_complex_gains
+
+    lead = key.shape[:-1]
+    keys = key.reshape(-1, 2)
+    a, b = _sample_complex_gains(
+        keys, cfg.fading, _cfg_params(cfg, keys, ("scale", "rician_k")),
+        tuple(shape))
+    return (a.reshape(lead + tuple(shape)), b.reshape(lead + tuple(shape)))
 
 
 def edge_noise_std(cfg: ChannelConfig, n_nodes: int) -> float:

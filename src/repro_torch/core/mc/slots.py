@@ -37,6 +37,11 @@ same streams, so the port has neither.
 
 Registered: `gbma` (single antenna and MRC), `centralized`, `fdm`,
 `power_control`, `momentum`, `nesterov`, `blind` and `blind_ec`.
+
+`slot_update_block` runs a slot on one column block of the transmitted
+matrix with that block's columns of the full-d draws (`slice_draws`):
+the channel-transport layer (`repro_torch.core.transport`) tiles a
+gradient tree with it.
 """
 from __future__ import annotations
 
@@ -375,6 +380,9 @@ def _blind_slot(g: torch.Tensor, key: torch.Tensor,
     p = ctx.p
     b, n, d = g.shape
     m = ctx.m_max
+    # bf16 blocks (the transport's bf16 transmit) combine in f32, as the
+    # reference's einsum promotes them
+    g = g.to(torch.promote_types(g.dtype, torch.float32))
     draws = ctx.draws if ctx.draws is not None \
         else _blind_draw(key, ctx, n, d)
     re, im = draws["a"].view(b, m, n), draws["b"].view(b, m, n)
@@ -505,3 +513,48 @@ def hoist_draw_elems(name: str, *, steps: int, n_max: int, dim: int,
         return steps * n_max * (dim + (0 if invert_channel else 1))
     # gbma family / power_control: gains + edge noise
     return steps * m_live * (n_max + dim)
+
+
+# --------------------------------------------------------------------------
+# block-shaped entry point (the channel-transport layer's tiling surface)
+# --------------------------------------------------------------------------
+# the draw dicts' d-carrying streams: each ends in an axis of length d and
+# is sliced per column block; the other streams ('h', 'a', 'b') are per
+# node or antenna and every block of a slot shares them
+_DRAW_D_KEYS = ("w", "z", "noise_raw")
+
+
+def slice_draws(draws: Optional[dict], lo: int, hi: int) -> Optional[dict]:
+    """Column block [lo, hi) of one slot's draw dict (views, no copies).
+
+    Slicing the d-carrying streams ('w' `(B, d)` or `(B·M, d)`, 'z'
+    `(B·M, 2, d)`, 'noise_raw' `(B, N, d)`) on their last axis and passing
+    the per-node streams whole keeps a block-tiled slot value-identical to
+    the untiled one: every slot computation is per coordinate given its
+    draws, so coordinate c of the update depends only on column c of g
+    and of the d-carrying draws. The draws match bit for bit; the node
+    superposition's f32 sum may be taken in another order per block
+    shape, a few ulps."""
+    if draws is None:
+        return None
+    return {k: (v[..., lo:hi] if k in _DRAW_D_KEYS else v)
+            for k, v in draws.items()}
+
+
+def slot_update_block(algo: str, g: torch.Tensor, key: torch.Tensor,
+                      ctx: SlotCtx, lo: int, hi: int) -> torch.Tensor:
+    """One column block of a slot update: `g` is the `(B, N, hi - lo)`
+    block of the transmitted vectors (a view of a wider matrix is taken as
+    it is), `ctx.draws` the FULL-d draw dict, sliced here. An algorithm
+    that draws needs its draws made beforehand: drawing from the slot key
+    in each block would repeat the key's streams across blocks (noise
+    correlated between blocks, and tiled no longer equal to untiled).
+    `repro_torch.core.transport` makes them."""
+    spec = ALGO_REGISTRY[algo]
+    if ctx.draws is None and spec.hoist_draws is not None:
+        raise ValueError(
+            f"slot_update_block({algo!r}) needs pre-materialized draws "
+            "(ctx.draws): per-block in-slot draws would reuse the slot key "
+            "across blocks")
+    ctx_blk = dataclasses.replace(ctx, draws=slice_draws(ctx.draws, lo, hi))
+    return spec.slot_fn(g, key, ctx_blk)

@@ -42,6 +42,12 @@ _KS_PARITY = 0x1BD11BDA
 _F32_ONE_BITS = int(np.float32(1.0).view(np.uint32))
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+# bf16 constants of JAX's bf16 normal: 1.0's bits, nextafter(-1, 0) and
+# sqrt(2), each exactly representable in bf16
+_BF16_ONE_BITS = 0x3F80
+_BF16_NORMAL_LO = -(1.0 - 2.0**-8)
+_BF16_NORMAL_SPAN = 2.0  # 1 - lo = 1.99609375, rounded to bf16
+_SQRT2_BF16 = 1.4140625
 # Giles' erfinv coefficients as XLA's f32 erf_inv uses them, Horner order;
 # row 0 serves w = -log1p(-x^2) >= 5 (the tails), row 1 w < 5
 _ERFINV_COEFFS = (
@@ -53,6 +59,11 @@ _ERFINV_COEFFS = (
 )
 
 Shape = Union[int, Sequence[int]]
+
+# counter pairs per key an f32 normal draw hashes in one pass
+# (`_normal_f32`): 2^25 normals a key, far above any of the Monte Carlo
+# engine's draws, at the width of a model's parameters
+NORMAL_PASS = 1 << 24
 
 
 def _shape(shape: Shape) -> tuple:
@@ -242,6 +253,72 @@ def uniform(k: torch.Tensor, shape: Shape, minval=0.0,
     return u01_to_uniform(bits_to_u01(random_bits(k, shape)), minval, maxval)
 
 
-def normal(k: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """`jax.random.normal(k, shape)` in float32."""
-    return u01_to_normal(bits_to_u01(random_bits(k, shape)))
+def _bf16_normal(k: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """`jax.random.normal(k, shape, dtype=bfloat16)`, bit for bit.
+
+    JAX draws a bf16 uniform from 8 random bits an element (bf16 has 7
+    mantissa bits, fewer than 8): the `ceil(n / 4)` words of
+    `random_bits` split into their bytes, low byte first. The byte
+    shifted right by 1 is the mantissa of a bf16 in [1, 2); minus 1,
+    times (1 - lo) and plus lo, all in bf16, gives u in [lo, 1) with lo =
+    nextafter(-1, 0) in bf16 (-0.99609375; the span rounds to 2). XLA's
+    erf_inv takes bf16 through f32 and rounds back, and the product with
+    sqrt(2) rounds again in bf16: 128 values in all."""
+    n = math.prod(shape)
+    words = _counter_bits(k, (n + 3) // 4)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=k.device)
+    byte = ((words[..., None] >> shifts) & 0xFF).flatten(-2)[..., :n]
+    fb = ((byte >> 1) | _BF16_ONE_BITS).to(torch.int16).view(torch.bfloat16)
+    # each step exact in bf16, as JAX's bf16 ops round it
+    u = ((fb - 1.0) * _BF16_NORMAL_SPAN + _BF16_NORMAL_LO).clamp_min(
+        _BF16_NORMAL_LO)
+    e = erfinv_f32(u.to(torch.float32)).to(torch.bfloat16)
+    return (e * _SQRT2_BF16).reshape(k.shape[:-1] + shape)
+
+
+def _normal_f32(k: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """`jax.random.normal(k, shape)` in float32, `NORMAL_PASS` counter
+    pairs at a time: each pass hashes its counters (i, i + m), as
+    `_counter_bits` does, and turns the two words of each pair into the
+    normals at positions i and i + m. The chain from hash to normal holds
+    ~47 bytes an element while it runs, so a whole-model draw (the
+    transport's edge noise of N·D elements) would need tens of GB at
+    once; in passes it needs the output and one pass's scratch. A draw of
+    one pass (every draw of the Monte Carlo engine) is the one chain of
+    `random_bits`, returned as it is."""
+    n = math.prod(shape)
+    m = (n + 1) // 2
+    batch = k.shape[:-1]
+    out = None
+    for c0 in range(0, max(m, 1), NORMAL_PASS):  # n = 0: one empty pass
+        c1 = min(c0 + NORMAL_PASS, m)
+        i = torch.arange(c0, c1, dtype=torch.int64, device=k.device)
+        x1 = i + m
+        if n % 2 and c1 == m:
+            # the odd pad slot, as in `_counter_bits`
+            x1[-1:].fill_(0)
+        o0, o1 = threefry2x32(k[..., 0:1], k[..., 1:2], i, x1)
+        hi = min(m + c1, n)  # the second words' last position + 1
+        z = u01_to_normal(bits_to_u01(torch.cat(
+            [o0, o1[..., :hi - m - c0]], dim=-1)))
+        if c1 - c0 == m:  # one pass: z is the whole draw
+            return z.reshape(batch + shape)
+        if out is None:
+            out = torch.empty(batch + (n,), dtype=torch.float32,
+                              device=k.device)
+        out[..., c0:c1] = z[..., :c1 - c0]
+        out[..., m + c0:hi] = z[..., c1 - c0:]
+    return out.reshape(batch + shape)
+
+
+def normal(k: torch.Tensor, shape: Shape,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`jax.random.normal(k, shape, dtype)`: float32 (`_normal_f32`), or
+    bfloat16 bit for bit through JAX's 8-bit path (`_bf16_normal`), not
+    the f32 normal rounded down."""
+    shape = _shape(shape)
+    if dtype == torch.bfloat16:
+        return _bf16_normal(k, shape)
+    if dtype != torch.float32:
+        raise ValueError(f"normal draws float32 or bfloat16, got {dtype}")
+    return _normal_f32(k, shape)

@@ -57,7 +57,15 @@
 //     pointer read at the top, ptxas scheduled the node loop's loads
 //     differently, 1-4 % slower on an H100: tools/ota_counts_ab.py);
 //   * the kernel masks ragged N, d and M itself (the wrapper does not pad,
-//     where the TPU wrapper padded to (8, 128) tiles).
+//     where the TPU wrapper padded to (8, 128) tiles);
+//   * g is read through its batch and row strides (unit column stride), so
+//     the channel-transport layer's column blocks of a wider leaf, views
+//     whose rows lie `size` apart, go in without a copy; a launch on a
+//     contiguous g computes exactly the addresses of the kernel before;
+//   * the column tiles run over gridDim.y x gridDim.z (y <= 65,535), so one
+//     launch takes a leaf as wide as a tied embedding (20,480,000 columns)
+//     or a whole model (~112 M); below 65,536 tiles gridDim.z is 1 and the
+//     grid is the kernel's before. Each column's arithmetic is unchanged.
 // Times on an NVIDIA H100 80GB HBM3 at 700.00 W (tools/ota_antennas_ab.py,
 // bare launches in turns against the kernel before, which ran one block per
 // (b, m, 32 columns), so each of a trajectory's M blocks streamed g[b] from
@@ -83,6 +91,7 @@ namespace {
 constexpr int kGroups = 8;       // node groups per block (power of two)
 constexpr int kMaxLanes = 32;    // column lanes per group
 constexpr int kMaxThreads = kGroups * kMaxLanes;
+constexpr int kMaxGridY = 65535;  // gridDim.y's limit; tiles past it take z
 
 // Staged gains of a chunk: hs[j * stride + a] for node j of the pass and
 // antenna a. The rows of 8 are whole 16 bytes (LDS.128), padded to 12
@@ -178,7 +187,8 @@ __global__ void __launch_bounds__(kMaxThreads, Tune<GT, kChunk>::kMinBlocks)
                          const float* __restrict__ w,
                          const float* __restrict__ n_true,
                          OT* __restrict__ out, int n_nodes, int dim,
-                         int n_ant, int n_chunks, int tile_lanes, int h_vec4,
+                         long long g_bstride, long long g_ld, int n_ant,
+                         int n_chunks, int tile_lanes, int h_vec4,
                          float n_static) {
   using St = Stage<kChunk>;
   constexpr int kS = St::kStride;
@@ -189,9 +199,12 @@ __global__ void __launch_bounds__(kMaxThreads, Tune<GT, kChunk>::kMinBlocks)
   const int n_valid = min(kChunk, n_ant - m0);  // antennas of this chunk
   const int grp = threadIdx.x / tile_lanes;     // >= kGroups: padding
   const int lane = threadIdx.x % tile_lanes;
-  const int col = (blockIdx.y * tile_lanes + lane) * kVec;
-  const bool active = grp < kGroups && col < dim;
-  const int g_step = kGroups * dim;  // a group's next node
+  const int tile = blockIdx.y + gridDim.y * blockIdx.z;
+  const int col = (tile * tile_lanes + lane) * kVec;
+  const bool active = grp < kGroups && col < dim;  // tiles past d idle
+  // a group's next node, in 64 bits: kUnroll of these pass 2^31 elements
+  // once a row holds 2^26 columns
+  const long long g_step = kGroups * g_ld;
 
   float acc[kChunk][kVec];
 #pragma unroll
@@ -230,8 +243,8 @@ __global__ void __launch_bounds__(kMaxThreads, Tune<GT, kChunk>::kMinBlocks)
     if (active) {
       // this group's nodes of the pass: j = grp, grp + 8, ... < len
       const int cnt = grp < len ? (len - grp + kGroups - 1) / kGroups : 0;
-      const GT* gp =
-          g + (static_cast<size_t>(b) * n_nodes + n0 + grp) * dim + col;
+      const GT* gp = g + static_cast<size_t>(b) * g_bstride +
+                     static_cast<size_t>(n0 + grp) * g_ld + col;
       const float* hs = smem + grp * kS;
       int i = 0;
       for (; i + kUnroll <= cnt; i += kUnroll) {
@@ -299,76 +312,102 @@ __global__ void __launch_bounds__(kMaxThreads, Tune<GT, kChunk>::kMinBlocks)
 template <typename GT, typename OT, int kChunk, int kVec>
 void launch_chunk(const void* g, const void* h, const void* w,
                   const void* n_true, void* out, int batch, int n_ant,
-                  int n_nodes, int dim, cudaStream_t stream) {
+                  int n_nodes, int dim, long long g_bstride,
+                  long long g_ld, cudaStream_t stream) {
   const int lanes = (dim + kVec - 1) / kVec;  // columns (or pairs)
   const int tiles = (lanes + kMaxLanes - 1) / kMaxLanes;
   const int tile_lanes = (lanes + tiles - 1) / tiles;
+  const int tiles_z = (tiles + kMaxGridY - 1) / kMaxGridY;
+  const int tiles_y = (tiles + tiles_z - 1) / tiles_z;
   const int threads = (kGroups * tile_lanes + 31) / 32 * 32;
   const int n_chunks = (n_ant + kChunk - 1) / kChunk;
   const int h_vec4 =
       n_nodes % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
-  const dim3 grid(static_cast<unsigned>(batch) * n_chunks, tiles);
+  const dim3 grid(static_cast<unsigned>(batch) * n_chunks, tiles_y, tiles_z);
   const auto kernel =
       n_true != nullptr ? ota_aggregate_kernel<GT, OT, true, kChunk, kVec>
                         : ota_aggregate_kernel<GT, OT, false, kChunk, kVec>;
   kernel<<<grid, threads, 0, stream>>>(
       static_cast<const GT*>(g), static_cast<const float*>(h),
       static_cast<const float*>(w), static_cast<const float*>(n_true),
-      static_cast<OT*>(out), n_nodes, dim, n_ant, n_chunks, tile_lanes,
-      h_vec4, static_cast<float>(n_nodes));
+      static_cast<OT*>(out), n_nodes, dim, g_bstride, g_ld, n_ant, n_chunks,
+      tile_lanes, h_vec4, static_cast<float>(n_nodes));
 }
 
 template <typename GT, typename OT>
 void launch(const void* g, const void* h, const void* w, const void* n_true,
             void* out, int batch, int n_ant, int n_nodes, int dim,
-            cudaStream_t stream) {
+            long long g_bstride, long long g_ld, cudaStream_t stream) {
   // column pairs where a chunk of 8 antennas reuses each gain read for
-  // two columns: even d and a pair-aligned g
-  const bool pairs = dim % 2 == 0 &&
+  // two columns: even d, even strides and a pair-aligned g
+  const bool pairs = dim % 2 == 0 && g_ld % 2 == 0 && g_bstride % 2 == 0 &&
                      reinterpret_cast<uintptr_t>(g) % (2 * sizeof(GT)) == 0;
   if (n_ant <= 1) {
     launch_chunk<GT, OT, 1, 1>(g, h, w, n_true, out, batch, n_ant, n_nodes,
-                               dim, stream);
+                               dim, g_bstride, g_ld, stream);
   } else if (pairs) {
     launch_chunk<GT, OT, 8, 2>(g, h, w, n_true, out, batch, n_ant, n_nodes,
-                               dim, stream);
+                               dim, g_bstride, g_ld, stream);
   } else {
     launch_chunk<GT, OT, 8, 1>(g, h, w, n_true, out, batch, n_ant, n_nodes,
-                               dim, stream);
+                               dim, g_bstride, g_ld, stream);
   }
 }
 
 }  // namespace
 
-// g: (batch, n_nodes, dim) f32 (g_bf16 = 0) or bf16 (g_bf16 = 1);
-// h: (batch, n_ant, n_nodes) f32; w: (batch, n_ant, dim) f32, already
+// g: (batch, n_nodes, dim) f32 (g_bf16 = 0) or bf16 (g_bf16 = 1), columns
+// contiguous, node rows g_row_stride and trajectories g_batch_stride elements
+// apart; h: (batch, n_ant, n_nodes) f32; w: (batch, n_ant, dim) f32, already
 // scaled; n_true: (batch,) f32 node counts, or null for n_nodes everywhere;
-// out: (batch, n_ant, dim) f32 (out_bf16 = 0) or bf16. All contiguous, on
-// the current device; batch * n_ant < 2^31 and ceil(dim / 32) <= 65535 (the
-// wrapper checks). Returns cudaGetLastError() after the launch.
-extern "C" int ota_aggregate(const void* g, const void* h, const void* w,
-                             const void* n_true, void* out, int batch,
-                             int n_ant, int n_nodes, int dim, int g_bf16,
-                             int out_bf16, void* stream) {
+// out: (batch, n_ant, dim) f32 (out_bf16 = 0) or bf16. h, w and out
+// contiguous, all on the current device; batch * n_ant < 2^31 and
+// dim < 2^31 (the wrapper checks); every offset into g is 64-bit, so the
+// strides only have to be non-negative. Returns cudaGetLastError() after
+// the launch.
+extern "C" int ota_aggregate_strided(const void* g, const void* h,
+                                     const void* w, const void* n_true,
+                                     void* out, int batch, int n_ant,
+                                     int n_nodes, int dim,
+                                     long long g_batch_stride,
+                                     long long g_row_stride, int g_bf16,
+                                     int out_bf16, void* stream) {
+  if (g_row_stride < 0 || g_batch_stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_bf16) {
     if (out_bf16) {
       launch<__nv_bfloat16, __nv_bfloat16>(g, h, w, n_true, out, batch, n_ant,
-                                           n_nodes, dim, s);
+                                           n_nodes, dim, g_batch_stride,
+                                           g_row_stride, s);
     } else {
       launch<__nv_bfloat16, float>(g, h, w, n_true, out, batch, n_ant,
-                                   n_nodes, dim, s);
+                                   n_nodes, dim, g_batch_stride,
+                                   g_row_stride, s);
     }
   } else {
     if (out_bf16) {
       launch<float, __nv_bfloat16>(g, h, w, n_true, out, batch, n_ant,
-                                   n_nodes, dim, s);
+                                   n_nodes, dim, g_batch_stride,
+                                   g_row_stride, s);
     } else {
       launch<float, float>(g, h, w, n_true, out, batch, n_ant, n_nodes, dim,
-                           s);
+                           g_batch_stride, g_row_stride, s);
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same on a contiguous g (the interface before strides, which the A/B
+// tools under tools/ bind).
+extern "C" int ota_aggregate(const void* g, const void* h, const void* w,
+                             const void* n_true, void* out, int batch,
+                             int n_ant, int n_nodes, int dim, int g_bf16,
+                             int out_bf16, void* stream) {
+  return ota_aggregate_strided(
+      g, h, w, n_true, out, batch, n_ant, n_nodes, dim,
+      static_cast<long long>(n_nodes) * dim, dim, g_bf16, out_bf16, stream);
 }
 
 extern "C" const char* ota_error_string(int code) {

@@ -30,17 +30,18 @@ def _launch(g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     if g.dtype not in _KERNEL_DTYPES or out_dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the OTA kernel takes f32/bf16 grads and output, "
                          f"got grads {g.dtype}, out {out_dtype}")
-    if not g.is_contiguous():
-        raise ValueError("the OTA kernel needs contiguous (B, N, d) grads")
+    batch, _, d = g.shape
+    if d > 1 and g.stride(2) != 1:
+        raise ValueError("the OTA kernel reads (B, N, d) grads with "
+                         f"contiguous columns, got strides {g.stride()}")
     if h.device != g.device or w.device != g.device or (
             n_true is not None and n_true.device != g.device):
         raise ValueError("grads, gains, noise and counts must share one "
                          "device")
-    batch, _, d = g.shape
     n_ant = h.shape[1]
-    if batch * n_ant >= 2**31 or (d + 31) // 32 > 65535:
-        raise ValueError(f"the OTA kernel's grid takes B*M < 2^31 and "
-                         f"d <= 2,097,120, got B={batch}, M={n_ant}, d={d}")
+    if batch * n_ant >= 2**31 or d >= 2**31:
+        raise ValueError(f"the OTA kernel takes B*M < 2^31 and d < 2^31, "
+                         f"got B={batch}, M={n_ant}, d={d}")
     out = torch.empty((batch, n_ant, d), dtype=out_dtype, device=g.device)
     if out.numel() == 0:
         return out
@@ -64,12 +65,15 @@ def ota_edge_aggregate(grads: torch.Tensor, gains: torch.Tensor,
     or with an antenna axis: `(B, N, d)`, `(B, M, N)`, `(B, M, d)` ->
     `(B, M, d)`, the M receive antennas of trajectory b each aggregating
     its one copy of grads[b] with their own gains and noise. Each form is
-    one kernel launch. N is `n_true`, each trajectory's own count as a
-    `(B,)` tensor (a 0-d tensor unbatched) on the grads' device, or the
-    node-axis length for every trajectory when None. A node-count sweep
-    pads its node axis with zero gains and zero gradients and passes the
-    true counts. `noise_scale` is a float or a tensor broadcasting against
-    `noise`; it folds into the f32 noise operand.
+    one kernel launch, and takes grads with contiguous columns and any
+    row and batch strides (a column block of a wider matrix, as the
+    channel-transport layer tiles a leaf) without a copy. N is `n_true`,
+    each trajectory's own count as a `(B,)` tensor (a 0-d tensor
+    unbatched) on the grads' device, or the node-axis length for every
+    trajectory when None. A node-count sweep pads its node axis with zero
+    gains and zero gradients and passes the true counts. `noise_scale` is
+    a float or a tensor broadcasting against `noise`; it folds into the
+    f32 noise operand.
     `out_dtype` (default grads.dtype) is the emission dtype of the f32
     accumulation.
 

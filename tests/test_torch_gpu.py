@@ -9,18 +9,24 @@ installed. Each kernel is held to its plain PyTorch version at the
 reference's bars (`tests/test_kernels.py`): the OTA aggregation (K1,
 also with per-trajectory node counts and with an antenna axis, whose
 M = 1 launch and each antenna of an M-antenna launch give the bits of a
-single-antenna launch, with and without counts),
+single-antenna launch, with and without counts; a column block of a
+wider leaf read in place, with the bits of a contiguous copy, also
+where a leaf's rows lie 7e7 elements apart; a leaf of 20,480,000
+columns; `transport.aggregate` one launch per block),
 flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
 each at every reference case) and the WKV6 recurrence (K3), the last two
 also at their serving slices' shapes; K3 also at lengths off its chunk,
 on views off 16 bytes and for repeatability. The port's threefry is
-checked to draw an odd count without a host-to-device copy. The execution
+checked to draw an odd count without a host-to-device copy, and a long
+normal draw in passes to give the one-pass bits. The execution
 plans run through K1: hoisted draws give the per-step bits, chunked
 moments match unchunked ones, and a sweep resumed after an injected
 fault equals the uninterrupted one bit for bit. The MC sweep server runs
 on the card: the launcher's selftests, and a served mix through K1 held
 to the plain route.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -164,6 +170,117 @@ def test_antenna_launch_has_the_single_antenna_bits(cuda, with_counts):
             assert torch.equal(out[:, j], ota_edge_aggregate(
                 g, hm[:, j].contiguous(), wm[:, j], noise_scale=0.37,
                 n_true=counts)), (m, d, j)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lo,hi,m", [(0, 4096, None), (3, 5000, None),
+                                     (7, 8, None), (1, 1001, 5),
+                                     (0, 2048, 8)])
+def test_strided_block_matches_plain_version(cuda, dtype, lo, hi, m):
+    """A column block [lo, hi) of a wider (N, size) leaf, as the
+    channel-transport layer tiles it: the kernel reads the view in place
+    (one launch, no copy), gives the bits of a launch on a contiguous
+    copy, and meets the plain version's bars; with an antenna axis at a
+    batch stride of 0 (an expanded view) too."""
+    size = 3 * 4096 + 5
+    gen = torch.Generator(device=cuda).manual_seed(hi)
+    full = torch.randn((8, size), generator=gen, device=cuda).to(dtype)
+    b = 1 if m is None else 3
+    g = full[None, :, lo:hi].expand(b, 8, hi - lo)
+    assert not g.is_contiguous()
+    h = torch.rand((b, 8) if m is None else (b, m, 8), generator=gen,
+                   device=cuda)
+    w = torch.randn(h.shape[:-1] + (hi - lo,), generator=gen, device=cuda)
+    before = ops.launch_count
+    out = ota_edge_aggregate(g, h, w, noise_scale=0.37)
+    torch.cuda.synchronize()
+    assert ops.launch_count == before + 1
+    assert torch.equal(out, ota_edge_aggregate(g.contiguous(), h, w,
+                                               noise_scale=0.37))
+    ref = ota_edge_aggregate_ref(g, h, w, noise_scale=0.37)
+    atol = 1e-6 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype,n,m", [(torch.bfloat16, 40, None),
+                                       (torch.bfloat16, 64, None),
+                                       (torch.bfloat16, 64, 8),
+                                       (torch.float32, 64, None)])
+def test_block_of_a_leaf_past_2_26_columns(cuda, dtype, n, m):
+    """A narrow column block of an (N, 70,000,000) leaf: rows 7e7
+    elements apart, so a step of kUnroll nodes of a node group (8 rows
+    each) passes 2^31 elements, at N where a group's node loop goes past
+    one such step (40 and 64 for one antenna, where kUnroll is 4; 64 for
+    chunks of 8, where it is 8). The leaf outside the block is NaN:
+    a wrapped address reads NaN or faults. The kernel gives the bits of a
+    contiguous copy and meets the plain version's bars."""
+    size, lo, hi = 70_000_000, 70_000_000 - 4096 - 2, 70_000_000 - 2
+    full = torch.full((n, size), float("nan"), dtype=dtype, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    full[:, lo:hi] = torch.randn((n, hi - lo), generator=gen,
+                                 device=cuda).to(dtype)
+    g = full[None, :, lo:hi]
+    h = torch.rand((1, n) if m is None else (1, m, n), generator=gen,
+                   device=cuda)
+    w = torch.randn(h.shape[:-1] + (hi - lo,), generator=gen, device=cuda)
+    before = ops.launch_count
+    out = ota_edge_aggregate(g, h, w, noise_scale=0.37,
+                             out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.launch_count == before + 1
+    dense = g.contiguous()
+    del full
+    assert torch.equal(out, ota_edge_aggregate(dense, h, w, noise_scale=0.37,
+                                               out_dtype=torch.float32))
+    ref = ota_edge_aggregate_ref(dense, h, w, noise_scale=0.37,
+                                 out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-5)
+
+
+def test_leaf_past_the_grid_y_limit_matches_plain_version(cuda):
+    """repro-100m's tied embedding as one leaf: 20,480,000 columns, 640,000
+    column tiles, past gridDim.y's 65,535 (the tiles fold into z)."""
+    d = 32000 * 640
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn((8, d), generator=gen, device=cuda)
+    h = torch.rand((8,), generator=gen, device=cuda)
+    w = torch.randn((d,), generator=gen, device=cuda)
+    out = ota_edge_aggregate(g, h, w, noise_scale=0.01)
+    ref = ota_edge_aggregate_ref(g, h, w, noise_scale=0.01)
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-5)
+    tail = slice(d - 4096, d)  # the last z slab's columns
+    torch.testing.assert_close(out[tail], ref[tail], atol=1e-6, rtol=1e-5)
+
+
+def test_transport_aggregate_launches_k1_once_per_block(cuda):
+    """`transport.aggregate('gbma')` on the card with the default route:
+    one K1 launch per column block (untiled: one per leaf; tiled at 256:
+    ceil(size / 256) per leaf), each within 1e-6 + 1e-5·|v| of the plain
+    route on the same key, and tiled within 1e-6 of untiled."""
+    from repro_torch.core import rng, transport
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.tree import tree_leaves
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn((8, 40, 30), generator=gen, device=cuda),
+            "b": [torch.randn((8, 700), generator=gen, device=cuda)]}
+    cfg = transport.TransportConfig(n_nodes=8, channel=ChannelConfig(
+        noise_std=0.01))
+    outs = {}
+    for label, kw, blocks in (("untiled", {}, 2),
+                              ("tiled", {"block_d": 256}, 5 + 3),
+                              ("ref", {"ota_impl": "ref"}, 0)):
+        before = ops.launch_count
+        v, _, _ = transport.aggregate("gbma", tree, rng.key(4, cuda),
+                                      dataclasses.replace(cfg, **kw))
+        torch.cuda.synchronize()
+        assert ops.launch_count - before == blocks, label
+        outs[label] = tree_leaves(v)
+    for a, b, c in zip(outs["untiled"], outs["ref"], outs["tiled"]):
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+        torch.testing.assert_close(c, a, atol=1e-6, rtol=0)
 
 
 # ------------------------------------------------------------ attention (K2)
@@ -432,6 +549,20 @@ def test_odd_count_draw_copies_nothing_to_the_card(cuda):
     assert not [n for n in names if "HtoD" in n
                 or n == "cudaStreamSynchronize"], names
     assert bits.shape == (4, 7)
+
+
+def test_normal_in_passes_is_bit_exact_on_the_card(cuda, monkeypatch):
+    """A whole-model normal draw in passes (the transport's edge noise)
+    equals the one-pass chain over `random_bits` bit for bit on the card,
+    at an odd length over several passes."""
+    from repro_torch.core import rng
+
+    keys = rng.split(rng.key(7, cuda), 2)
+    one = rng.u01_to_normal(rng.bits_to_u01(rng.random_bits(
+        keys, (3 * 4096 + 5,))))
+    assert torch.equal(rng.normal(keys, (3 * 4096 + 5,)), one)
+    monkeypatch.setattr(rng, "NORMAL_PASS", 1024)
+    assert torch.equal(rng.normal(keys, (3 * 4096 + 5,)), one)
 
 
 # ----------------------------------------------------- execution plans (P8, P9)

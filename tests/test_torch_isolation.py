@@ -46,6 +46,10 @@ RWKV_MODULES = {"repro_torch.configs.rwkv6_7b", "repro_torch.models.rwkv",
 SERVER_MODULES = {"repro_torch.serving.mc_server",
                   "repro_torch.launch.serve_mc",
                   "repro_torch.core.mc.costmodel"}
+# the channel-transport substrate (M7)
+TRANSPORT_MODULES = {"repro_torch.core.transport", "repro_torch.core.gbma",
+                     "repro_torch.core.baselines",
+                     "repro_torch.core.waveform", "repro_torch.core.tree"}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -57,7 +61,43 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert len(names) >= 40
     assert RWKV_MODULES <= names, RWKV_MODULES - names
     assert SERVER_MODULES <= names, SERVER_MODULES - names
+    assert TRANSPORT_MODULES <= names, TRANSPORT_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
+
+
+@pytest.mark.parametrize("module", sorted(TRANSPORT_MODULES))
+def test_transport_module_alone_loads_no_jax_and_no_reference(module):
+    """Each M7 module imported first in a fresh interpreter (its own
+    import order, the package's re-exports included) loads neither JAX
+    nor the reference."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "[]", f"{module} pulled in: {out}"
+
+
+def test_transport_entry_points_without_device_raise_where_cuda_is_absent(
+        monkeypatch):
+    """The M7 entry points that make tensors from nothing mean the card
+    without `device` and raise without CUDA; the others run where their
+    tensors live, so CPU tensors stay on the CPU."""
+    from repro_torch.core import gbma, rng, transport, waveform
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = transport.resolve("gbma")
+    for call in (lambda: waveform.shaping_waveforms(4, 8),
+                 lambda: transport.make_ctx(transport.TransportConfig(),
+                                            spec)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert waveform.shaping_waveforms(4, 8, device="cpu").device.type \
+        == "cpu"
+    v = gbma.ota_aggregate(torch.ones((3, 5)), rng.key(0), ChannelConfig())
+    assert v.device.type == "cpu"
 
 
 def _problem(n=6, d=3):

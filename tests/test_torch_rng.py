@@ -135,3 +135,43 @@ def test_fold_in_on_tensor_data_bit_exact():
     np.testing.assert_array_equal(out.numpy(), ref)
     np.testing.assert_array_equal(
         rng.fold_in(keys, torch.tensor(7)).numpy(), ref[:, 2])
+
+
+@pytest.mark.parametrize("n", [0, 1, 10, 11, 129, 4097, 65539])
+def test_normal_in_passes_equals_one_pass(n, monkeypatch):
+    """A draw longer than `NORMAL_PASS` counter pairs a key runs in passes
+    (the transport's whole-model draws); with the pass cut to 64 pairs,
+    odd and even lengths (and an empty draw), three keys at once: bit for
+    bit the one-pass chain over `random_bits`, and the reference's normal
+    within 1e-6 relative."""
+    keys = rng.split(rng.key(3), 3)
+    one = rng.u01_to_normal(rng.bits_to_u01(rng.random_bits(keys, (n,))))
+    assert torch.equal(rng.normal(keys, (n,)), one)
+    monkeypatch.setattr(rng, "NORMAL_PASS", 64)
+    passes = rng.normal(keys, (n,))
+    assert passes.shape == (3, n) and torch.equal(passes, one)
+    with jax_original_layout():
+        ref = np.asarray(jax.random.normal(jax.random.split(
+            _jax_key(3), 3)[1], (n,)))
+    if n:
+        assert rel_err(passes[1].numpy(), ref) <= 1e-6
+
+
+def test_bf16_normal_bit_exact():
+    """`normal(..., dtype=bfloat16)` is JAX's own bf16 draw (8 random bits
+    an element), not the f32 normal rounded: bit for bit, batched too."""
+    with jax_original_layout():
+        ref = np.asarray(jax.random.normal(_jax_key(21), (4099,),
+                                           dtype=jax.numpy.bfloat16)
+                         .astype(jax.numpy.float32))
+        keys = jax.random.split(_jax_key(5), 3)
+        ref_b = np.stack([np.asarray(jax.random.normal(
+            k, (6,), dtype=jax.numpy.bfloat16).astype(jax.numpy.float32))
+            for k in keys])
+    out = rng.normal(rng.key(21), (4099,), dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    assert np.array_equal(out.float().numpy(), ref)
+    out_b = rng.normal(rng.split(rng.key(5), 3), (6,), dtype=torch.bfloat16)
+    assert np.array_equal(out_b.float().numpy(), ref_b)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rng.normal(rng.key(0), (3,), dtype=torch.float16)
