@@ -63,6 +63,15 @@ drives the port's main paths:
   repro-100m in f32 (the CUDA-core kernel) at 2048, with the
   kernel route held to the plain route, decode held to prefill, and the
   prefill and a decode step of each model timed and profiled;
+* training over the MAC ("train"): K2's f32 kernel with its row
+  log-sum-exp against its plain version (and its output bits unchanged
+  without it), `flash_attention`'s gradients against `full_attention`'s
+  autograd, the training launcher at its defaults, and repro-100m at
+  full width and depth trained 4 steps on the fused gbma route and
+  through the transport (gbma, receiver momentum): K2 in every forward,
+  K1 in every slot, the kernel route held to the plain route, each
+  step timed whole and by part with its peak memory, and the card held
+  to the CPU on the reduced model;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
   bf16 at a 32- and a 2048-token prompt, with the same checks (the plain
   route at the 32-token prompt) and the weights' initialization peak.
@@ -2977,6 +2986,23 @@ def serve_repro_100m(attn_ops) -> tuple:
                                   prompts=SERVE_PROMPTS[-1:])
 
 
+def _best_ms(fn, reps: int = 3) -> float:
+    """Best host-clock ms of `fn` over `reps` calls after one warm-up,
+    each ending in a synchronize (host-bound steps vary by tens of per
+    cent from call to call on a shared host)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times) * 1e3
+
+
 def serve_timing(model, params, kernel: str,
                  prompts: tuple = SERVE_PROMPTS) -> dict:
     """Prefill ms and decode ms per step (host clock around work that ends
@@ -3001,18 +3027,7 @@ def serve_timing(model, params, kernel: str,
         def decode():
             model.decode_step(params, cache, tok, s)
 
-        def best(fn, reps=3):
-            fn()
-            times = []
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            return min(times) * 1e3
-
-        pre_ms, dec_ms = best(prefill), best(decode)
+        pre_ms, dec_ms = _best_ms(prefill), _best_ms(decode)
         prof = {name: _profile_counts(fn, kernel=kernel)
                 for name, fn in (("prefill", prefill), ("decode", decode))}
         row = {"prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
@@ -3029,6 +3044,477 @@ def serve_timing(model, params, kernel: str,
             f"{json.dumps(row)}")
         out[s] = row
     return out
+
+
+# --------------------------------------------------------------------------
+# training over the MAC (T1-T3): K2 with its log-sum-exp, the flash
+# backward, and repro-100m trained at full width and depth
+# --------------------------------------------------------------------------
+TRAIN_ARCH = "repro-100m"
+# the training launcher's defaults (src/repro/launch/train.py:37-48)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_NODES = 8, 256, 8
+TRAIN_NOISE_STD, TRAIN_LR, TRAIN_GAMMA = 0.01, 0.05, 0.9
+TRAIN_STEPS = 4
+# (aggregator, route): the fused gbma route, gbma through the transport,
+# and receiver momentum through the transport
+TRAIN_ROUTES = (("gbma", "auto"), ("gbma", "transport"),
+                ("momentum", "transport"))
+# the routes whose step (d) profiles: gbma through the transport issues
+# what momentum's does but the carry (30,046 against 30,068 launches a
+# step on an H100), so one transport profile stands for both
+TRAIN_PROFILED = ("gbma fused", "momentum transport")
+# K2 at repro-100m's training shape (B, H, S, d), f32, causal
+TRAIN_ATTN_SHAPE = (8, 10, 256, 64)
+TRAIN_LSE_BAR = (1e-5, 1e-6)  # atol + rtol * |lse|
+# (b): flash_attention's gradients against full_attention's autograd, at
+# tests/test_flash_vjp.py's bars, at the training shape and at the
+# reference's GQA + window + softcap case with d = 32 (K2 takes head_dim
+# 32, 64, 128, 256; the reference case has 16)
+TRAIN_VJP_CASES = ((8, 10, 10, 256, 64, {}),
+                   (1, 2, 1, 128, 32, {"window": 40, "softcap": 25.0}))
+TRAIN_VJP_BARS = {"out": (2e-5, 1e-4), "grad": (5e-4, 5e-3)}
+# the kernel route against the plain route after TRAIN_STEPS steps, and
+# the card against the CPU on the reduced config: losses relative,
+# parameters relative to each leaf's largest |p|
+TRAIN_ROUTE_BAR = 1e-5
+
+
+def check_attention_lse() -> dict:
+    """(a) K2's f32 kernel with `lse` against its plain version at the
+    reference tests' cases and the training shape: `out` at the f32 bar
+    (atol 5e-5 + rtol 1e-4), `lse` within 1e-5 + 1e-6·|lse|; a launch
+    without `lse` gives the bits of a launch with it there and at the
+    f32 serving shape. Returns the max abs errors of out and lse."""
+    import torch
+
+    from repro_torch.kernels.attention.ops import multi_head_attention
+
+    tb, th, ts, td = TRAIN_ATTN_SHAPE
+    shapes = [*ATTN_TEST_SHAPES, (tb, th, th, ts, td, {})]
+    worst = {"out": 0.0, "lse": 0.0}
+    for i, (b, hq, hkv, s, d, kw) in enumerate(shapes):
+        q, k, v = attn_inputs(b, hq, hkv, s, d, torch.float32, 300 + i)
+        scale = d ** -0.5
+        out, lse = multi_head_attention(q, k, v, scale=scale,
+                                        return_lse=True, **kw)
+        ref, ref_lse = multi_head_attention(q, k, v, scale=scale,
+                                            impl="ref", return_lse=True,
+                                            **kw)
+        bare = multi_head_attention(q, k, v, scale=scale, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        lse_err = (lse - ref_lse).abs()
+        ok = bool(torch.isfinite(out).all() and torch.isfinite(lse).all()
+                  and (err <= 5e-5 + 1e-4 * ref.abs()).all()
+                  and (lse_err <= TRAIN_LSE_BAR[0]
+                       + TRAIN_LSE_BAR[1] * ref_lse.abs()).all())
+        same = torch.equal(bare, out)
+        worst["out"] = max(worst["out"], err.max().item())
+        worst["lse"] = max(worst["lse"], lse_err.max().item())
+        log(f"train (a) K2 with lse q{(b, hq, s, d)} kv{(b, hkv, s, d)} "
+            f"{kw}: out max_abs_err={err.max().item():.3e}, lse "
+            f"max_abs_err={lse_err.max().item():.3e} (bar "
+            f"{TRAIN_LSE_BAR[0]} + {TRAIN_LSE_BAR[1]}|lse|), without lse "
+            f"== with lse bitwise: {same} {'ok' if ok and same else 'FAIL'}")
+        if not (ok and same):
+            raise AssertionError(f"K2 with lse at {(b, hq, hkv, s, d, kw)}")
+    for b, h, s, d, dt in ATTN_SLICE_SHAPES:
+        if dt != "float32":
+            continue
+        q, k, v = attn_inputs(b, h, h, s, d, torch.float32, s + d)
+        bare = multi_head_attention(q, k, v, scale=d ** -0.5)
+        out, _ = multi_head_attention(q, k, v, scale=d ** -0.5,
+                                      return_lse=True)
+        same = torch.equal(bare, out)
+        log(f"train (a) K2 serving shape {(b, h, s, d)} f32: without lse "
+            f"== with lse bitwise: {same}")
+        if not same:
+            raise AssertionError("K2's lse launch changed the output bits")
+    return worst
+
+
+def check_flash_vjp() -> dict:
+    """(b) `flash_attention` (K2's forward with lse, the flash backward)
+    against autograd through `full_attention` on the card. Returns the
+    max abs error of the gradients per case."""
+    import torch
+
+    from repro_torch.models.attention import full_attention
+    from repro_torch.models.flash_vjp import flash_attention
+
+    out_errs = {}
+    for b, hq, hkv, s, d, kw in TRAIN_VJP_CASES:
+        q, k, v = attn_inputs(b, hq, hkv, s, d, torch.float32, 41)
+        t = torch.randn_like(q)
+        runs = []
+        for fn in (lambda *a: flash_attention(
+                *a, scale=d ** -0.5, block_q=128, block_kv=256,
+                impl="kernel", **kw),
+                   lambda *a: full_attention(*a, scale=d ** -0.5, **kw)):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = fn(*leaves)
+            (out * t).sum().backward()
+            runs.append((out.detach(), [x.grad for x in leaves]))
+        torch.cuda.synchronize()
+        ok, errs = True, []
+        for (a, b_), bar in [((runs[0][0], runs[1][0]),
+                              TRAIN_VJP_BARS["out"])] + [
+                ((x, y), TRAIN_VJP_BARS["grad"])
+                for x, y in zip(runs[0][1], runs[1][1])]:
+            err = (a - b_).abs()
+            errs.append(err.max().item())
+            ok = ok and bool(torch.isfinite(a).all()
+                             and (err <= bar[0] + bar[1] * b_.abs()).all())
+        log(f"train (b) flash_attention vs full_attention autograd "
+            f"q{(b, hq, s, d)} kv{(b, hkv, s, d)} {kw}: max_abs_err out "
+            f"{errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv "
+            f"{errs[3]:.3e} (bars {TRAIN_VJP_BARS}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_attention's gradients disagree")
+        out_errs[f"{(b, hq, hkv, s, d)} {kw}"] = max(errs[1:])
+    return out_errs
+
+
+def _train_parts(cfg, aggregator: str, route: str, impl: str):
+    """(model, TrainConfig, optimizer, train step) as the launcher builds
+    them at its defaults (`route` 'auto' for the fused aggregators,
+    'transport' for the rest); `impl='ref'` takes the plain attention
+    and, on the transport route, the plain OTA route."""
+    from repro_torch.core import transport
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.gbma import GBMAConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.gd import get_optimizer
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 build_train_step)
+
+    ch = ChannelConfig(fading="rayleigh", noise_std=TRAIN_NOISE_STD,
+                       energy=1.0)
+    tp = None
+    if route == "transport":
+        tp = transport.TransportConfig(
+            n_nodes=TRAIN_NODES, channel=ch, gamma=TRAIN_GAMMA,
+            stepsize=TRAIN_LR, ota_impl="ref" if impl == "ref" else "auto")
+    tcfg = TrainConfig(aggregator=aggregator,
+                       gbma=GBMAConfig(n_nodes=TRAIN_NODES, channel=ch),
+                       route=route, transport=tp)
+    model = build_model(cfg, impl=impl)
+    opt = get_optimizer("momentum", TRAIN_LR)
+    return model, tcfg, opt, build_train_step(model, tcfg, opt)
+
+
+def _train_batches(cfg, steps: int) -> list:
+    from repro_torch.data.synthetic import (SyntheticTokens,
+                                            TokenDatasetConfig)
+
+    ds = SyntheticTokens(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH))
+    return [{"tokens": ds.batch(i)} for i in range(steps)]
+
+
+def _train_run(cfg, aggregator, route, impl, params0, batches):
+    """`run_training` over `batches` from a copy of `params0`: (logged
+    losses, final params, history, K2 and K1 launches of the run)."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ota import ops as ota_ops
+    from repro_torch.training.loop import run_training
+
+    _, _, _, step = _train_parts(cfg, aggregator, route, impl)
+    params = tree_map(lambda p: p.clone(), params0)
+    state = step.init_state(params)
+    attn_ops.launch_count = ota_ops.launch_count = 0
+    params, _, hist = run_training(step, params, state, iter(batches),
+                                   len(batches), log_every=1)
+    if tree_leaves(params0)[0].is_cuda:
+        torch.cuda.synchronize()
+    launches = (attn_ops.launch_count, ota_ops.launch_count)
+    return [h["loss"] for h in hist], params, hist, launches
+
+
+def train_step_split(cfg, aggregator, route, params, batch,
+                     profile: bool) -> dict:
+    """(d) One step of a route at full width, timed on the host clock
+    (best of 2 whole and forward plus backward, best of 3 the other
+    parts, each ending in a synchronize) whole and by part: the
+    forward plus backward (`gbma_value_and_grad` with the node weights,
+    or the per-node gradients), the edge noise (fused gbma) or the slot
+    (`transport.aggregate`), the clip with the optimizer's update; the
+    step's peak device memory over the resident parameters and
+    optimizer state; the host synchronizations inside a step (torch's
+    sync debug mode); and, with `profile`, a torch.profiler count of one
+    step."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import rng, transport
+    from repro_torch.core.gbma import (gbma_value_and_grad, node_weights,
+                                       perturb_gradients)
+    from repro_torch.training.train_step import (_clip_and_metrics,
+                                                 _node_grads_fn)
+
+    model, tcfg, opt, step = _train_parts(cfg, aggregator, route, "auto")
+    state = step.init_state(params)
+    fused = tcfg.transport is None
+    k_h, k_w = rng.split(rng.fold_in(rng.key(0, device="cuda"), 0))
+    row = {"step_ms": _best_ms(lambda: step(params, state, batch, 0), 2)}
+    if fused:
+        vg = gbma_value_and_grad(
+            lambda p, b: model.train_loss_per_example(p, b)[0])
+        w = node_weights(k_h, tcfg.gbma, TRAIN_BATCH)
+        row["forward_backward_ms"] = _best_ms(lambda: vg(params, batch, w),
+                                              2)
+        _, grads = vg(params, batch, w)
+        row["noise_ms"] = _best_ms(
+            lambda: perturb_gradients(grads, k_w, tcfg.gbma))
+    else:
+        grads_fn = _node_grads_fn(model, TRAIN_NODES)
+        row["forward_backward_ms"] = _best_ms(
+            lambda: grads_fn(params, batch), 2)
+        _, node_g = grads_fn(params, batch)
+        agg = state[1] if transport.has_state(aggregator) else None
+        row["slot_ms"] = _best_ms(lambda: transport.aggregate(
+            aggregator, node_g, k_w, tcfg.transport, agg))
+        grads, _, _ = transport.aggregate(aggregator, node_g, k_w,
+                                          tcfg.transport, agg)
+        del node_g
+    opt_state = state[0] if isinstance(state, tuple) else state
+
+    def update():
+        g, _ = _clip_and_metrics(grads, tcfg)
+        return opt.update(g, opt_state, params)
+
+    row["clip_and_optimizer_ms"] = _best_ms(update)
+    del grads
+    _, row["peak_mib_over_resident"] = _peak_mib(
+        lambda: step(params, state, batch, 0))
+    # operations that synchronize the host with the card inside a step
+    # (torch's sync debug mode warns at each)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(params, state, batch, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    row["host_syncs_in_step"] = len(syncs)
+    if syncs:
+        log(f"train (d) a step synchronizes the host: {syncs[:3]}")
+    if not profile:
+        return row
+    prof = _profile_counts(lambda: step(params, state, batch, 0),
+                           kernel="flash_attention")
+    row["profile"] = {"launches": prof["launches"], "syncs": prof["syncs"],
+                      "device_busy_ms": prof["device_us"] / 1e3,
+                      "device_idle_share": 1.0 - prof["device_us"] / 1e3
+                      / row["step_ms"],
+                      "flash_attention_kernels": prof["kernel"],
+                      "flash_attention_device_ms": prof["kernel_us"] / 1e3}
+    return row
+
+
+def time_train_attention() -> dict:
+    """(d) K2 at the training shape: the bare launch with and without
+    `lse`, the plain version with lse, SDPA, the bound, and the flash
+    backward (plain PyTorch, `block_q` 128 x `block_kv` 256) per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.kernels.attention.ops import multi_head_attention
+    from repro_torch.models.flash_vjp import flash_backward
+
+    b, h, s, d = TRAIN_ATTN_SHAPE
+    q, k, v = attn_inputs(b, h, h, s, d, torch.float32, 7)
+    scale = d ** -0.5
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, s), dtype=torch.float32, device="cuda")
+    launch = dict(scale=scale, causal=True, window=None, softcap=None)
+    row = {"shape": list(TRAIN_ATTN_SHAPE),
+           "lse_ms": cuda_ms(lambda: kernel.launch(q, k, v, out, lse=lse,
+                                                   **launch), 200),
+           "ms": cuda_ms(lambda: kernel.launch(q, k, v, out, **launch),
+                         200),
+           "plain_ms": cuda_ms(lambda: multi_head_attention(
+               q, k, v, scale=scale, impl="ref", return_lse=True), 50),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, scale=scale), 200)}
+    bound, bound_by = attention_bound(b, h, s, d, "float32")
+    # the lse launch also writes B·H·S f32 values
+    lse_bytes_ms = (4 * b * h * d * 4 * s + 4 * b * h * s) \
+        / HBM_BYTES_PER_S * 1e3
+    row["bound_ms"], row["bound_by"] = bound, bound_by
+    row["lse_bound_ms"] = max(bound, lse_bytes_ms)
+    o, ls = multi_head_attention(q, k, v, scale=scale, return_lse=True)
+    do = torch.randn_like(o)
+    row["backward_ms"] = cuda_ms(lambda: flash_backward(
+        q, k, v, o, ls, do, scale=scale, causal=True, window=None,
+        softcap=None, q_offset=0, block_q=128, block_kv=256), 20)
+    log(f"train (d) K2 at {TRAIN_ATTN_SHAPE} f32: with lse "
+        f"{row['lse_ms']:.6f} ms, without {row['ms']:.6f} ms, plain "
+        f"{row['plain_ms']:.6f} ms, SDPA {row['library_ms']:.6f} ms, bound "
+        f"{bound:.6f} ms ({bound_by}; with lse {row['lse_bound_ms']:.6f}); "
+        f"flash backward {row['backward_ms']:.6f} ms per call")
+    return row
+
+
+def run_train(attn_ops, ota_ops) -> tuple:
+    """The training stack on the card:
+
+    (a) K2 with its log-sum-exp against its plain version
+        (`check_attention_lse`);
+    (b) `flash_attention`'s gradients against `full_attention`'s
+        autograd (`check_flash_vjp`);
+    (c) the launcher at its defaults (`python -m repro_torch.launch.train
+        --arch repro-100m --steps 4`), then repro-100m at full width and
+        depth (112,248,960 parameters, f32), 4 steps at the launcher's
+        defaults through `build_train_step` + `run_training` on three
+        routes (fused gbma; gbma through the transport; receiver
+        momentum through the transport): finite losses, `tx_energy` on
+        the transport routes, K2 14 launches a forward (N forwards a
+        step on the transport route), K1 11 a slot (one a leaf); the
+        kernel route against the plain route (`impl='ref'`: plain
+        attention and plain OTA) after the 4 steps;
+    (d) each route's step timed whole (best of 2) and by part, its peak
+        memory and a profile (`train_step_split`), and K2 at the
+        training shape (`time_train_attention`);
+    (e) the card against the CPU on the reduced repro-100m: 4 steps of
+        each route in (c).
+
+    Returns (K2 launches, K1 launches, the record)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def mark(part: str) -> None:
+        torch.cuda.synchronize()
+        seconds[part] = time.perf_counter() - t_phase - sum(seconds.values())
+
+    record = {"lse_errors": check_attention_lse(),
+              "vjp_grad_errors": check_flash_vjp(), "seconds": seconds}
+    mark("(a), (b)")
+    cfg = get_config(TRAIN_ARCH)
+
+    # (c) the launcher as a user runs it
+    attn_ops.launch_count = ota_ops.launch_count = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_launch.main(["--arch", TRAIN_ARCH, "--steps",
+                           str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    launcher_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    final = float(text.rsplit("final loss", 1)[1].split()[0])
+    launches = {"launcher gbma": attn_ops.launch_count}
+    log(f"train (c) launch.train --arch {TRAIN_ARCH} --steps {TRAIN_STEPS}: "
+        f"{launcher_s:.2f} s, {attn_ops.launch_count} K2 launches, final "
+        f"loss {final:.4f}; output: {text.strip().splitlines()}")
+    if not math.isfinite(final) or attn_ops.launch_count != \
+            TRAIN_STEPS * cfg.n_layers:
+        raise AssertionError("the train launcher: loss or launches")
+
+    params0 = build_model(cfg).init_params(device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    n_leaves = len(tree_leaves(params0))
+    batches = _train_batches(cfg, TRAIN_STEPS)
+    k1_launches = 0
+    record["routes"] = {}
+    for aggregator, route in TRAIN_ROUTES:
+        name = f"{aggregator} {'fused' if route == 'auto' else route}"
+        losses, params, hist, (k2, k1) = _train_run(
+            cfg, aggregator, route, "auto", params0, batches)
+        ref_losses, ref_params, _, ref_counts = _train_run(
+            cfg, aggregator, route, "ref", params0, batches)
+        transport_route = route == "transport"
+        per_step = cfg.n_layers * (TRAIN_NODES if transport_route else 1)
+        want = (TRAIN_STEPS * per_step,
+                TRAIN_STEPS * n_leaves if transport_route else 0)
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref_losses))
+        param_rel = _tree_rel_to_max(params, ref_params)
+        tx_ok = not transport_route or all(
+            math.isfinite(h["tx_energy"]) and h["tx_energy"] > 0
+            for h in hist)
+        ok = (all(math.isfinite(x) for x in losses) and tx_ok
+              and (k2, k1) == want and ref_counts == (0, 0)
+              and loss_rel <= TRAIN_ROUTE_BAR
+              and param_rel <= TRAIN_ROUTE_BAR)
+        log(f"train (c) {TRAIN_ARCH} ({n_params:,} parameters, "
+            f"{n_leaves} leaves) {name}, {TRAIN_STEPS} steps: losses "
+            f"{losses}, tx_energy "
+            f"{[h.get('tx_energy') for h in hist]}; K2 {k2} launches "
+            f"({per_step} a step), K1 {k1} ({n_leaves} a slot), expected "
+            f"{want}; plain route {ref_counts}; kernel vs plain route "
+            f"losses {loss_rel:.3e} rel, params {param_rel:.3e} of each "
+            f"leaf's max (bar {TRAIN_ROUTE_BAR}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train route {name}")
+        launches[name] = k2
+        k1_launches += k1
+        record["routes"][name] = {
+            "losses": losses, "plain_losses": ref_losses,
+            "loss_rel": loss_rel, "param_rel_to_max": param_rel,
+            "k2_launches": k2, "k1_launches": k1,
+            "tx_energy": [h.get("tx_energy") for h in hist]}
+        del params, ref_params
+        torch.cuda.empty_cache()
+    mark("(c)")
+
+    # (d) timings at full width
+    batch = {"tokens": torch.from_numpy(batches[0]["tokens"]).cuda()}
+    for aggregator, route in TRAIN_ROUTES:
+        name = f"{aggregator} {'fused' if route == 'auto' else route}"
+        row = train_step_split(cfg, aggregator, route, params0, batch,
+                               profile=name in TRAIN_PROFILED)
+        record["routes"][name]["timing"] = row
+        log(f"train (d) {name} step at full width: {json.dumps(row)}")
+        torch.cuda.empty_cache()
+        mark(f"(d) {name}")
+    record["attention"] = time_train_attention()
+    mark("(d) K2")
+
+    # (e) the card against the CPU on the reduced config
+    small = cfg.reduced()
+    cpu_params = build_model(small).init_params(device="cpu")
+    cuda_params = tree_map(lambda p: p.cuda(), cpu_params)
+    small_batches = _train_batches(small, TRAIN_STEPS)
+    record["card_vs_cpu"] = {}
+    for aggregator, route in TRAIN_ROUTES:
+        name = f"{aggregator} {'fused' if route == 'auto' else route}"
+        _, on_card, _, counts = _train_run(small, aggregator, route, "auto",
+                                           cuda_params, small_batches)
+        _, on_cpu, _, _ = _train_run(small, aggregator, route, "auto",
+                                     cpu_params, small_batches)
+        rel = _tree_rel_to_max(on_card, on_cpu)
+        ok = rel <= TRAIN_ROUTE_BAR and counts[0] > 0
+        log(f"train (e) reduced {TRAIN_ARCH} {name}, {TRAIN_STEPS} steps: "
+            f"card vs CPU params {rel:.3e} of each leaf's max (bar "
+            f"{TRAIN_ROUTE_BAR}); K2 {counts[0]}, K1 {counts[1]} launches "
+            f"on the card {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train card vs CPU {name}")
+        record["card_vs_cpu"][name] = rel
+    mark("(e)")
+    record["launcher_s"] = launcher_s
+    log(f"train: seconds by part {json.dumps(seconds)}")
+    return launches, k1_launches, record
 
 
 def main() -> int:
@@ -3154,6 +3640,14 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # training over the MAC: K2 with lse in every forward, K1 in every
+    # transport slot
+    train_launches, mc_launches["train"], train_record = run_train(
+        attn_ops, ops)
+    elapsed('train')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # K3 and the RWKV6 serving path: one launch per layer in the prefill
     # and in each decode step
     wkv_errs = check_wkv_vs_plain()
@@ -3196,9 +3690,11 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "f32_source": ATTN_F32_SOURCE, "replaces": ATTN_REPLACES,
         "sass": sass,
-        "launches": sum(r["launches"] for r in served.values()),
+        "launches": sum(r["launches"] for r in served.values())
+        + sum(train_launches.values()),
         "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
-        "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes",
+        "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes; "
+        "lse atol 1e-05 + rtol 1e-06",
         "tflops": attn_primary["tflops"],
         "ms": attn_primary["ms"], "plain_ms": attn_primary["plain_ms"],
         "bound_ms": attn_primary["bound_ms"],
@@ -3206,8 +3702,10 @@ def main() -> int:
         "library_ms": attn_primary["library_ms"],
         "launches_by_run": {f"olmo-1b prompt {s}": r["launches"]
                             for s, r in served.items()}
-        | {"repro-100m prompt 2048 (route check)": repro_launches},
-        "shapes": attn_timings,
+        | {"repro-100m prompt 2048 (route check)": repro_launches}
+        | {f"train {name}": n for name, n in train_launches.items()},
+        "shapes": attn_timings, "lse": train_record["attention"],
+        "train": train_record,
         "f32": {"source": ATTN_F32_SOURCE, "launches": repro_launches,
                 "sass": f32_sass,
                 **{key: attn_f32[key] for key in (

@@ -1,6 +1,8 @@
 """Synthetic data generators (numpy copy of `repro.data.synthetic`).
 
-An MSD-like regression set matching the paper's federated experiment: 90
+Token streams with power-law unigram statistics and Markov structure for
+language-model training (no corpora are needed: the training launcher's
+data). An MSD-like regression set matching the paper's federated experiment: 90
 audio-feature covariates, a "release year" linear target + noise, one
 sample per node (paper §VI-A). Statistics (feature scale, year range) match
 the UCI YearPredictionMSD layout so the regularized least-squares objective
@@ -11,7 +13,55 @@ reference generators.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Iterator
+
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenDatasetConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.2
+
+
+class SyntheticTokens:
+    """Deterministic, seekable synthetic token batches (B, S+1) int32,
+    numpy arrays equal to the reference's for the same config."""
+
+    def __init__(self, cfg: TokenDatasetConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        v = cfg.vocab_size
+        # power-law unigram distribution over a shuffled vocab
+        ranks = np.arange(1, v + 1, dtype=np.float64)
+        probs = ranks ** (-cfg.zipf_a)
+        probs /= probs.sum()
+        self._probs = probs[rng.permutation(v)]
+        # cheap Markov structure: each token biases the next toward t+1 mod v
+        self._carry = 0.3
+
+    def batch(self, step: int) -> np.ndarray:
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed, step))
+        b, s = cfg.global_batch, cfg.seq_len + 1
+        iid = rng.choice(cfg.vocab_size, size=(b, s), p=self._probs)
+        out = iid.copy()
+        stay = rng.random((b, s)) < self._carry
+        for t in range(1, s):
+            out[:, t] = np.where(stay[:, t],
+                                 (out[:, t - 1] + 1) % cfg.vocab_size,
+                                 iid[:, t])
+        return out.astype(np.int32)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
 
 
 def msd_like_regression(n_samples: int, dim: int = 90, seed: int = 0,

@@ -66,7 +66,15 @@
 //   * GQA reads kv head h / group; ragged Sq and Skv are masked in the
 //     kernel; q, k, v and o are addressed through (batch, head, seq)
 //     strides, so the projections' (B, S, H, d) layout is read and written
-//     in place.
+//     in place;
+//   * the row log-sum-exp, when asked for (a non-null lse): the epilogue
+//     writes lse = m * scale + ln l (m + ln l under a softcap, where m is
+//     the capped logit) from the row state it already holds, in f32, one
+//     value a row of (batch * head, sq), the residual the flash backward
+//     reads (src/repro/models/flash_vjp.py:102-107). A row that holds
+//     NEG_INF alone writes NEG_INF + ln l = NEG_INF, as the plain version's
+//     logsumexp of its masked row. A null lse writes nothing: the launch
+//     keeps its grid and the output its bits.
 // Rounding against the plain version: d is summed by sequential FMAs, the
 // online softmax rescales per kv tile, and exp2 of the folded FMA replaces
 // exp of (x * scale - m); held to the f32 bar on the CPU by an emulation
@@ -111,6 +119,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // (batch * heads, sq) row log-sum-exp, or null: none
   int64_t q_sb, q_sh, q_ss;  // element strides: batch, head, sequence
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -421,6 +430,12 @@ __global__ void __launch_bounds__(kThreads)
           orow[32 * u + 3] = r.w;
         }
       }
+      if (p.lse != nullptr && lane == 0) {
+        const float mx = m[i] == kNegInf ? kNegInf
+                         : p.softcap > 0.0f ? m[i] : m[i] * p.scale;
+        p.lse[static_cast<int64_t>(bh) * p.sq + qi] =
+            mx + logf(l[i] == 0.0f ? 1.0f : l[i]);
+      }
     }
   }
 }
@@ -456,7 +471,8 @@ int dispatch_dim(const Params& p, int batch, int head_dim,
 // head_dim), o: like q; all f32 on the current device, with unit stride
 // along head_dim and the element strides
 // `strides` = {q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s}.
-// softcap <= 0 and window <= 0 mean none. copy_bytes picks the kernel's
+// softcap <= 0 and window <= 0 mean none. lse, when not null, receives
+// the f32 row log-sum-exp (batch * heads, sq), contiguous. copy_bytes picks the kernel's
 // copy width (the wrapper chooses, kernel.copy_bytes): 16 needs
 // 16-byte-aligned base addresses and strides that are multiples of 4
 // elements wherever the dimension is longer than 1, 4 takes any such view.
@@ -468,12 +484,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int heads, int group, int sq, int skv,
                                int head_dim, float scale, float softcap,
                                int causal, int window, void* stream,
-                               int copy_bytes) {
+                               int copy_bytes, void* lse) {
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
   p.q_sb = strides[0];
   p.q_sh = strides[1];
   p.q_ss = strides[2];

@@ -19,6 +19,11 @@ either is copied (`tma_ready`) into the contiguous (B, H, S, d) layout,
 and the kernel runs on the copy; the views the model path makes need no
 copy.
 
+`return_lse=True` also returns each row's log-sum-exp, the residual of
+the flash backward (`models/flash_vjp.py`): the f32 kernel writes it in
+its epilogue, from the same launch; the bf16 kernel does not yet (ROADMAP
+T4) and raises.
+
 `launch_count` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
 """
@@ -74,21 +79,29 @@ def tma_ready(*tensors) -> tuple:
                  for t in tensors)
 
 
-def _launch(q, k, v, *, scale, causal, window, softcap) -> torch.Tensor:
+def _launch(q, k, v, *, scale, causal, window, softcap, return_lse):
     global launch_count
     _validate(q, k, v, window=window, softcap=softcap)
     if q.dtype == torch.bfloat16:
+        if return_lse:
+            raise NotImplementedError(
+                "the bf16 attention kernel does not write the row "
+                "log-sum-exp that training's backward reads (ROADMAP T4: "
+                "lse from flash_attention_sm90.cu)")
         q, k, v = tma_ready(q, k, v)
     b, hq, sq, d = q.shape
     # (B, Sq, Hq, d) memory, so the caller's swap back to (B, S, H·d)
     # for the output projection is a view
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    if out.numel() == 0:
-        return out
-    kernel.launch(q, k, v, out, scale=scale, causal=causal, window=window,
-                  softcap=softcap)
-    launch_count += 1
+    lse = torch.empty((b * hq, sq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
+    if out.numel() > 0:
+        kernel.launch(q, k, v, out, scale=scale, causal=causal,
+                      window=window, softcap=softcap, lse=lse)
+        launch_count += 1
+    if return_lse:
+        return out, lse.view(b, hq, sq)
     return out
 
 
@@ -96,10 +109,11 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: float, causal: bool = True,
                          window: Optional[int] = None,
                          softcap: Optional[float] = None,
-                         impl: str = "auto") -> torch.Tensor:
+                         impl: str = "auto", return_lse: bool = False):
     """Attention over q (B, Hq, Sq, d) and k, v (B, Hkv, Skv, d), Hq a
     multiple of Hkv (GQA) -> (B, Hq, Sq, d) in q's dtype, accumulated in
-    f32.
+    f32; with `return_lse`, (out, lse (B, Hq, Sq) f32), lse the natural
+    log-sum-exp of each row's masked (capped) scaled logits.
 
     impl: 'auto' — the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors; 'kernel' — the CUDA kernel (CUDA tensors only); 'ref' —
@@ -126,11 +140,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = attention_ref(q.reshape(b * hq, sq, d),
                             k.reshape(b * hq, skv, d),
                             v.reshape(b * hq, skv, d), scale=scale,
-                            causal=causal, window=window, softcap=softcap)
+                            causal=causal, window=window, softcap=softcap,
+                            return_lse=return_lse)
+        if return_lse:
+            return out[0].reshape(b, hq, sq, d), out[1].reshape(b, hq, sq)
         return out.reshape(b, hq, sq, d)
     if device == "cuda":
         return _launch(q, k, v, scale=scale, causal=causal, window=window,
-                       softcap=softcap)
+                       softcap=softcap, return_lse=return_lse)
     _validate(q, k, v, window=window, softcap=softcap)
     raise ValueError(f"impl={impl!r}: the attention kernel runs on CUDA "
                      f"tensors, got a {device} tensor (use impl='ref' for "

@@ -22,9 +22,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: float, causal: bool = True,
                   window: Optional[int] = None,
                   softcap: Optional[float] = None,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0, return_lse: bool = False):
     """q (BH, Sq, d), k and v (BH, Skv, d) -> (BH, Sq, d) in q's dtype,
-    computed in f32."""
+    computed in f32. With `return_lse`, (out, lse): lse (BH, Sq) f32, the
+    natural log-sum-exp of each row's masked (capped) scaled logits — a
+    row with no live key gives NEG_INF + ln Skv, as the reference's."""
     qf, kf, vf = q.float(), k.float(), v.float()
     s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
     if softcap is not None:
@@ -39,4 +41,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= (q_idx - k_idx) < window
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, vf).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", p, vf).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out

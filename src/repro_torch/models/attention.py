@@ -3,16 +3,20 @@ kernel for prefill, and the KV cache for decode (port of the dense,
 unsharded part of `repro.models.attention`).
 
 `sdpa` is the kernel on CUDA tensors and its plain version on CPU tensors
-(`kernels.attention.ops.multi_head_attention`); `full_attention` is the
-materializing oracle. The KV cache is a dict of tensors updated IN PLACE
+(`kernels.attention.ops.multi_head_attention`); where autograd records
+(training), it is `models.flash_vjp.flash_attention`: the same forward
+with the row log-sum-exp, and the flash backward. `full_attention` is
+the materializing oracle. The KV cache is a dict of tensors updated IN PLACE
 (the reference returns a new pytree): at full width a copy per decoded
 token would move the whole cache (1.1 GB for olmo-1b at B = 4 and 2080
 positions) once per token.
 
 Out of this slice, and refused by `transformer.check_slice`: sliding
 windows, softcaps and qk-norm (ROADMAP S2), the int8 cache and head
-padding (S3), the runtime `is_global` flag (hymba, S6), the blockwise
-and custom-VJP training paths (T2) and the sharding calls (M8).
+padding (S3), the runtime `is_global` flag (hymba, S6) and the sharding
+calls (M8). The reference's blockwise jnp attention has no counterpart:
+serving takes K2 and training the flash backward, whatever
+`opt_flash_vjp` says.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention.ops import multi_head_attention
 from repro_torch.kernels.attention.ref import NEG_INF
+from repro_torch.models.flash_vjp import flash_attention
 from repro_torch.models.layers import dense_init, dtype_of, rope
 
 
@@ -84,9 +89,18 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def sdpa(q, k, v, cfg: ModelConfig, *, impl: str = "auto") -> torch.Tensor:
     """Causal attention for prefill: the flash-attention kernel on CUDA
     tensors, its plain version on CPU tensors (`impl` as in
-    `multi_head_attention`)."""
-    return multi_head_attention(q, k, v, scale=cfg.head_dim ** -0.5,
-                                causal=True, impl=impl)
+    `multi_head_attention`). Where grad is enabled and an input requires
+    it, `flash_attention` at the config's `attn_block_q` /
+    `attn_block_kv`: the same forward (K2 writing its log-sum-exp) and
+    the flash backward. bf16 there raises on the kernel route (ROADMAP
+    T4)."""
+    scale = cfg.head_dim ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_attention(q, k, v, scale=scale, causal=True,
+                               block_q=cfg.attn_block_q,
+                               block_kv=cfg.attn_block_kv, impl=impl)
+    return multi_head_attention(q, k, v, scale=scale, causal=True,
+                                impl=impl)
 
 
 # --------------------------------------------------------------------------

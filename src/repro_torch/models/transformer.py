@@ -16,6 +16,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -60,10 +62,6 @@ def check_slice(cfg: ModelConfig) -> None:
             f"{cfg.arch_id}: the int8 KV cache and head padding "
             "(opt_int8_cache, opt_pad_heads) are not ported yet "
             "(ROADMAP S3)")
-    if cfg.opt_flash_vjp:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the custom-VJP flash attention (opt_flash_vjp) "
-            "belongs to training, not ported yet (ROADMAP T2)")
 
 
 def build_segments(cfg: ModelConfig) -> tuple:
@@ -116,8 +114,31 @@ def logits_fn(params: dict, h: torch.Tensor,
 
 def chunked_xent(params: dict, h: torch.Tensor, labels: torch.Tensor,
                  mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    raise NotImplementedError("the chunked cross-entropy belongs to "
-                              "training, not ported yet (ROADMAP T1)")
+    """Per-example mean cross-entropy (B,), computed in sequence chunks
+    of `cfg.logit_chunk` so the full (B, S, vocab) f32 logits are never
+    held. Each chunk runs under `torch.utils.checkpoint`: the backward
+    recomputes its logits instead of keeping the (B, chunk, V) softmax
+    residuals of every chunk, as the reference's `jax.checkpoint`."""
+    b, s, _ = h.shape
+    chunk = min(cfg.logit_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def step(hs, ls, ms):
+        logits = logits_fn(params, hs, cfg)  # (B, chunk, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ls.long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * ms, dim=-1)
+
+    tot = torch.zeros((b,), dtype=torch.float32, device=h.device)
+    for lo in range(0, s + pad, chunk):
+        cols = slice(lo, lo + chunk)
+        tot = tot + checkpoint(step, h[:, cols], labels[:, cols],
+                               mask[:, cols], use_reentrant=False)
+    return tot / torch.clamp_min(torch.sum(mask, dim=-1).float(), 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +164,9 @@ def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     decode_pos: Optional[int] = None,
                     impl: str = "auto") -> tuple:
     """x (B, S, D) embedded inputs -> (final-normed hidden, cache). The
-    cache, when given, is updated in place and returned."""
+    cache, when given, is updated in place and returned. Without a cache
+    the forward is differentiable: each layer reads views of the stacked
+    leaves (`layer_slice`), so gradients reach the stacked tensors."""
     for i, seg in enumerate(build_segments(cfg)):
         seg_params = params["segments"][f"seg{i}"]
         seg_cache = None if cache is None else cache[f"seg{i}"]

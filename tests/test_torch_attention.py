@@ -83,7 +83,7 @@ def _bf16(a):
 
 
 def _tiled_numerics(q, k, v, *, scale, bq, bk, causal, window, softcap,
-                    round_p, d_chunk=None):
+                    round_p, d_chunk=None, return_lse=False):
     """The arithmetic the flash-attention kernels share, in PyTorch on the
     CPU, in f32: q tiles of `bq` queries against kv tiles of `bk` keys with
     the causal break and the window skip, the online softmax on logits in
@@ -93,7 +93,9 @@ def _tiled_numerics(q, k, v, *, scale, bq, bk, causal, window, softcap,
     unrounded P, P rounded to bf16 before the PV product (`round_p`), the
     output divided by l (l == 0 guard). QKᵀ sums d in one product, or
     (`d_chunk`) in chunks of that many columns added one after another.
-    The kernels fuse x·c − m·c into one FMA."""
+    The kernels fuse x·c − m·c into one FMA. With `return_lse`, also the
+    f32 kernel's row log-sum-exp from its row state: m·scale + ln l (m +
+    ln l under a softcap), NEG_INF where the row holds NEG_INF alone."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -102,6 +104,7 @@ def _tiled_numerics(q, k, v, *, scale, bq, bk, causal, window, softcap,
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     out = torch.empty_like(qf)
+    lse = torch.empty((b, hq, sq))
     n_tiles = -(-skv // bk)
     chunks = [(0, d)] if d_chunk is None else [
         (i, i + d_chunk) for i in range(0, d, d_chunk)]
@@ -143,7 +146,9 @@ def _tiled_numerics(q, k, v, *, scale, bq, bk, causal, window, softcap,
             m = m_new
         l = torch.where(l == 0, 1.0, l)
         out[:, :, q0:q0 + bq] = (o / l[..., None])[:, :, :sq - q0]
-    return out
+        mx = torch.where(m == -1e30, -1e30, m if softcap else m * scale)
+        lse[:, :, q0:q0 + bq] = (mx + torch.log(l))[:, :, :sq - q0]
+    return (out, lse) if return_lse else out
 
 
 def _sm90_numerics(q, k, v, *, scale, causal=True, window=None,
@@ -160,7 +165,7 @@ def _sm90_numerics(q, k, v, *, scale, causal=True, window=None,
 
 
 def _f32_numerics(q, k, v, *, scale, causal=True, window=None,
-                  softcap=None):
+                  softcap=None, return_lse=False):
     """The arithmetic of the f32 CUDA-core kernel (`csrc/
     flash_attention.cu`): `_tiled_numerics` at its q tiles of 128 queries
     (64 at d > 64) and kv tiles of 64 keys (32 at d = 256), QKᵀ summed
@@ -169,7 +174,7 @@ def _f32_numerics(q, k, v, *, scale, causal=True, window=None,
     return _tiled_numerics(q, k, v, scale=scale, bq=128 if d <= 64 else 64,
                            bk=32 if d == 256 else 64, causal=causal,
                            window=window, softcap=softcap, round_p=False,
-                           d_chunk=4)
+                           d_chunk=4, return_lse=return_lse)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,kw", F32_CASES)
@@ -218,6 +223,30 @@ def test_f32_kernel_numerics_hold_the_bar(b, hq, hkv, s, d, kw):
     margin = (bar / err.clamp_min(1e-30)).min().item()
     print(f"f32 kernel numerics vs plain, max abs error "
           f"{err.max().item():.3e}, margin to the bar {margin:.1f}x")
+    assert torch.all(err <= bar)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", F32_CASES)
+def test_f32_kernel_lse_numerics_hold_the_bar(b, hq, hkv, s, d, kw):
+    """The f32 kernel's row log-sum-exp, written in its epilogue from the
+    row state (m in q·k units, or the capped logit; l the exp2 sum), as
+    the emulation computes it, against the plain version's logsumexp at
+    1e-5 + 1e-6·|lse| over the seven reference cases; its output is the
+    emulation's without `lse`."""
+    kw = {"causal": True, **kw}
+    q, k, v = (torch.from_numpy(_normal((b, h, s, d), 30 + i))
+               for i, h in enumerate((hq, hkv, hkv)))
+    _, plain = multi_head_attention(q, k, v, scale=d ** -0.5, impl="ref",
+                                    return_lse=True, **kw)
+    emu_out, emu = _f32_numerics(q, k, v, scale=d ** -0.5, return_lse=True,
+                                 **kw)
+    assert torch.equal(emu_out, _f32_numerics(q, k, v, scale=d ** -0.5,
+                                              **kw))
+    err = (emu - plain).abs()
+    bar = 1e-5 + 1e-6 * plain.abs()
+    print(f"f32 kernel lse numerics vs plain, max abs error "
+          f"{err.max().item():.3e}, margin to the bar "
+          f"{(bar / err.clamp_min(1e-30)).min().item():.1f}x")
     assert torch.all(err <= bar)
 
 

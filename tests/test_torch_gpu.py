@@ -14,7 +14,9 @@ wider leaf read in place, with the bits of a contiguous copy, also
 where a leaf's rows lie 7e7 elements apart; a leaf of 20,480,000
 columns; `transport.aggregate` one launch per block),
 flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
-each at every reference case) and the WKV6 recurrence (K3), the last two
+each at every reference case; the f32 kernel's row log-sum-exp, the
+flash backward through it and a reduced training step on both routes)
+and the WKV6 recurrence (K3), the last two
 also at their serving slices' shapes; K3 also at lengths off its chunk,
 on views off 16 bytes and for repeatability. The port's threefry is
 checked to draw an odd count without a host-to-device copy, and a long
@@ -399,6 +401,134 @@ def test_bf16_attention_kernel_refuses_views_tma_cannot_load(cuda):
     assert torch.equal(out, dense)
     ref = multi_head_attention(q, k, v, scale=0.125, impl="ref")
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+# the training shape (B, heads, S, head_dim) of repro-100m at the train
+# launcher's defaults (batch 8, seq 256)
+TRAIN_ATTN_SHAPE = (8, 10, 10, 256, 64)
+LSE_BAR = (1e-5, 1e-6)  # atol + rtol * |lse|
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", ATTN_TEST_SHAPES
+                         + [(*TRAIN_ATTN_SHAPE, {})])
+def test_attention_kernel_writes_lse(cuda, b, hq, hkv, s, d, kw):
+    """The f32 kernel's row log-sum-exp against the plain version's, and
+    its output with `lse` at the f32 bar and equal bit for bit to a
+    launch without it."""
+    q, k, v = _qkv(b, hq, hkv, s, d, torch.float32, s + d + 1, cuda)
+    scale = d ** -0.5
+    before = attn_ops.launch_count
+    out, lse = multi_head_attention(q, k, v, scale=scale, return_lse=True,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count == before + 1
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    ref, ref_lse = multi_head_attention(q, k, v, scale=scale, impl="ref",
+                                        return_lse=True, **kw)
+    print(f"{(b, hq, hkv, s, d)} {kw}: lse max abs error "
+          f"{(lse - ref_lse).abs().max().item():.3e}")
+    torch.testing.assert_close(out, ref, atol=5e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_BAR[0],
+                               rtol=LSE_BAR[1])
+    assert torch.equal(out, multi_head_attention(q, k, v, scale=scale,
+                                                 **kw))
+
+
+def test_bf16_kernel_refuses_lse(cuda):
+    q, k, v = _qkv(1, 2, 2, 64, 64, torch.bfloat16, 3, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP T4"):
+        multi_head_attention(q, k, v, scale=0.125, return_lse=True)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", [
+    (*TRAIN_ATTN_SHAPE, {}),
+    # the reference's GQA + window + softcap case at d = 32 (K2 takes
+    # head_dim 32, 64, 128, 256)
+    (1, 2, 1, 128, 32, {"window": 40, "softcap": 25.0}),
+])
+def test_flash_vjp_kernel_route_matches_plain_route(cuda, b, hq, hkv, s, d,
+                                                    kw):
+    """`flash_attention`'s output and gradients with K2's forward against
+    the plain forward (both with the flash backward) and against
+    autograd through `full_attention`, at tests/test_flash_vjp.py's bars
+    (out atol 2e-5 + rtol 1e-4, gradients atol 5e-4 + rtol 5e-3)."""
+    from repro_torch.models.attention import full_attention
+    from repro_torch.models.flash_vjp import flash_attention
+
+    q, k, v = _qkv(b, hq, hkv, s, d, torch.float32, 21, cuda)
+    t = torch.randn_like(q)
+    runs = {}
+    for name in ("kernel", "ref", "full"):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = attn_ops.launch_count
+        if name == "full":
+            out = full_attention(*leaves, scale=d ** -0.5, **kw)
+        else:
+            out = flash_attention(*leaves, scale=d ** -0.5, block_q=128,
+                                  block_kv=256, impl=name, **kw)
+        (out * t).sum().backward()
+        torch.cuda.synchronize()
+        assert attn_ops.launch_count == before + (name == "kernel")
+        runs[name] = (out.detach(), [x.grad for x in leaves])
+    for other in ("ref", "full"):
+        torch.testing.assert_close(runs["kernel"][0], runs[other][0],
+                                   atol=2e-5, rtol=1e-4)
+        for a, b_ in zip(runs["kernel"][1], runs[other][1]):
+            torch.testing.assert_close(a, b_, atol=5e-4, rtol=5e-3)
+
+
+@pytest.mark.parametrize("aggregator,route", [("gbma", "auto"),
+                                              ("momentum", "auto")])
+def test_reduced_training_step_kernel_route_matches_plain_route(
+        cuda, aggregator, route):
+    """Two steps of the reduced repro-100m on the card: K2 (and K1 on the
+    transport route) against the plain versions (`impl='ref'`,
+    `ota_impl='ref'`): losses within 1e-5 relative, parameters within
+    1e-5 of each leaf's largest |p|."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import transport
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.gbma import GBMAConfig
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.gd import momentum
+    from repro_torch.training.train_step import TrainConfig, build_train_step
+
+    cfg = get_config("repro-100m").reduced()
+    ch = ChannelConfig(fading="rayleigh", noise_std=0.01)
+    params0 = build_model(cfg).init_params(device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 33), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(2))
+    out = {}
+    for impl in ("auto", "ref"):
+        tp = transport.TransportConfig(n_nodes=8, channel=ch, gamma=0.9,
+                                       stepsize=0.05, ota_impl=impl) \
+            if aggregator != "gbma" else None
+        tcfg = TrainConfig(aggregator=aggregator, gbma=GBMAConfig(
+            n_nodes=8, channel=ch), route=route, transport=tp)
+        step = build_train_step(build_model(cfg, impl=impl), tcfg,
+                                momentum(0.05))
+        params = tree_map(lambda x: x.clone(), params0)
+        state = step.init_state(params)
+        before = (attn_ops.launch_count, ops.launch_count)
+        losses = []
+        for i in range(2):
+            params, state, metrics = step(params, state, {"tokens": tokens},
+                                          i)
+            losses.append(float(metrics["loss"]))
+        launches = (attn_ops.launch_count - before[0],
+                    ops.launch_count - before[1])
+        out[impl] = (losses, tree_leaves(params), launches)
+    n_leaves = len(tree_leaves(params0))
+    per_step_attn = cfg.n_layers * (8 if aggregator != "gbma" else 1)
+    assert out["auto"][2] == (2 * per_step_attn,
+                              2 * n_leaves if aggregator != "gbma" else 0)
+    assert out["ref"][2] == (0, 0)
+    for a, b_ in zip(out["auto"][0], out["ref"][0]):
+        assert abs(a - b_) <= 1e-5 * abs(b_)
+    for a, b_ in zip(out["auto"][1], out["ref"][1]):
+        assert (a - b_).abs().max() <= 1e-5 * b_.abs().max()
 
 
 # ------------------------------------------------------------------ WKV6 (K3)

@@ -50,6 +50,13 @@ SERVER_MODULES = {"repro_torch.serving.mc_server",
 TRANSPORT_MODULES = {"repro_torch.core.transport", "repro_torch.core.gbma",
                      "repro_torch.core.baselines",
                      "repro_torch.core.waveform", "repro_torch.core.tree"}
+# the training stack (T1-T3)
+TRAINING_MODULES = {"repro_torch.optim.gd", "repro_torch.data.synthetic",
+                    "repro_torch.models.flash_vjp",
+                    "repro_torch.models.transformer",
+                    "repro_torch.models.model",
+                    "repro_torch.training.train_step",
+                    "repro_torch.training.loop", "repro_torch.launch.train"}
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -62,14 +69,16 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert RWKV_MODULES <= names, RWKV_MODULES - names
     assert SERVER_MODULES <= names, SERVER_MODULES - names
     assert TRANSPORT_MODULES <= names, TRANSPORT_MODULES - names
+    assert TRAINING_MODULES <= names, TRAINING_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
-@pytest.mark.parametrize("module", sorted(TRANSPORT_MODULES))
+@pytest.mark.parametrize("module", sorted(TRANSPORT_MODULES
+                                          | TRAINING_MODULES))
 def test_transport_module_alone_loads_no_jax_and_no_reference(module):
-    """Each M7 module imported first in a fresh interpreter (its own
-    import order, the package's re-exports included) loads neither JAX
-    nor the reference."""
+    """Each M7 and training module imported first in a fresh interpreter
+    (its own import order, the package's re-exports included) loads
+    neither JAX nor the reference."""
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -214,7 +223,6 @@ def test_antenna_budget_and_batch_arguments_are_checked(kwargs, match):
 # ----------------------------------------------------------- serving slice
 from repro_torch.configs.registry import PENDING, get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
 
@@ -262,7 +270,6 @@ OUT_OF_SLICE_CONFIG = [
     ({"family": "encdec"}, "S7"),
     ({"n_patches": 8}, "S7"),
     ({"use_rope": False}, "S7"),
-    ({"opt_flash_vjp": True}, "T2"),
 ]
 
 
@@ -274,11 +281,32 @@ def test_out_of_slice_config_raises(overrides, item):
 
 
 def test_training_entry_points_raise():
+    """Training is ported for the dense decoder (`opt_flash_vjp` builds:
+    the port trains through its flash backward either way); RWKV
+    training (T5) and rbg keys (T6) raise naming their items; the
+    launcher's case is the test below."""
+    from repro_torch.optim.gd import gd
+    from repro_torch.training.train_step import TrainConfig, build_train_step
+
     cfg = get_config("repro-100m").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP T1"):
-        build_model(cfg).train_loss_per_example({}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP T1"):
-        transformer.chunked_xent({}, None, None, None, cfg)
+    assert build_model(cfg.with_(opt_flash_vjp=True)).kind == "transformer"
+    with pytest.raises(NotImplementedError, match="ROADMAP T5"):
+        build_model(get_config("rwkv6-7b").reduced()) \
+            .train_loss_per_example({}, {"tokens": None})
+    with pytest.raises(NotImplementedError, match="ROADMAP T6"):
+        build_train_step(build_model(cfg), TrainConfig(rng_impl="rbg"),
+                         gd(0.1))
+
+
+def test_train_launcher_without_device_raises_where_cuda_is_absent(
+        monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1", "--device", "cuda"])
 
 
 # ------------------------------------------- node participation and ablations
