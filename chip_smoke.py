@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile-src DIR   # step profile of DIR/src only
 
 Builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together: K1, K2's f32 and bf16 kernels, K3),
+nvcc per source, all started together: K1, K2's f32 and bf16 kernels, K3
+and its backward),
 logs ptxas's registers and spills, the attention kernels' SASS (the
 bf16 kernel's HGMMAs; the f32 kernel's FFMA and LDS.128 counts, failing
 on any tensor-core instruction there) and K3's shared memory, and holds
@@ -72,6 +73,18 @@ drives the port's main paths:
   K1 in every slot, the kernel route held to the plain route, each
   step timed whole and by part with its peak memory, and the card held
   to the CPU on the reduced model;
+* training olmo-1b and rwkv6-7b over the MAC ("train models"): K2's
+  bf16 kernel with its row log-sum-exp against its plain version (its
+  output bits unchanged without it) and timed at olmo-1b's training
+  shape; the hand-written WKV backward against the plain backward and
+  timed at rwkv6-7b's; the launcher on olmo-1b; olmo-1b at full width and
+  depth and rwkv6-7b at full width with 4 of its 32 layers, in bf16, 4
+  steps each on the fused gbma route and through the transport (gbma,
+  receiver momentum): K2 in every olmo-1b forward, K3 and the backward in
+  every rwkv6-7b layer, K1 in every slot, each step timed whole and by
+  part with its profile and peak memory; the kernel route held to the
+  plain route on the first batch, and the card to the CPU on the reduced
+  models;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
   bf16 at a 32- and a 2048-token prompt, with the same checks (the plain
   route at the 32-token prompt) and the weights' initialization peak.
@@ -94,6 +107,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
 import math
 import os
@@ -102,6 +117,12 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# The training phases alternate multi-GB per-node gradient trees, noise
+# draws and activations; with fixed-size segments the caching allocator
+# held 35 GiB reserved but unallocated and refused an 8 GiB block in
+# rwkv6-7b's transport step on an H100. Expandable segments map memory
+# as it is needed (read when the allocator first runs).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
@@ -205,11 +226,12 @@ MAIN_SHAPES = {
 }
 # route checks (kernel vs plain on the card) cut the steps, never N, d, M
 # or the seeds: every ablation call, fig5, fig7, fig8 and LARGE MRC (at
-# its 1,024 seeds) at these many steps; the main paths run in full
+# its 1,024 seeds) at these many steps; the main paths run in full (fig5,
+# fig7 and fig8 halved to make room for the "train models" phase)
 ABLATION_ROUTE_STEPS = 50
-FIG5_ROUTE_STEPS = 150
-FIG7_ROUTE_STEPS = 100
-FIG8_ROUTE_STEPS = 100
+FIG5_ROUTE_STEPS = 75
+FIG7_ROUTE_STEPS = 50
+FIG8_ROUTE_STEPS = 50
 LARGE_MRC_ROUTE_STEPS = 20
 
 
@@ -2155,8 +2177,8 @@ def build_kernels() -> tuple:
     attention kernel per head_dim, K1's registers, spills and shared
     memory per instantiation (`ota_build_summary`), the SASS of the bf16
     (`sass_summary`) and the f32 (`f32_sass_summary`) attention kernels
-    and the WKV kernel's registers, spills and shared memory
-    (`wkv_build_summary`), which it returns."""
+    and the WKV kernels' registers, spills and shared memory
+    (`wkv_build_summary`, `wkv_bwd_build_summary`), which it returns."""
     import torch
 
     from repro_torch.kernels.attention import kernel as attn_kernel
@@ -2167,7 +2189,9 @@ def build_kernels() -> tuple:
               "flash_attention": (attn_kernel.build, attn_kernel.SOURCE),
               "flash_attention_sm90": (attn_kernel.build_sm90,
                                        attn_kernel.SM90_SOURCE),
-              "wkv6": (wkv_kernel.build, wkv_kernel.SOURCE)}
+              "wkv6": (wkv_kernel.build, wkv_kernel.SOURCE),
+              "wkv6_bwd": (wkv_kernel.build_backward,
+                           wkv_kernel.BWD_SOURCE)}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         futs = {name: pool.submit(fn) for name, (fn, _) in builds.items()}
@@ -2190,7 +2214,38 @@ def build_kernels() -> tuple:
     return (ota_build_summary(infos["ota_aggregate"]),
             sass_summary(infos["flash_attention_sm90"].path),
             f32_sass_summary(infos["flash_attention"]),
-            wkv_build_summary(infos["wkv6"]))
+            wkv_build_summary(infos["wkv6"]),
+            wkv_bwd_build_summary(infos["wkv6_bwd"]))
+
+
+def wkv_bwd_build_summary(info) -> dict:
+    """Per instantiation of the WKV backward, keyed "<dtype> d=<head_dim>":
+    ptxas's registers and spill bytes and the block's dynamic shared
+    memory. Raises if an instantiation is missing."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels.wkv import kernel as wkv_kernel
+
+    def key(mangled):
+        m = re.search(r"wkv6_bwd_kernelI(13__nv_bfloat16|f)Li(\d+)EE",
+                      mangled)
+        if not m:
+            return None
+        return f"{'bf16' if m.group(1) != 'f' else 'f32'} d={m.group(2)}"
+
+    out = ptxas_by_kernel(info.log, key)
+    smem = ctypes.CDLL(str(info.path)).wkv6_bwd_smem_bytes
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_int
+    for dtype in ("f32", "bf16"):
+        for d in wkv_kernel.HEAD_DIMS:
+            out.setdefault(f"{dtype} d={d}", {})["smem_bytes"] = smem(d)
+    log(f"wkv6_bwd ptxas and shared memory per kernel: {out}")
+    if not all("registers" in v for v in out.values()):
+        raise AssertionError("the WKV backward library lacks an "
+                             "instantiation")
+    return out
 
 
 def _sass(lib) -> str:
@@ -2307,7 +2362,8 @@ def ota_build_summary(info) -> dict:
 
 def wkv_build_summary(info) -> dict:
     """Per instantiation of the WKV library, keyed "<dtype> d=<head_dim>
-    copy=<16|element>": ptxas's registers and spill bytes and the block's
+    copy=<16|element>[ ckpt]" (ckpt: the training instantiation writing
+    chunk checkpoints): ptxas's registers and spill bytes and the block's
     dynamic shared memory. Raises if an instantiation is missing."""
     import re
 
@@ -2316,21 +2372,23 @@ def wkv_build_summary(info) -> dict:
     from repro_torch.kernels.wkv import kernel as wkv_kernel
 
     def key(mangled):
-        m = re.search(r"wkv6_kernelI(13__nv_bfloat16|f)Li(\d+)ELb(\d)E",
-                      mangled)
+        m = re.search(r"wkv6_kernelI(13__nv_bfloat16|f)Li(\d+)ELb(\d)ELb"
+                      r"(\d)E", mangled)
         if not m:
             return None
         dtype = "bf16" if m.group(1) != "f" else "f32"
         copy = "16" if m.group(3) == "1" else "element"
-        return f"{dtype} d={m.group(2)} copy={copy}"
+        ckpt = " ckpt" if m.group(4) == "1" else ""
+        return f"{dtype} d={m.group(2)} copy={copy}{ckpt}"
 
     out = ptxas_by_kernel(info.log, key)
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for d in wkv_kernel.HEAD_DIMS:
             smem = wkv_kernel.smem_bytes(d, dtype)
             for copy in ("16", "element"):
-                out.setdefault(f"{name} d={d} copy={copy}", {})[
-                    "smem_bytes"] = smem
+                for ckpt in ("", " ckpt"):
+                    out.setdefault(f"{name} d={d} copy={copy}{ckpt}", {})[
+                        "smem_bytes"] = smem
     log(f"wkv6 ptxas and shared memory per kernel: {out}")
     if info.log and not all("registers" in v for v in out.values()):
         raise AssertionError("the WKV library lacks an instantiation")
@@ -3079,21 +3137,31 @@ TRAIN_VJP_BARS = {"out": (2e-5, 1e-4), "grad": (5e-4, 5e-3)}
 TRAIN_ROUTE_BAR = 1e-5
 
 
-def check_attention_lse() -> dict:
-    """(a) K2's f32 kernel with `lse` against its plain version at the
-    reference tests' cases and the training shape: `out` at the f32 bar
-    (atol 5e-5 + rtol 1e-4), `lse` within 1e-5 + 1e-6·|lse|; a launch
+# per dtype: the kernel's output bar (atol, rtol), its training shape
+# (B, H, S, d) and the label its lines carry
+LSE_CASES = {"float32": ((5e-5, 1e-4), TRAIN_ATTN_SHAPE, "train (a) K2"),
+             "bfloat16": ((3e-2, 0.0), (8, 16, 256, 128),
+                          "train models (f) K2 bf16")}
+
+
+def check_attention_lse(dtype_name: str = "float32") -> dict:
+    """(a), and (f) in bf16: K2's kernel of `dtype_name` with `lse`
+    against its plain version at the reference tests' cases and the
+    training shape: `out` at the dtype's bar (f32: atol 5e-5 + rtol
+    1e-4; bf16: atol 3e-2), `lse` within 1e-5 + 1e-6·|lse|; a launch
     without `lse` gives the bits of a launch with it there and at the
-    f32 serving shape. Returns the max abs errors of out and lse."""
+    dtype's serving shapes. Returns the max abs errors of out and lse."""
     import torch
 
     from repro_torch.kernels.attention.ops import multi_head_attention
 
-    tb, th, ts, td = TRAIN_ATTN_SHAPE
+    (atol, rtol), (tb, th, ts, td), label = LSE_CASES[dtype_name]
+    dtype = getattr(torch, dtype_name)
     shapes = [*ATTN_TEST_SHAPES, (tb, th, th, ts, td, {})]
     worst = {"out": 0.0, "lse": 0.0}
     for i, (b, hq, hkv, s, d, kw) in enumerate(shapes):
-        q, k, v = attn_inputs(b, hq, hkv, s, d, torch.float32, 300 + i)
+        q, k, v = attn_inputs(b, hq, hkv, s, d, dtype,
+                              (300 if dtype_name == "float32" else 400) + i)
         scale = d ** -0.5
         out, lse = multi_head_attention(q, k, v, scale=scale,
                                         return_lse=True, **kw)
@@ -3102,32 +3170,33 @@ def check_attention_lse() -> dict:
                                             **kw)
         bare = multi_head_attention(q, k, v, scale=scale, **kw)
         torch.cuda.synchronize()
-        err = (out - ref).abs()
+        err = (out.float() - ref.float()).abs()
         lse_err = (lse - ref_lse).abs()
         ok = bool(torch.isfinite(out).all() and torch.isfinite(lse).all()
-                  and (err <= 5e-5 + 1e-4 * ref.abs()).all()
+                  and (err <= atol + rtol * ref.float().abs()).all()
                   and (lse_err <= TRAIN_LSE_BAR[0]
                        + TRAIN_LSE_BAR[1] * ref_lse.abs()).all())
         same = torch.equal(bare, out)
         worst["out"] = max(worst["out"], err.max().item())
         worst["lse"] = max(worst["lse"], lse_err.max().item())
-        log(f"train (a) K2 with lse q{(b, hq, s, d)} kv{(b, hkv, s, d)} "
+        log(f"{label} with lse q{(b, hq, s, d)} kv{(b, hkv, s, d)} "
             f"{kw}: out max_abs_err={err.max().item():.3e}, lse "
             f"max_abs_err={lse_err.max().item():.3e} (bar "
             f"{TRAIN_LSE_BAR[0]} + {TRAIN_LSE_BAR[1]}|lse|), without lse "
             f"== with lse bitwise: {same} {'ok' if ok and same else 'FAIL'}")
         if not (ok and same):
-            raise AssertionError(f"K2 with lse at {(b, hq, hkv, s, d, kw)}")
+            raise AssertionError(f"K2 {dtype_name} with lse at "
+                                 f"{(b, hq, hkv, s, d, kw)}")
     for b, h, s, d, dt in ATTN_SLICE_SHAPES:
-        if dt != "float32":
+        if dt != dtype_name:
             continue
-        q, k, v = attn_inputs(b, h, h, s, d, torch.float32, s + d)
+        q, k, v = attn_inputs(b, h, h, s, d, dtype, s + d)
         bare = multi_head_attention(q, k, v, scale=d ** -0.5)
         out, _ = multi_head_attention(q, k, v, scale=d ** -0.5,
                                       return_lse=True)
         same = torch.equal(bare, out)
-        log(f"train (a) K2 serving shape {(b, h, s, d)} f32: without lse "
-            f"== with lse bitwise: {same}")
+        log(f"{label} serving shape {(b, h, s, d)} {dtype_name}: without "
+            f"lse == with lse bitwise: {same}")
         if not same:
             raise AssertionError("K2's lse launch changed the output bits")
     return worst
@@ -3320,10 +3389,11 @@ def train_step_split(cfg, aggregator, route, params, batch,
     return row
 
 
-def time_train_attention() -> dict:
-    """(d) K2 at the training shape: the bare launch with and without
-    `lse`, the plain version with lse, SDPA, the bound, and the flash
-    backward (plain PyTorch, `block_q` 128 x `block_kv` 256) per call."""
+def time_train_attention(dtype_name: str = "float32") -> dict:
+    """(d), and (f) in bf16: K2's kernel of `dtype_name` at its training
+    shape: the bare launch with and without `lse`, the plain version
+    with lse, SDPA, the bound; in f32 also the flash backward (plain
+    PyTorch, `block_q` 128 x `block_kv` 256) per call."""
     import torch
     import torch.nn.functional as F
 
@@ -3331,13 +3401,14 @@ def time_train_attention() -> dict:
     from repro_torch.kernels.attention.ops import multi_head_attention
     from repro_torch.models.flash_vjp import flash_backward
 
-    b, h, s, d = TRAIN_ATTN_SHAPE
-    q, k, v = attn_inputs(b, h, h, s, d, torch.float32, 7)
+    _, shape, label = LSE_CASES[dtype_name]
+    b, h, s, d = shape
+    q, k, v = attn_inputs(b, h, h, s, d, getattr(torch, dtype_name), 7)
     scale = d ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty((b * h, s), dtype=torch.float32, device="cuda")
     launch = dict(scale=scale, causal=True, window=None, softcap=None)
-    row = {"shape": list(TRAIN_ATTN_SHAPE),
+    row = {"shape": list(shape), "dtype": dtype_name,
            "lse_ms": cuda_ms(lambda: kernel.launch(q, k, v, out, lse=lse,
                                                    **launch), 200),
            "ms": cuda_ms(lambda: kernel.launch(q, k, v, out, **launch),
@@ -3346,22 +3417,24 @@ def time_train_attention() -> dict:
                q, k, v, scale=scale, impl="ref", return_lse=True), 50),
            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, scale=scale), 200)}
-    bound, bound_by = attention_bound(b, h, s, d, "float32")
+    bound, bound_by = attention_bound(b, h, s, d, dtype_name)
     # the lse launch also writes B·H·S f32 values
-    lse_bytes_ms = (4 * b * h * d * 4 * s + 4 * b * h * s) \
+    lse_bytes_ms = (4 * b * h * d * q.element_size() * s + 4 * b * h * s) \
         / HBM_BYTES_PER_S * 1e3
     row["bound_ms"], row["bound_by"] = bound, bound_by
     row["lse_bound_ms"] = max(bound, lse_bytes_ms)
-    o, ls = multi_head_attention(q, k, v, scale=scale, return_lse=True)
-    do = torch.randn_like(o)
-    row["backward_ms"] = cuda_ms(lambda: flash_backward(
-        q, k, v, o, ls, do, scale=scale, causal=True, window=None,
-        softcap=None, q_offset=0, block_q=128, block_kv=256), 20)
-    log(f"train (d) K2 at {TRAIN_ATTN_SHAPE} f32: with lse "
-        f"{row['lse_ms']:.6f} ms, without {row['ms']:.6f} ms, plain "
-        f"{row['plain_ms']:.6f} ms, SDPA {row['library_ms']:.6f} ms, bound "
-        f"{bound:.6f} ms ({bound_by}; with lse {row['lse_bound_ms']:.6f}); "
-        f"flash backward {row['backward_ms']:.6f} ms per call")
+    backward = ""
+    if dtype_name == "float32":
+        o, ls = multi_head_attention(q, k, v, scale=scale, return_lse=True)
+        do = torch.randn_like(o)
+        row["backward_ms"] = cuda_ms(lambda: flash_backward(
+            q, k, v, o, ls, do, scale=scale, causal=True, window=None,
+            softcap=None, q_offset=0, block_q=128, block_kv=256), 20)
+        backward = f"; flash backward {row['backward_ms']:.6f} ms per call"
+    log(f"{label} at {shape} {dtype_name}: with lse {row['lse_ms']:.6f} "
+        f"ms, without {row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, "
+        f"SDPA {row['library_ms']:.6f} ms, bound {bound:.6f} ms "
+        f"({bound_by}; with lse {row['lse_bound_ms']:.6f}){backward}")
     return row
 
 
@@ -3389,9 +3462,6 @@ def run_train(attn_ops, ota_ops) -> tuple:
         each route in (c).
 
     Returns (K2 launches, K1 launches, the record)."""
-    import contextlib
-    import io
-
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -3517,6 +3587,510 @@ def run_train(attn_ops, ota_ops) -> tuple:
     return launches, k1_launches, record
 
 
+# --------------------------------------------------------------------------
+# training olmo-1b in bf16 (T4) and rwkv6-7b (T5) over the MAC: K2's bf16
+# kernel writing its log-sum-exp, K3 writing chunk checkpoints and the
+# hand-written WKV backward kernel
+# --------------------------------------------------------------------------
+WKV_BWD_SOURCE = "src/repro_torch/kernels/wkv/csrc/wkv6_bwd.cu"
+# the JAX package's WKV gradient: jax.vjp of the checkpointed scan (no
+# backward Pallas kernel); the backward kernel replaces that
+WKV_BWD_REPLACES = "src/repro/kernels/wkv/ref.py:39"  # wkv6_ref, via jax.vjp
+MODEL_TRAIN_ARCHS = ("olmo-1b", "rwkv6-7b")
+# rwkv6-7b trains at full width with 4 of its 32 layers: at full depth its
+# 7.53 B parameters (15.1 GB bf16), f32 momentum (30.1 GB), gradients and
+# the largest leaf's f32 noise draw do not fit one 80 GB card beside the
+# activations (the reference shards it, fsdp=True)
+RWKV_TRAIN_LAYERS = 4
+# the routes whose step (g) profiles (a profile of a transport step costs
+# ~10 s of profiler overhead; gbma through the transport issues what
+# momentum's does but the carry)
+MODEL_TRAIN_PROFILED = ("gbma fused", "momentum transport")
+# the WKV backward at rwkv6-7b's training shape (B, H, T, D), then the
+# reference tests' shapes and a length off the chunks
+WKV_TRAIN_SHAPE = (8, 64, 256, 64)
+WKV_BWD_CASES = (*((s, "float32") for s in WKV_TEST_SHAPES),
+                 (WKV_TRAIN_SHAPE, "float32"), (WKV_TRAIN_SHAPE, "bfloat16"),
+                 ((2, 8, 100, 64), "bfloat16"))
+# the backward kernel against the plain backward: every gradient within
+# 1e-4 of its largest magnitude, plus one bf16 rounding (2^-7·|g|) of the
+# four the kernel writes in bf16 (du and ds0 are f32)
+WKV_BWD_BAR = 1e-4
+# (h) the kernel route against the plain route on the first batch at full
+# width in bf16. The losses are held within 1e-2 relative. Each leaf's
+# gradient is held by its distance to the f32 model's (the same bf16
+# parameters upcast, through the plain route): the kernel route's at most
+# MODEL_BF16_RATIO times the plain bf16 route's, as check_rwkv_routes
+# holds serving. The reference's model-level bar
+# (tests/test_flash_vjp.py:80-81: atol 2e-4 + rtol 1e-2 per element, in
+# f32 on reduced olmo-1b) is printed, not held: in bf16 at full width the
+# two routes differ by what bf16 rounds (the Hopper kernel rounds P to
+# bf16 before PV, the one rounding the plain version does not make; the
+# WKV kernel sums in another order before o is rounded), and an element
+# of a gradient that cancels to near zero inherits the whole difference
+# (olmo-1b read 16x that bar at its tightest element on an H100, each
+# leaf within 1.21e-2 of its norm and 1.01e-2 of its largest |g|)
+MODEL_GRAD_BAR = (2e-4, 1e-2)  # atol + rtol * |g|, printed
+MODEL_BF16_RATIO = 2.0
+MODEL_LOSS_RTOL = 1e-2
+
+
+def model_train_cfg(arch: str):
+    """The configuration a model trains at on the card (rwkv6-7b cut to
+    RWKV_TRAIN_LAYERS layers, nothing else)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return cfg.with_(n_layers=RWKV_TRAIN_LAYERS) if arch == "rwkv6-7b" \
+        else cfg
+
+
+def wkv_bwd_bound(b, h, t, d, dtype_name) -> tuple:
+    """(least ms, what bounds it) for one WKV6 backward: r, k, v, w and do
+    read once and dr, dk, dv, dw written once (model dtype), u and du, s0,
+    ds_fin and ds0 (f32) once each, against 13 flops for each (t, i, j)
+    (the state recomputed, 3; the sums of dr, dk, dv and dw and the dS
+    update, 2 each) and 8 for each (t, i), at the f32 rate outside the
+    tensor cores."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elt * 9 * b * h * t * d + 4 * (h * d + b * h * d) \
+        + 4 * 3 * b * h * d * d
+    flops = 13.0 * b * h * t * d * d + 8.0 * b * h * t * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _wkv_grads(args, do, ds_fin, use_kernel: bool) -> list:
+    """The six WKV gradients of (o·do + S_T·ds_fin) on one route."""
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    leaves = [x.clone().requires_grad_(True) for x in args]
+    o, s_fin = wkv_ops._WKV6.apply(*leaves, use_kernel)
+    ((o.float() * do.float()).sum() + (s_fin * ds_fin).sum()).backward()
+    return [x.grad for x in leaves]
+
+
+def check_wkv_backward() -> dict:
+    """(f) The WKV backward kernel (behind K3 writing its checkpoints)
+    against the plain backward at WKV_BWD_CASES, on the model's
+    (B, T, H, D) views, with a nonzero s0 and cotangent of the final
+    state: each gradient within WKV_BWD_BAR of its largest magnitude
+    (plus one bf16 rounding of the bf16 ones). Returns per case the
+    largest abs error and the largest relative to that magnitude."""
+    import torch
+
+    errs = {}
+    for i, (shape, dt) in enumerate(WKV_BWD_CASES):
+        dtype = getattr(torch, dt)
+        args = wkv_inputs(*shape, dtype, 600 + i, layout="bthd")
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        do = torch.randn(args[0].shape, generator=gen,
+                         device="cuda").to(dtype)
+        ds_fin = torch.randn(args[5].shape, generator=gen, device="cuda")
+        ker = _wkv_grads(args, do, ds_fin, True)
+        ref = _wkv_grads(args, do, ds_fin, False)
+        torch.cuda.synchronize()
+        ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+        ok, rel, err = True, [], 0.0
+        for j, (a, b) in enumerate(zip(ker, ref)):
+            a, b = a.float(), b.float()
+            top = b.abs().max()
+            bar = WKV_BWD_BAR * top + (ulp * b.abs() if j < 4 else 0.0)
+            ok = ok and bool(torch.isfinite(a).all()
+                             and ((a - b).abs() <= bar).all())
+            rel.append(((a - b).abs().max() / top).item())
+            err = max(err, (a - b).abs().max().item())
+        errs[f"{list(shape)} {dt}"] = {"abs": err, "rel_to_max": max(rel)}
+        log(f"train models (f) WKV backward kernel vs plain {list(shape)} "
+            f"{dt}: max err / max |g| for dr dk dv dw du ds0 "
+            f"{[f'{x:.2e}' for x in rel]} (bar {WKV_BWD_BAR}"
+            f"{' + 2^-7|g|' if ulp else ''}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the WKV backward at {shape} {dt}")
+    return errs
+
+
+def time_wkv_backward() -> dict:
+    """(f) At rwkv6-7b's training shape in bf16: the backward kernel (bare
+    launch with its scratch) and the plain backward per call, against
+    the bound; K3's forward with and without checkpoints."""
+    import torch
+
+    from repro_torch.kernels.wkv import kernel
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    b, h, t, d = WKV_TRAIN_SHAPE
+    r, k, v, w, u, _ = wkv_inputs(b, h, t, d, torch.bfloat16, 8,
+                                  layout="bthd")
+    do = torch.randn(r.shape, device="cuda").to(torch.bfloat16)
+    ckpt = torch.empty((b, h, kernel.n_ckpt(t), d, d), device="cuda")
+    s_out = torch.empty((b, h, d, d), device="cuda")
+    o = torch.empty((b, t, h, d), dtype=torch.bfloat16,
+                    device="cuda").transpose(1, 2)
+    grads = [torch.empty_like(o) for _ in range(4)]
+    du = torch.empty((b, h, d), device="cuda")
+    bound, bound_by = wkv_bwd_bound(b, h, t, d, "bfloat16")
+    row = {"shape": list(WKV_TRAIN_SHAPE), "dtype": "bfloat16",
+           "forward_ms": cuda_ms(lambda: kernel.launch(
+               r, k, v, w, u, None, s_out, o), 50),
+           "forward_ckpt_ms": cuda_ms(lambda: kernel.launch(
+               r, k, v, w, u, None, s_out, o, ckpt=ckpt), 50),
+           "ms": cuda_ms(lambda: kernel.launch_backward(
+               r, k, v, w, do, u, ckpt, None, dr=grads[0], dk=grads[1],
+               dv=grads[2], dw=grads[3], du=du, ds0=None), 20),
+           "plain_ms": cuda_ms(lambda: wkv_ops._plain_backward(
+               r, k, v, w, u, None, do, None), 2, warmup=1),
+           "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+    log(f"train models (f) WKV at {WKV_TRAIN_SHAPE} bf16: backward kernel "
+        f"{row['ms']:.6f} ms, plain backward {row['plain_ms']:.3f} ms, no "
+        f"library call, bound {bound:.6f} ms ({bound_by}), kernel at "
+        f"{bound / row['ms']:.1%} of it; K3 forward {row['forward_ms']:.6f} "
+        f"ms, with checkpoints {row['forward_ckpt_ms']:.6f} ms")
+    return row
+
+
+def _reset_counts(*mods) -> None:
+    for m in mods:
+        m.launch_count = 0
+        if hasattr(m, "backward_launch_count"):
+            m.backward_launch_count = 0
+
+
+def _counts(attn_ops, ota_ops, wkv_ops) -> dict:
+    return {"k1": ota_ops.launch_count, "k2": attn_ops.launch_count,
+            "k3": wkv_ops.launch_count,
+            "wkv_bwd": wkv_ops.backward_launch_count}
+
+
+def model_step_split(cfg, aggregator, route, params, batch,
+                     profile: bool) -> dict:
+    """(g) One step's parts at full width, each once on the host clock
+    ending in a synchronize: the forward plus backward (with the fused
+    route's node weights, or the per-node gradients), the edge noise
+    (fused) or the slot (`transport.aggregate`), and the clip with the
+    optimizer's update; with `profile`, a torch.profiler count of one
+    whole step."""
+    import torch
+
+    from repro_torch.core import rng, transport
+    from repro_torch.core.gbma import (gbma_value_and_grad, node_weights,
+                                       perturb_gradients)
+    from repro_torch.training.train_step import (_clip_and_metrics,
+                                                 _node_grads_fn)
+
+    model, tcfg, opt, step = _train_parts(cfg, aggregator, route, "auto")
+    state = step.init_state(params)
+    k_h, k_w = rng.split(rng.fold_in(rng.key(0, device="cuda"), 0))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    row = {}
+    if tcfg.transport is None:
+        vg = gbma_value_and_grad(
+            lambda p, b: model.train_loss_per_example(p, b)[0])
+        w = node_weights(k_h, tcfg.gbma, TRAIN_BATCH)
+        (_, grads), row["forward_backward_ms"] = timed(
+            lambda: vg(params, batch, w))
+        grads, row["noise_ms"] = timed(
+            lambda: perturb_gradients(grads, k_w, tcfg.gbma))
+    else:
+        (_, node_g), row["forward_backward_ms"] = timed(
+            lambda: _node_grads_fn(model, TRAIN_NODES)(params, batch))
+        agg = state[1] if transport.has_state(aggregator) else None
+        (grads, _, _), row["slot_ms"] = timed(lambda: transport.aggregate(
+            aggregator, node_g, k_w, tcfg.transport, agg))
+        del node_g
+    opt_state = state[0] if isinstance(state, tuple) else state
+
+    def update():
+        g, _ = _clip_and_metrics(grads, tcfg)
+        return opt.update(g, opt_state, params)
+
+    _, row["clip_and_optimizer_ms"] = timed(update)
+    del grads, _
+    torch.cuda.empty_cache()
+    if not profile:
+        return row
+    prof = _profile_counts(lambda: step(params, state, batch, 0),
+                           kernel="wkv6" if cfg.family == "ssm"
+                           else "flash_attention")
+    row["profile"] = {"launches": prof["launches"], "syncs": prof["syncs"],
+                      "device_busy_ms": prof["device_us"] / 1e3,
+                      "kernel_launches": prof["kernel"],
+                      "kernel_device_ms": prof["kernel_us"] / 1e3}
+    return row
+
+
+def train_model_route(cfg, aggregator, route, params0, batches, mods):
+    """(g) `TRAIN_STEPS` steps of one route through `build_train_step`
+    from a copy of `params0`, each step timed on the host clock (ending in
+    a synchronize) with the kernels' launch counts (set to 0 just before
+    the run); the peak device memory over the resident parameters and
+    optimizer state during step 2 (the first allocates the momentum).
+    Returns (losses, history, counts, step ms, peak MiB)."""
+    import torch
+
+    from repro_torch.core.tree import tree_map
+
+    _, _, _, step = _train_parts(cfg, aggregator, route, "auto")
+    params = tree_map(lambda p: p.clone(), params0)
+    state = step.init_state(params)
+    step_ms, peak, hist = [], 0.0, []
+    _reset_counts(*mods)
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch, i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        hist.append({k: float(v) for k, v in metrics.items()})
+    counts = _counts(*mods)
+    del params, state
+    return [h["loss"] for h in hist], hist, counts, step_ms, peak
+
+
+def model_grads(cfg, params, batch, impl: str) -> tuple:
+    """(per-example losses, gradient leaves of the mean loss) of `params`
+    on one route."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    losses, _ = build_model(cfg, impl=impl).train_loss_per_example(leaves,
+                                                                   batch)
+    torch.mean(losses).backward()
+    return losses.detach(), [p.grad for p in tree_leaves(leaves)]
+
+
+def check_model_routes(cfg, params, batch) -> dict:
+    """(h) The kernel route against the plain route (`impl='ref'`: plain
+    attention forward, or the plain WKV forward and backward) on the
+    first batch at full width in bf16: the per-example losses within
+    MODEL_LOSS_RTOL, and each leaf's gradient of the mean loss at most
+    MODEL_BF16_RATIO times as far (in norm) from the f32 model's as the
+    plain route's is; printed beside them, ||kernel - plain|| / ||plain||
+    and the largest |kernel - plain| over the largest |g| per leaf, and
+    the tightest element's reading of MODEL_GRAD_BAR. Returns them."""
+    import torch
+
+    from repro_torch.core.tree import tree_map
+
+    kernel_loss, kernel = model_grads(cfg, params, batch, "auto")
+    plain_loss, plain = model_grads(cfg, params, batch, "ref")
+    f32 = model_grads(cfg.with_(dtype="float32"),
+                      tree_map(lambda p: p.float(), params), batch, "ref")[1]
+    torch.cuda.synchronize()
+    loss_rel = ((kernel_loss - plain_loss).abs()
+                / plain_loss.abs()).max().item()
+    ok = loss_rel <= MODEL_LOSS_RTOL
+    grad_ratio, rel_to_max, rel_norm, to_f32 = 0.0, [], [], []
+    for a, b, c in zip(kernel, plain, f32):
+        a, b, c = a.double(), b.double(), c.double()
+        grad_ratio = max(grad_ratio, ((a - b).abs() / (
+            MODEL_GRAD_BAR[0] + MODEL_GRAD_BAR[1] * b.abs())).max().item())
+        rel_to_max.append(((a - b).abs().max()
+                           / b.abs().max().clamp_min(1e-30)).item())
+        norm = torch.linalg.vector_norm
+        rel_norm.append((norm(a - b) / norm(b).clamp_min(1e-30)).item())
+        d_kernel, d_plain = norm(a - c).item(), norm(b - c).item()
+        to_f32.append(d_kernel / d_plain if d_plain > 0 else
+                      (0.0 if d_kernel == 0 else math.inf))
+        ok = ok and bool(torch.isfinite(a).all())
+    ok = ok and max(to_f32) <= MODEL_BF16_RATIO
+    log(f"train models (h) {cfg.arch_id} ({cfg.n_layers} layers) kernel vs "
+        f"plain route on the first batch, bf16: losses {loss_rel:.3e} rel "
+        f"(bar {MODEL_LOSS_RTOL}); per leaf, the kernel route's distance "
+        f"to the f32 model over the plain route's "
+        f"{[f'{x:.3f}' for x in to_f32]} (bar {MODEL_BF16_RATIO}); "
+        f"printed: ||kernel - plain|| / ||plain|| "
+        f"{[f'{x:.2e}' for x in rel_norm]}, max |kernel - plain| over the "
+        f"leaf's largest |g| {[f'{x:.2e}' for x in rel_to_max]}, the "
+        f"tightest element at {grad_ratio:.3f} of {MODEL_GRAD_BAR[0]} + "
+        f"{MODEL_GRAD_BAR[1]}|g| {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{cfg.arch_id}: kernel vs plain route")
+    return {"loss_rel": loss_rel, "grad_to_f32_ratio": to_f32,
+            "grad_rel_norm": rel_norm, "grad_rel_to_max": rel_to_max,
+            "grad_elementwise_at_bar": grad_ratio}
+
+
+def run_train_models(attn_ops, ota_ops, wkv_ops) -> tuple:
+    """Training olmo-1b (bf16, full width and depth) and rwkv6-7b (bf16,
+    full width, RWKV_TRAIN_LAYERS layers) over the MAC on the card:
+
+    (f) K2's bf16 kernel with `lse` against its plain version, and timed
+        at olmo-1b's training shape; the WKV backward kernel against the
+        plain backward, and timed at rwkv6-7b's;
+    (g) the launcher (`python -m repro_torch.launch.train --arch olmo-1b
+        --steps 2`), then each model TRAIN_STEPS steps on the fused gbma
+        route and through the transport with gbma and with receiver
+        momentum at the launcher's defaults: finite losses, the kernels'
+        launches a step (K2 16 an olmo-1b forward, K3 and the backward 4
+        an rwkv6-7b forward and backward, N of each a transport step; K1
+        one a leaf a slot), ms per step (best of the last 2) with its
+        parts, the profile of a step (MODEL_TRAIN_PROFILED routes), peak
+        memory over the resident parameters and state;
+    (h) the kernel route against the plain route on the first batch;
+    (i) the card against the CPU on the reduced (f32) models, TRAIN_STEPS
+        steps on the fused gbma route.
+
+    Returns (launches by kernel over (g), the record)."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.model import build_model
+
+    mods = (attn_ops, ota_ops, wkv_ops)
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def mark(part: str) -> None:
+        torch.cuda.synchronize()
+        seconds[part] = time.perf_counter() - t_phase - sum(seconds.values())
+
+    record = {"seconds": seconds,
+              "lse_errors": check_attention_lse("bfloat16"),
+              "lse_timing": time_train_attention("bfloat16"),
+              "wkv_backward_errors": check_wkv_backward(),
+              "wkv_backward_timing": time_wkv_backward()}
+    mark("(f)")
+
+    # (g) the launcher as a user runs it, then the three routes
+    totals = {"k1": 0, "k2": 0, "k3": 0, "wkv_bwd": 0}
+    _reset_counts(*mods)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_launch.main(["--arch", "olmo-1b", "--steps", "2"])
+    torch.cuda.synchronize()
+    final = float(buf.getvalue().rsplit("final loss", 1)[1].split()[0])
+    counts = _counts(*mods)
+    log(f"train models (g) launch.train --arch olmo-1b --steps 2: "
+        f"{time.perf_counter() - t0:.2f} s, final loss {final:.4f}, "
+        f"launches {counts}; output: {buf.getvalue().strip().splitlines()}")
+    if not math.isfinite(final) or \
+            counts["k2"] != 2 * model_train_cfg("olmo-1b").n_layers:
+        raise AssertionError("the train launcher on olmo-1b")
+    for key in totals:
+        totals[key] += counts[key]
+    torch.cuda.empty_cache()
+    mark("(g) launcher")
+    record["models"] = {}
+    for arch in MODEL_TRAIN_ARCHS:
+        cfg = model_train_cfg(arch)
+        params0 = build_model(cfg).init_params(device="cuda")
+        n_params = sum(p.numel() for p in tree_leaves(params0))
+        n_leaves = len(tree_leaves(params0))
+        batches = [{"tokens": torch.from_numpy(b["tokens"]).cuda()}
+                   for b in _train_batches(cfg, TRAIN_STEPS)]
+        rwkv = cfg.family == "ssm"
+        per_forward = {"k2": 0 if rwkv else cfg.n_layers,
+                       "k3": cfg.n_layers if rwkv else 0,
+                       "wkv_bwd": cfg.n_layers if rwkv else 0}
+        rec = record["models"][arch] = {
+            "params": n_params, "leaves": n_leaves, "layers": cfg.n_layers,
+            "resident_mib": sum(p.numel() * p.element_size() for p in
+                                tree_leaves(params0)) / 2**20,
+            "routes": {}}
+        for aggregator, route in TRAIN_ROUTES:
+            name = f"{aggregator} {'fused' if route == 'auto' else route}"
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"train models (g) {arch} {name}: "
+                f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated "
+                f"before the route")
+            losses, hist, counts, step_ms, peak = train_model_route(
+                cfg, aggregator, route, params0, batches, mods)
+            transport_route = route == "transport"
+            nodes = TRAIN_NODES if transport_route else 1
+            want = {key: TRAIN_STEPS * nodes * n for key, n in
+                    per_forward.items()}
+            want["k1"] = TRAIN_STEPS * n_leaves if transport_route else 0
+            tx_ok = not transport_route or all(
+                math.isfinite(h["tx_energy"]) and h["tx_energy"] > 0
+                for h in hist)
+            ok = all(math.isfinite(x) for x in losses) and tx_ok \
+                and counts == want
+            row = model_step_split(cfg, aggregator, route, params0,
+                                   batches[0],
+                                   profile=name in MODEL_TRAIN_PROFILED)
+            row.update(step_ms=min(step_ms[-2:]), step_ms_all=step_ms,
+                       peak_mib_over_resident=peak, losses=losses,
+                       launches_per_step={k: v / TRAIN_STEPS
+                                          for k, v in counts.items()},
+                       tx_energy=[h.get("tx_energy") for h in hist])
+            if "profile" in row:
+                row["profile"]["device_idle_share"] = \
+                    1.0 - row["profile"]["device_busy_ms"] / row["step_ms"]
+            rec["routes"][name] = row
+            log(f"train models (g) {arch} ({n_params:,} parameters, "
+                f"{n_leaves} leaves, {cfg.n_layers} layers) {name}, "
+                f"{TRAIN_STEPS} steps: losses {losses}; launches {counts} "
+                f"(expected {want}); {json.dumps(row)} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train models {arch} {name}")
+            for key in totals:
+                totals[key] += counts[key]
+            torch.cuda.empty_cache()
+            mark(f"(g) {arch} {name}")
+        rec["routes_check"] = check_model_routes(cfg, params0, batches[0])
+        del params0
+        torch.cuda.empty_cache()
+        mark(f"(h) {arch}")
+
+    # (i) the card against the CPU on the reduced models
+    record["card_vs_cpu"] = {}
+    for arch in MODEL_TRAIN_ARCHS:
+        small = model_train_cfg(arch).reduced()
+        cpu_params = build_model(small).init_params(device="cpu")
+        cuda_params = tree_map(lambda p: p.cuda(), cpu_params)
+        small_batches = _train_batches(small, TRAIN_STEPS)
+        # the fused route (K1's card against the CPU is "train" (e)'s)
+        for aggregator, route in (("gbma", "auto"),):
+            name = f"{aggregator} {'fused' if route == 'auto' else route}"
+            _reset_counts(*mods)
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, on_card, _, _ = _train_run(small, aggregator, route,
+                                              "auto", cuda_params,
+                                              small_batches)
+                counts = _counts(*mods)
+                _, on_cpu, _, _ = _train_run(small, aggregator, route,
+                                             "auto", cpu_params,
+                                             small_batches)
+            rel = _tree_rel_to_max(on_card, on_cpu)
+            used = counts["k2"] if arch == "olmo-1b" else \
+                min(counts["k3"], counts["wkv_bwd"])
+            ok = rel <= TRAIN_ROUTE_BAR and used > 0
+            log(f"train models (i) reduced {arch} {name}, {TRAIN_STEPS} "
+                f"steps: card vs CPU params {rel:.3e} of each leaf's max "
+                f"(bar {TRAIN_ROUTE_BAR}); launches on the card {counts} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train models card vs CPU {arch} "
+                                     f"{name}")
+            record["card_vs_cpu"][f"{arch} {name}"] = rel
+    mark("(i)")
+    log(f"train models: seconds by part {json.dumps(seconds)}")
+    return totals, record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-src", default=None,
@@ -3549,7 +4123,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    ota_build, sass, f32_sass, wkv_build = build_kernels()
+    ota_build, sass, f32_sass, wkv_build, wkv_bwd_build = build_kernels()
     elapsed('the build')
 
     # K1 and the Monte Carlo path
@@ -3648,6 +4222,15 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # training olmo-1b in bf16 and rwkv6-7b: K2 bf16 with lse in every
+    # olmo-1b forward, K3 and the WKV backward in every rwkv6-7b layer, K1
+    # in every transport slot
+    model_launches, model_record = run_train_models(attn_ops, ops, wkv_ops)
+    mc_launches["train models"] = model_launches["k1"]
+    elapsed('train models')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # K3 and the RWKV6 serving path: one launch per layer in the prefill
     # and in each decode step
     wkv_errs = check_wkv_vs_plain()
@@ -3691,7 +4274,7 @@ def main() -> int:
         "f32_source": ATTN_F32_SOURCE, "replaces": ATTN_REPLACES,
         "sass": sass,
         "launches": sum(r["launches"] for r in served.values())
-        + sum(train_launches.values()),
+        + sum(train_launches.values()) + model_launches["k2"],
         "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
         "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes; "
         "lse atol 1e-05 + rtol 1e-06",
@@ -3703,9 +4286,12 @@ def main() -> int:
         "launches_by_run": {f"olmo-1b prompt {s}": r["launches"]
                             for s, r in served.items()}
         | {"repro-100m prompt 2048 (route check)": repro_launches}
-        | {f"train {name}": n for name, n in train_launches.items()},
+        | {f"train {name}": n for name, n in train_launches.items()}
+        | {"train olmo-1b (bf16, with lse)": model_launches["k2"]},
         "shapes": attn_timings, "lse": train_record["attention"],
-        "train": train_record,
+        "bf16_lse": model_record["lse_timing"],
+        "bf16_lse_errors": model_record["lse_errors"],
+        "train": train_record, "train_models": model_record,
         "f32": {"source": ATTN_F32_SOURCE, "launches": repro_launches,
                 "sass": f32_sass,
                 **{key: attn_f32[key] for key in (
@@ -3721,7 +4307,8 @@ def main() -> int:
     wkv_entry = {
         "name": "wkv6", "route": "cuda", "source": WKV_SOURCE,
         "replaces": WKV_REPLACES,
-        "launches": sum(r["launches"] for r in rwkv_served.values()),
+        "launches": sum(r["launches"] for r in rwkv_served.values())
+        + model_launches["k3"],
         "max_abs_err": max(wkv_errs.values()), "tolerance": "bf16 o atol "
         f"{WKV_BF16_O_BAR[0]} + rtol {WKV_BF16_O_BAR[1]}, f32 state atol "
         f"{WKV_STATE_BAR[0]} + rtol {WKV_STATE_BAR[1]} at the slice's "
@@ -3730,14 +4317,35 @@ def main() -> int:
         "bound_ms": wkv_primary["bound_ms"],
         "bound_by": wkv_primary["bound_by"], "library_ms": None,
         "launches_by_run": {f"rwkv6-7b prompt {s}": r["launches"]
-                            for s, r in rwkv_served.items()},
+                            for s, r in rwkv_served.items()}
+        | {"train rwkv6-7b (4 layers, with checkpoints)":
+           model_launches["k3"]},
         "shapes": wkv_timings, "build": wkv_build,
         "serve": {"rwkv6-7b": {"init": rwkv_init} | {
             str(s): {**rwkv_served[s], **rwkv_routes[s], **rwkv_times[s]}
             for s in SERVE_PROMPTS}},
     }
-    print(json.dumps({"kernels": [ota_entry, attn_entry, wkv_entry]}),
-          flush=True)
+    bwd = model_record["wkv_backward_timing"]
+    wkv_bwd_entry = {
+        "name": "wkv6_backward", "route": "cuda", "source": WKV_BWD_SOURCE,
+        "replaces": WKV_BWD_REPLACES,
+        "launches": model_launches["wkv_bwd"],
+        "max_abs_err": max(e["abs"] for e in
+                           model_record["wkv_backward_errors"].values()),
+        "tolerance": f"each gradient within {WKV_BWD_BAR} of its largest "
+        "magnitude, bf16 gradients plus 2^-7|g|",
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": None, "shape": bwd["shape"], "dtype": bwd["dtype"],
+        "forward_ms": bwd["forward_ms"],
+        "forward_ckpt_ms": bwd["forward_ckpt_ms"],
+        "errors": model_record["wkv_backward_errors"],
+        "build": wkv_bwd_build,
+        "launches_by_run": {"train rwkv6-7b (4 layers)":
+                            model_launches["wkv_bwd"]},
+    }
+    print(json.dumps({"kernels": [ota_entry, attn_entry, wkv_entry,
+                                  wkv_bwd_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,46 +15,53 @@ from typing import Any, Callable
 _LEAF = object()  # a leaf's place in a tree definition
 
 
+def _walk(t: Any, leaves: list) -> Any:
+    """`t`'s tree definition; its leaves appended to `leaves` in JAX's
+    order. (A module-level recursion: a nested function that calls
+    itself is a reference cycle through its closure, which would hold
+    every leaf it saw -- gradient trees of GBs on the card -- until the
+    cyclic garbage collector runs.)"""
+    if isinstance(t, dict):
+        done = {k: _walk(t[k], leaves) for k in sorted(t)}
+        return {k: done[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        out = [_walk(v, leaves) for v in t]
+        if isinstance(t, list):
+            return out
+        return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+    if t is None:
+        return None
+    leaves.append(t)
+    return _LEAF
+
+
+def _build(t: Any, it) -> Any:
+    """The tree of definition `t` with leaves taken from the iterator
+    `it` in JAX's order."""
+    if isinstance(t, dict):
+        done = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: done[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        out = [_build(v, it) for v in t]
+        if isinstance(t, list):
+            return out
+        return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+    if t is None:
+        return None
+    return next(it)
+
+
 def tree_flatten(tree: Any) -> tuple:
     """(leaves in JAX's order, treedef): the treedef is the tree with
     every leaf replaced by a placeholder, for `tree_unflatten`."""
     leaves = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            done = {k: walk(t[k]) for k in sorted(t)}
-            return {k: done[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            out = [walk(v) for v in t]
-            if isinstance(t, list):
-                return out
-            return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
-        if t is None:
-            return None
-        leaves.append(t)
-        return _LEAF
-
-    return leaves, walk(tree)
+    return leaves, _walk(tree, leaves)
 
 
 def tree_unflatten(treedef: Any, leaves) -> Any:
     """The tree of `treedef` with `leaves` in JAX's order."""
     it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            done = {k: build(t[k]) for k in sorted(t)}
-            return {k: done[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            out = [build(v) for v in t]
-            if isinstance(t, list):
-                return out
-            return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
-        if t is None:
-            return None
-        return next(it)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("more leaves than the tree definition holds")
     return out

@@ -53,7 +53,20 @@
 //     cores; ping-pong: the two warpgroups take turns to issue their
 //     products (named barriers 1 and 2), so one's softmax also runs under
 //     the other's products;
-//   * GQA reads kv head h / group.
+//   * GQA reads kv head h / group;
+//   * the row log-sum-exp, when asked for (a non-null lse): the epilogue
+//     writes lse = m * scale + ln l (m + ln l under a softcap, where m is
+//     the capped logit), the convention of flash_attention.cu, from the
+//     row state its quad already holds (m is the quad's max, l is reduced
+//     across the quad for the division), one f32 value a row of (batch *
+//     head, sq), the residual the flash backward reads
+//     (src/repro/models/flash_vjp.py:102-107). The lane holding the row's
+//     first column writes it; rows past sq are not written. A row that
+//     holds NEG_INF alone writes NEG_INF + ln l = NEG_INF, as the plain
+//     version's logsumexp of its masked row. m and l are this thread's
+//     registers, reset only after the store, so the next work item's loads
+//     (the producer's) cannot touch them. A null lse writes nothing: the
+//     launch and the output keep their bits.
 // Rounding: P is rounded to bf16 before the PV product, the one rounding
 // the reference does not make (it keeps P in f32); the row sum l is taken
 // over the unrounded P. Held to the reference's bf16 bar (atol 3e-2).
@@ -105,6 +118,7 @@ struct Params {
   float softcap;  // <= 0: none
   int causal;
   int window;     // <= 0: none
+  float* lse;     // (batch * heads, sq) row log-sum-exp, or null: none
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -693,6 +707,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                 __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
                                       o[4 * j + 2 * r + 1] * inv);
           }
+          if (p.lse != nullptr && col0 == 0) {
+            const float mx = m[r] == kNegInf ? kNegInf
+                             : kSoftcap ? m[r] : m[r] * p.scale;
+            p.lse[static_cast<int64_t>(bh) * p.sq + row] =
+                mx + logf(lt == 0.0f ? 1.0f : lt);
+          }
         }
       }
     }
@@ -840,13 +860,16 @@ int dispatch_dim(const void* q, const void* k, const void* v,
 // that are multiples of 8 (16 bytes; TMA's rule) wherever the dimension is
 // longer than 1. softcap <= 0 and window <= 0 mean none. Returns 0 on
 // success, a CUDA error code, or kEncodeError + the CUresult of a refused
-// tensor map (flash_attention_sm90_error_string says which).
+// tensor map (flash_attention_sm90_error_string says which). lse, when not
+// null, receives the row log-sum-exp: a contiguous f32 (batch * heads, sq)
+// buffer.
 extern "C" int flash_attention_sm90(const void* q, const void* k,
                                     const void* v, void* o,
                                     const int64_t* strides, int batch,
                                     int heads, int group, int sq, int skv,
                                     int head_dim, float scale, float softcap,
-                                    int causal, int window, void* stream) {
+                                    int causal, int window, void* stream,
+                                    void* lse) {
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.o_sb = strides[9];
@@ -861,6 +884,7 @@ extern "C" int flash_attention_sm90(const void* q, const void* k,
   p.softcap = softcap;
   p.causal = causal;
   p.window = window;
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (softcap > 0.0f) {
     return dispatch_dim<true>(q, k, v, strides, batch, heads / group,

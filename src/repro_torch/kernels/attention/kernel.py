@@ -50,13 +50,15 @@ def build_sm90() -> _build.BuildInfo:
 
 def bind_library(lib: ctypes.CDLL, bf16: bool) -> tuple:
     """(launch, error string, shared-memory size) of a loaded kernel
-    library; the two launch functions take the same arguments, the f32 one
-    a copy width and the row log-sum-exp's pointer (or null) after them."""
+    library; the two launch functions take the same arguments, then the
+    f32 one a copy width, and both the row log-sum-exp's pointer (or
+    null)."""
     name = SM90_NAME if bf16 else NAME
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
         + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p] + [ctypes.c_int, ctypes.c_void_p] * (not bf16)
+        + [ctypes.c_void_p] + [ctypes.c_int] * (not bf16) \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -88,8 +90,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int], softcap: Optional[float],
            lse: Optional[torch.Tensor] = None) -> None:
     """out = attention(q, k, v) on the current stream of q's device, and
-    with `lse` (f32 only: a contiguous f32 (B·Hq, Sq) tensor) the row
-    log-sum-exp of the (capped) scaled logits written into it.
+    with `lse` (a contiguous f32 (B·Hq, Sq) tensor) the row log-sum-exp
+    of the (capped) scaled logits written into it.
 
     Expects validated CUDA tensors of one dtype, each (B, H, S, d) with
     unit stride along d (any other strides): q and out (B, Hq, Sq, d), k
@@ -104,22 +106,21 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv = k.shape[2]
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
                                       for s in t.stride()[:3]))
-    if lse is not None and (bf16 or lse.dtype != torch.float32
+    if lse is not None and (lse.dtype != torch.float32
                             or lse.device != q.device
                             or not lse.is_contiguous()
                             or lse.numel() != q.shape[0] * q.shape[1]
                             * q.shape[2]):
-        raise ValueError("lse: the f32 kernel writes a contiguous f32 "
-                         "(B·Hq, Sq) tensor on q's device; the bf16 kernel "
-                         "none")
-    width = () if bf16 else (copy_bytes(q, k, v, out),
-                             None if lse is None else lse.data_ptr())
+        raise ValueError("lse: the kernels write a contiguous f32 "
+                         "(B·Hq, Sq) tensor on q's device")
+    tail = (() if bf16 else (copy_bytes(q, k, v, out),)) \
+        + (None if lse is None else lse.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   ctypes.addressof(strides), batch, heads,
                   heads // k.shape[1], sq, skv, head_dim, scale,
-                  softcap or 0.0, int(causal), window or 0, stream, *width)
+                  softcap or 0.0, int(causal), window or 0, stream, *tail)
     if code != 0:
         raise RuntimeError(f"flash_attention launch failed: error {code} "
                            f"({err(code).decode()})")

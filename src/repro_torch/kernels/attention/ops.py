@@ -20,9 +20,8 @@ and the kernel runs on the copy; the views the model path makes need no
 copy.
 
 `return_lse=True` also returns each row's log-sum-exp, the residual of
-the flash backward (`models/flash_vjp.py`): the f32 kernel writes it in
-its epilogue, from the same launch; the bf16 kernel does not yet (ROADMAP
-T4) and raises.
+the flash backward (`models/flash_vjp.py`): both kernels write it in
+their epilogue, from the same launch.
 
 `launch_count` counts kernel launches (and nothing else), so a run can
 show that its main path went through the kernel.
@@ -83,11 +82,6 @@ def _launch(q, k, v, *, scale, causal, window, softcap, return_lse):
     global launch_count
     _validate(q, k, v, window=window, softcap=softcap)
     if q.dtype == torch.bfloat16:
-        if return_lse:
-            raise NotImplementedError(
-                "the bf16 attention kernel does not write the row "
-                "log-sum-exp that training's backward reads (ROADMAP T4: "
-                "lse from flash_attention_sm90.cu)")
         q, k, v = tma_ready(q, k, v)
     b, hq, sq, d = q.shape
     # (B, Sq, Hq, d) memory, so the caller's swap back to (B, S, H·d)

@@ -66,7 +66,17 @@
 //   * the final state goes to a buffer the caller gives, which may be s0
 //     itself: a thread reads its whole column before it writes any of it,
 //     and no other thread touches that column, so decode updates a layer's
-//     slice of the stacked state in place.
+//     slice of the stacked state in place;
+//   * for training, given a checkpoint buffer (ckpt, not null), each thread
+//     also writes its column of the state S_{t0} at the start of every
+//     chunk (t0 = 0, kChunk, ...), before the chunk's steps: (batch * heads,
+//     ceil(T / kChunk), D, D) f32, what the hand-written backward
+//     (wkv6_bwd.cu) restarts each chunk from. The stores lie outside the
+//     step loop and change no arithmetic: o and the final state keep their
+//     bits. They are an instantiation of their own (kCkpt): a null ckpt
+//     runs the kernel compiled without them, since with the stores in the
+//     one kernel ptxas allocated its registers otherwise (244, not 254, at
+//     bf16 D = 64) and the serving prefill took 2.6 % longer on an H100.
 // Shared memory (dynamic): the staging buffer (4 kChunk D elements), the
 // r, k, w and v planes (4 kChunk D floats) and u: 49,408 bytes at D = 64 in
 // bf16, 65,792 in f32, so two blocks fit on an SM.
@@ -87,6 +97,7 @@ struct Params {
   const float* u;   // (heads, D)
   const float* s0;  // (batch, heads, D, D), or nullptr: S starts at zero
   float* s_out;     // (batch, heads, D, D); may equal s0
+  float* ckpt;      // (batch * heads, ceil(steps / kChunk), D, D), or null
   void* o;
   int64_t r_sb, r_sh, r_st;  // element strides: batch, head, time
   int64_t k_sb, k_sh, k_st;
@@ -217,7 +228,7 @@ __device__ __forceinline__ float step(const float* r, const float* k,
   return acc;
 }
 
-template <typename T, int D, bool kVec16>
+template <typename T, int D, bool kVec16, bool kCkpt>
 __global__ void __launch_bounds__(D) wkv6_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem);
@@ -247,6 +258,13 @@ __global__ void __launch_bounds__(D) wkv6_kernel(const Params p) {
 
   for (int t0 = 0; t0 < steps; t0 += kChunk) {
     const int n = min(kChunk, steps - t0);
+    if constexpr (kCkpt) {
+      float* const dst = p.ckpt + (static_cast<int64_t>(bh) *
+                                       ((steps + kChunk - 1) / kChunk) +
+                                   t0 / kChunk) * D * D + j;
+#pragma unroll
+      for (int i = 0; i < D; ++i) dst[i * D] = s[i];
+    }
     cp_async_wait_all();
     __syncthreads();  // the chunk has landed; the last one's readers are done
     widen<T, D>(sm, n, j);
@@ -273,15 +291,23 @@ __global__ void __launch_bounds__(D) wkv6_kernel(const Params p) {
   for (int i = 0; i < D; ++i) p.s_out[state + i * D + j] = s[i];
 }
 
-template <typename T, int D, bool kVec16>
-int launch(const Params& p, int batch, cudaStream_t stream) {
+template <typename T, int D, bool kVec16, bool kCkpt>
+int launch_ckpt(const Params& p, int batch, cudaStream_t stream) {
   constexpr int bytes = sizeof(Smem<T, D>);
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel<T, D, kVec16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      wkv6_kernel<T, D, kVec16, kCkpt>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wkv6_kernel<T, D, kVec16><<<batch * p.heads, D, bytes, stream>>>(p);
+  wkv6_kernel<T, D, kVec16, kCkpt><<<batch * p.heads, D, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, bool kVec16>
+int launch(const Params& p, int batch, cudaStream_t stream) {
+  if (p.ckpt != nullptr) {
+    return launch_ckpt<T, D, kVec16, true>(p, batch, stream);
+  }
+  return launch_ckpt<T, D, kVec16, false>(p, batch, stream);
 }
 
 template <typename T, bool kVec16>
@@ -328,14 +354,18 @@ int smem_bytes(int head_dim) {
 // kernel.copy_bytes): 16 needs 16-byte-aligned base addresses and (batch,
 // head, time) strides of whole 16 bytes wherever the dimension is longer
 // than 1; the element size (4 for f32, 2 for bf16) takes any such view;
-// both give the same bits. Returns a CUDA error code (0 on success):
-// cudaErrorInvalidValue for an unsupported head_dim or copy width, else
-// cudaFuncSetAttribute's or cudaGetLastError() after the launch.
+// both give the same bits. ckpt, when not null, receives the state at the
+// start of every chunk of kChunk steps (wkv6_ckpt_steps): a contiguous f32
+// (batch * heads, ceil(steps / kChunk), head_dim, head_dim) buffer.
+// Returns a CUDA error code (0 on success): cudaErrorInvalidValue for an
+// unsupported head_dim or copy width, else cudaFuncSetAttribute's or
+// cudaGetLastError() after the launch.
 extern "C" int wkv6_forward(const void* r, const void* k, const void* v,
                             const void* w, const float* u, const float* s0,
                             float* s_out, void* o, const int64_t* strides,
                             int batch, int heads, int steps, int head_dim,
-                            int bf16, void* stream, int copy_bytes) {
+                            int bf16, void* stream, int copy_bytes,
+                            float* ckpt) {
   Params p;
   p.r = r;
   p.k = k;
@@ -344,6 +374,7 @@ extern "C" int wkv6_forward(const void* r, const void* k, const void* v,
   p.u = u;
   p.s0 = s0;
   p.s_out = s_out;
+  p.ckpt = ckpt;
   p.o = o;
   p.r_sb = strides[0];
   p.r_sh = strides[1];
@@ -374,6 +405,9 @@ extern "C" int wkv6_smem_bytes(int head_dim, int bf16) {
   return bf16 ? smem_bytes<__nv_bfloat16>(head_dim)
               : smem_bytes<float>(head_dim);
 }
+
+// Steps between two states of the checkpoint buffer.
+extern "C" int wkv6_ckpt_steps() { return kChunk; }
 
 extern "C" const char* wkv6_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -92,8 +92,7 @@ def sdpa(q, k, v, cfg: ModelConfig, *, impl: str = "auto") -> torch.Tensor:
     `multi_head_attention`). Where grad is enabled and an input requires
     it, `flash_attention` at the config's `attn_block_q` /
     `attn_block_kv`: the same forward (K2 writing its log-sum-exp) and
-    the flash backward. bf16 there raises on the kernel route (ROADMAP
-    T4)."""
+    the flash backward, in f32 and bf16."""
     scale = cfg.head_dim ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return flash_attention(q, k, v, scale=scale, causal=True,

@@ -9,13 +9,14 @@ recomputes the score tiles in two passes over `block_q x block_kv` tiles:
   with  p = exp(s_cap - lse),  ds_cap = p * (do v^T - D),  D = rowsum(do * out)
   and the softcap chain rule  ds = ds_cap * (1 - (s_cap / cap)^2).
 
-The forward is K2 (`kernels.attention`) on CUDA tensors: its f32 kernel
-writes `lse` in the same launch (`multi_head_attention(...,
-return_lse=True)`); the bf16 kernel does not yet and raises (ROADMAP T4).
+The forward is K2 (`kernels.attention`) on CUDA tensors: both its
+kernels, f32 and bf16, write `lse` in the same launch
+(`multi_head_attention(..., return_lse=True)`).
 With `impl='ref'`, and on CPU tensors, the forward is K2's plain version
 (`kernels/attention/ref.py`), which returns the same `lse`. The backward
-is plain PyTorch on any device, in f32, as the reference's jnp backward
-(it has no Pallas backward either).
+is plain PyTorch on any device, in f32 from operands of any dtype (bf16
+ones widened exactly), returning each gradient in its input's dtype, as
+the reference's jnp backward (it has no Pallas backward either).
 
 GQA goes through the grouped (B, Hkv, G, S, d) layout; Sq and Skv are
 padded to the block sizes (padded rows get lse = +1e30, so p = 0 there);

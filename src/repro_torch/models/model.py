@@ -6,9 +6,8 @@
     logits, cache = model.decode_step(params, cache, token, pos)
     losses, metrics = model.train_loss_per_example(params, batch)
 
-Two kinds are ported: "transformer" (the dense decoder; served and
-trained) and "rwkv" (the RWKV6 model of `family == "ssm"`; served, its
-training is ROADMAP T5). The cache — the dense decoder's KV
+Two kinds are ported, both served and trained: "transformer" (the dense
+decoder) and "rwkv" (the RWKV6 model of `family == "ssm"`). The cache — the dense decoder's KV
 cache or RWKV's recurrent state — is updated in place: `decode_step`
 writes into the cache it is given and returns that same object.
 
@@ -69,20 +68,21 @@ class Model:
     def train_loss_per_example(self, params, batch) -> tuple:
         """Per-example losses (B,) of next-token prediction on
         `batch["tokens"]` (B, S+1), plus metrics {"loss", "aux_loss"}
-        (the dense decoder has no router: aux is 0). Differentiable in
-        `params`; the attention's backward is the flash backward."""
+        (neither kind has a router: aux is 0). Differentiable in
+        `params`; the attention's backward is the flash backward, the
+        WKV's the hand-written backward (its plain version on the CPU)."""
         cfg = self.cfg
-        if self.kind == "rwkv":
-            raise NotImplementedError(
-                f"{cfg.arch_id}: RWKV training needs a differentiable WKV, "
-                "not ported yet (ROADMAP T5)")
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         s = inputs.shape[1]
-        x = tfm.embed_tokens(params, inputs, cfg)
-        h, _ = tfm.decoder_forward(
-            params, x, cfg, positions=torch.arange(s, device=tokens.device),
-            impl=self.impl)
+        if self.kind == "rwkv":
+            h, _ = rwkv.forward(params, inputs, cfg, impl=self.impl)
+        else:
+            x = tfm.embed_tokens(params, inputs, cfg)
+            h, _ = tfm.decoder_forward(
+                params, x, cfg,
+                positions=torch.arange(s, device=tokens.device),
+                impl=self.impl)
         losses = tfm.chunked_xent(params, h, labels,
                                   torch.ones_like(labels), cfg)
         aux = torch.zeros((), dtype=torch.float32, device=losses.device)

@@ -14,14 +14,21 @@ f32 among model-dtype leaves — so `models.convert` carries them across.
 The reference scans over the layer dimension; the port loops over it in
 Python, slicing each layer's weights and state as views.
 
-The state (`init_state`) is updated IN PLACE, as the dense decoder's KV
-cache is: each layer writes its shift tokens and its final WKV state
-(the kernel writes it over its own input) into its slice of the stacked
-tensors. Unlike the reference, `forward` therefore always takes a state;
-prefill starts from `init_state`'s zeros, which is what the reference's
-`Model.prefill` passes too.
+The serving state (`init_state`) is updated IN PLACE, as the dense
+decoder's KV cache is: each layer writes its shift tokens and its final
+WKV state (the kernel writes it over its own input) into its slice of the
+stacked tensors; prefill starts from `init_state`'s zeros, which is what
+the reference's `Model.prefill` passes too. Training passes `state=None`,
+the reference's stateless forward: zero shift tokens, a zero initial WKV
+state, nothing written, and the WKV differentiable (`wkv6` under
+autograd: K3 and its hand-written backward on the card). As in the
+dense decoder, every layer's activations are kept for the backward: the
+reference's `remat=True` recomputation is a memory choice with no effect
+on the numbers, and the port does not recompute.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -94,8 +101,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
-    """Token shift: x_{t-1}, with `last` (B, D) at position 0."""
+def _shift(x: torch.Tensor, last) -> torch.Tensor:
+    """Token shift: x_{t-1}, with `last` (B, D) at position 0 (None:
+    zeros)."""
+    if last is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([last[:, None, :], x[:, :-1]], dim=1)
 
 
@@ -103,14 +113,14 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu
 
 
-def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig, state: dict, *,
-             impl: str = "auto") -> torch.Tensor:
+def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig,
+             state: Optional[dict], *, impl: str = "auto") -> torch.Tensor:
     """x (B, S, D), the block's normed input; `state` this layer's
     {'tm_shift': (B, D), 'wkv': (B, H, hd, hd) f32, ...}, read and then
-    updated in place."""
+    updated in place, or None (training: zeros, nothing written)."""
     b, s, d = x.shape
     h, hd = _heads(cfg)
-    xs = _shift(x, state["tm_shift"])
+    xs = _shift(x, None if state is None else state["tm_shift"])
     r = _mix(x, xs, p["mix_r"]) @ p["wr"]
     k = _mix(x, xs, p["mix_k"]) @ p["wk"]
     v = _mix(x, xs, p["mix_v"]) @ p["wv"]
@@ -125,42 +135,52 @@ def time_mix(x: torch.Tensor, p: dict, cfg: ModelConfig, state: dict, *,
     def hsplit(t):  # (B, S, H·hd) -> a (B, H, S, hd) view
         return t.view(b, s, h, hd).transpose(1, 2)
 
-    o, _ = wkv6(hsplit(r), hsplit(k), hsplit(v), hsplit(w), p["bonus"],
-                state["wkv"], impl=impl, s_out=state["wkv"])
+    if state is None:
+        o, _ = wkv6(hsplit(r), hsplit(k), hsplit(v), hsplit(w), p["bonus"],
+                    impl=impl)
+    else:
+        o, _ = wkv6(hsplit(r), hsplit(k), hsplit(v), hsplit(w), p["bonus"],
+                    state["wkv"], impl=impl, s_out=state["wkv"])
     o = o.transpose(1, 2).reshape(b, s, h, hd)
     # per-head group norm
     o = rms_norm(o, None).reshape(b, s, d)
     o = o * p["head_norm"] * g
-    state["tm_shift"].copy_(x[:, -1])
+    if state is not None:
+        state["tm_shift"].copy_(x[:, -1])
     return o @ p["wo"]
 
 
-def channel_mix(x: torch.Tensor, p: dict, state: dict) -> torch.Tensor:
+def channel_mix(x: torch.Tensor, p: dict,
+                state: Optional[dict]) -> torch.Tensor:
     """x (B, S, D), the block's second normed input; `state["cm_shift"]`
-    is read and then updated in place."""
-    xs = _shift(x, state["cm_shift"])
+    is read and then updated in place (None: zeros, nothing written)."""
+    xs = _shift(x, None if state is None else state["cm_shift"])
     k = torch.square(F.relu(_mix(x, xs, p["mix_k"]) @ p["wk"]))
     r = torch.sigmoid(_mix(x, xs, p["mix_r"]) @ p["wr"])
-    state["cm_shift"].copy_(x[:, -1])
+    if state is not None:
+        state["cm_shift"].copy_(x[:, -1])
     return r * (k @ p["wv"])
 
 
-def block_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, state: dict, *,
+def block_apply(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                state: Optional[dict], *,
                 impl: str = "auto") -> torch.Tensor:
     x = x + time_mix(rms_norm(x, p["ln1"]), p["tm"], cfg, state, impl=impl)
     return x + channel_mix(rms_norm(x, p["ln2"]), p["cm"], state)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            state: dict, *, impl: str = "auto") -> tuple:
+            state: Optional[dict] = None, *, impl: str = "auto") -> tuple:
     """tokens (B, S); `state` the stacked decode state (`init_state`),
-    updated in place. Returns (final-normed hidden (B, S, D), state).
-    `impl` picks the WKV route ('auto' | 'kernel' | 'ref')."""
+    updated in place, or None (the training forward: no state read or
+    written). Returns (final-normed hidden (B, S, D), state). `impl`
+    picks the WKV route ('auto' | 'kernel' | 'ref')."""
     x = params["embed"][tokens].to(dtype_of(cfg))
     x = rms_norm(x, params["ln_in"])
     for i in range(cfg.n_layers):
         x = block_apply(x, layer_slice(params["blocks"], i), cfg,
-                        layer_slice(state, i), impl=impl)
+                        None if state is None else layer_slice(state, i),
+                        impl=impl)
     return rms_norm(x, params["final_norm"]), state
 
 

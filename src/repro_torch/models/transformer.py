@@ -9,6 +9,13 @@ weights and KV cache as views.
 
 The slice is one dense global segment: `check_slice` raises
 `NotImplementedError` naming the ROADMAP item of every other structure.
+
+Training (`decoder_forward` under autograd) keeps every layer's
+activations for the backward: the reference's `remat=True` (recompute
+each scanned layer in the backward) is a memory choice with no effect on
+the numbers, and the port does not recompute. Only `chunked_xent`
+recomputes, each logits chunk, as the reference's does. At olmo-1b's
+training shape (B = 8, S = 256) the kept activations are a few GB.
 """
 from __future__ import annotations
 

@@ -152,16 +152,21 @@ def _tiled_numerics(q, k, v, *, scale, bq, bk, causal, window, softcap,
 
 
 def _sm90_numerics(q, k, v, *, scale, causal=True, window=None,
-                   softcap=None, round_p=True):
+                   softcap=None, round_p=True, return_lse=False):
     """The arithmetic of the bf16 Hopper kernel (`csrc/
     flash_attention_sm90.cu`): `_tiled_numerics` at its 128-query tiles
     and kv tiles of 128 keys (64 at d = 256), P rounded to bf16 before PV
     (`round_p`), the output rounded to bf16. Products are f32 sums of
-    exact bf16 products, as wgmma's are (in another order)."""
+    exact bf16 products, as wgmma's are (in another order). With
+    `return_lse`, also the row log-sum-exp its epilogue writes from the
+    row state (m·scale + ln l, m + ln l under a softcap), in f32."""
     bk = 64 if q.shape[-1] == 256 else 128
-    return _tiled_numerics(q, k, v, scale=scale, bq=128, bk=bk,
-                           causal=causal, window=window, softcap=softcap,
-                           round_p=round_p).bfloat16()
+    out = _tiled_numerics(q, k, v, scale=scale, bq=128, bk=bk,
+                          causal=causal, window=window, softcap=softcap,
+                          round_p=round_p, return_lse=return_lse)
+    if return_lse:
+        return out[0].bfloat16(), out[1]
+    return out.bfloat16()
 
 
 def _f32_numerics(q, k, v, *, scale, causal=True, window=None,
@@ -201,6 +206,32 @@ def test_bf16_kernel_numerics_hold_the_bar(b, hq, hkv, s, d, kw):
     print(f"bf16 kernel numerics vs plain, max abs error: P rounded "
           f"{errs[True]:.3e}, P in f32 {errs[False]:.3e} (bar 3e-2)")
     assert errs[True] <= 3e-2 and errs[False] <= 3e-2
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", F32_CASES)
+def test_bf16_kernel_lse_numerics_hold_the_bar(b, hq, hkv, s, d, kw):
+    """The bf16 kernel's row log-sum-exp (ROADMAP T4), written in its
+    epilogue from the row state as the emulation computes it, against the
+    plain version's logsumexp of the same bf16 inputs at 1e-5 +
+    1e-6·|lse| over the seven reference cases; its output is the
+    emulation's without `lse`, with P rounded to bf16 as the kernel
+    does (l sums the unrounded P, so lse does not see that rounding)."""
+    kw = {"causal": True, **kw}
+    q, k, v = (_bf16(_normal((b, h, s, d), 40 + i, ml_dtypes.bfloat16))
+               for i, h in enumerate((hq, hkv, hkv)))
+    _, plain = multi_head_attention(q, k, v, scale=d ** -0.5, impl="ref",
+                                    return_lse=True, **kw)
+    emu_out, emu = _sm90_numerics(q, k, v, scale=d ** -0.5, return_lse=True,
+                                  **kw)
+    assert emu.dtype == torch.float32 and emu.shape == (b, hq, s)
+    assert torch.equal(emu_out, _sm90_numerics(q, k, v, scale=d ** -0.5,
+                                               **kw))
+    err = (emu - plain).abs()
+    bar = 1e-5 + 1e-6 * plain.abs()
+    print(f"bf16 kernel lse numerics vs plain, max abs error "
+          f"{err.max().item():.3e}, margin to the bar "
+          f"{(bar / err.clamp_min(1e-30)).min().item():.1f}x")
+    assert torch.all(err <= bar)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,kw", F32_CASES)

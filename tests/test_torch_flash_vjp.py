@@ -271,16 +271,32 @@ def test_chunked_xent_recomputes_chunk_logits_in_the_backward():
     assert torch.isfinite(embed.grad).all() and torch.isfinite(h.grad).all()
 
 
-def test_bf16_training_on_the_kernel_route_raises_naming_its_item():
-    """bf16 attention with grad takes the kernel route's forward, whose
-    bf16 kernel writes no lse yet: it raises (ROADMAP T4) instead of
-    taking the plain route; the plain route trains bf16."""
-    from repro_torch.kernels.attention import ops
+def test_bf16_training_on_the_kernel_route_raises_naming_its_item(
+        monkeypatch):
+    """bf16 attention with grad takes the kernel route's forward, and
+    since the bf16 kernel writes the row log-sum-exp (ROADMAP T4, done)
+    that route no longer raises: `_launch` hands the bf16 kernel an f32
+    (B·H, S) `lse` buffer and returns it as (B, H, S) — here the launch
+    is recorded instead of run, as the CPU has no kernel; the plain
+    route trains bf16."""
+    from repro_torch.kernels.attention import kernel, ops
 
+    seen = {}
+
+    def record(q, k, v, out, *, lse=None, **kw):
+        seen.update(dtype=q.dtype, lse=lse)
+        out.zero_()
+        lse.fill_(0.5)
+
+    monkeypatch.setattr(kernel, "launch", record)
     q = torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP T4"):
-        ops._launch(q, q, q, scale=1.0, causal=True, window=None,
-                    softcap=None, return_lse=True)
+    out, lse = ops._launch(q, q, q, scale=1.0, causal=True, window=None,
+                           softcap=None, return_lse=True)
+    assert seen["dtype"] == torch.bfloat16
+    assert seen["lse"].dtype == torch.float32
+    assert seen["lse"].shape == (2, 8) and seen["lse"].is_contiguous()
+    assert out.dtype == torch.bfloat16 and lse.shape == (1, 2, 8)
+    assert torch.all(lse == 0.5)
     leaf = q.clone().float().requires_grad_(True)
     out = flash_attention(leaf.bfloat16(), q, q, scale=1.0)
     out.float().sum().backward()

@@ -14,9 +14,10 @@ wider leaf read in place, with the bits of a contiguous copy, also
 where a leaf's rows lie 7e7 elements apart; a leaf of 20,480,000
 columns; `transport.aggregate` one launch per block),
 flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
-each at every reference case; the f32 kernel's row log-sum-exp, the
-flash backward through it and a reduced training step on both routes)
-and the WKV6 recurrence (K3), the last two
+each at every reference case; both kernels' row log-sum-exp, the
+flash backward through it and reduced training steps on both routes, in
+bf16 for olmo-1b and rwkv6-7b) and the WKV6 recurrence (K3; its
+hand-written backward against the plain backward), the last two
 also at their serving slices' shapes; K3 also at lengths off its chunk,
 on views off 16 bytes and for repeatability. The port's threefry is
 checked to draw an odd count without a host-to-device copy, and a long
@@ -435,9 +436,47 @@ def test_attention_kernel_writes_lse(cuda, b, hq, hkv, s, d, kw):
 
 
 def test_bf16_kernel_refuses_lse(cuda):
+    """The bf16 kernel used to refuse `lse` (ROADMAP T4); it now writes
+    it: one launch, the plain version's lse within 1e-5 + 1e-6·|lse|,
+    and the output equal bit for bit to a launch without it."""
     q, k, v = _qkv(1, 2, 2, 64, 64, torch.bfloat16, 3, cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP T4"):
-        multi_head_attention(q, k, v, scale=0.125, return_lse=True)
+    before = attn_ops.launch_count
+    out, lse = multi_head_attention(q, k, v, scale=0.125, return_lse=True)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count == before + 1
+    _, ref_lse = multi_head_attention(q, k, v, scale=0.125, impl="ref",
+                                      return_lse=True)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_BAR[0],
+                               rtol=LSE_BAR[1])
+    assert torch.equal(out, multi_head_attention(q, k, v, scale=0.125))
+
+
+# olmo-1b's training shape (B, heads, S, head_dim) at the launcher's
+# defaults
+OLMO_TRAIN_ATTN_SHAPE = (8, 16, 16, 256, 128)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", ATTN_TEST_SHAPES
+                         + [(*OLMO_TRAIN_ATTN_SHAPE, {})])
+def test_bf16_attention_kernel_writes_lse(cuda, b, hq, hkv, s, d, kw):
+    """The bf16 Hopper kernel's row log-sum-exp against the plain
+    version's at 1e-5 + 1e-6·|lse|, its output at the bf16 bar, and a
+    serving launch (no `lse`) equal to it bit for bit."""
+    q, k, v = _qkv(b, hq, hkv, s, d, torch.bfloat16, s + d + 2, cuda)
+    scale = d ** -0.5
+    out, lse = multi_head_attention(q, k, v, scale=scale, return_lse=True,
+                                    **kw)
+    ref, ref_lse = multi_head_attention(q, k, v, scale=scale, impl="ref",
+                                        return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    print(f"{(b, hq, hkv, s, d)} {kw}: bf16 lse max abs error "
+          f"{(lse - ref_lse).abs().max().item():.3e}")
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_BAR[0],
+                               rtol=LSE_BAR[1])
+    assert torch.equal(out, multi_head_attention(q, k, v, scale=scale,
+                                                 **kw))
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,kw", [
@@ -529,6 +568,68 @@ def test_reduced_training_step_kernel_route_matches_plain_route(
         assert abs(a - b_) <= 1e-5 * abs(b_)
     for a, b_ in zip(out["auto"][1], out["ref"][1]):
         assert (a - b_).abs().max() <= 1e-5 * b_.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "rwkv6-7b"])
+def test_reduced_bf16_training_kernel_route_matches_plain_route(cuda, arch):
+    """The reduced model in bf16 (olmo-1b through K2's bf16 kernel with
+    lse and the flash backward; rwkv6-7b through K3 with checkpoints and
+    the WKV backward kernel) against its plain route, as chip_smoke holds
+    the full-width models: the per-example losses within 1e-2 relative,
+    and each leaf's gradient at most twice as far (in norm) from the f32
+    model's (the same parameters upcast, plain route) as the plain bf16
+    route's, with one launch of each kernel a layer; then one fused gbma
+    step on the kernel route gives finite parameters."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.gbma import GBMAConfig
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.gd import momentum
+    from repro_torch.training.train_step import TrainConfig, build_train_step
+
+    cfg = get_config(arch).reduced().with_(dtype="bfloat16")
+    params0 = build_model(cfg).init_params(device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 65), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(4))
+    out = {}
+    for impl, dtype in (("auto", "bfloat16"), ("ref", "bfloat16"),
+                        ("ref", "float32")):
+        params = tree_map(lambda x: x.to(getattr(torch, dtype)).clone()
+                          if x.dtype == torch.bfloat16 else x.clone(),
+                          params0)
+        params = tree_map(lambda x: x.requires_grad_(True), params)
+        before = (attn_ops.launch_count, wkv_ops.launch_count,
+                  wkv_ops.backward_launch_count)
+        losses, _ = build_model(cfg.with_(dtype=dtype), impl=impl) \
+            .train_loss_per_example(params, {"tokens": tokens})
+        torch.mean(losses).backward()
+        torch.cuda.synchronize()
+        launches = tuple(a - b_ for a, b_ in zip(
+            (attn_ops.launch_count, wkv_ops.launch_count,
+             wkv_ops.backward_launch_count), before))
+        out[impl, dtype] = (losses.detach(),
+                            [p.grad for p in tree_leaves(params)], launches)
+    n = cfg.n_layers
+    kernel, plain, f32 = (out["auto", "bfloat16"], out["ref", "bfloat16"],
+                          out["ref", "float32"])
+    assert kernel[2] == ((n, 0, 0) if arch == "olmo-1b" else (0, n, n))
+    assert plain[2] == f32[2] == (0, 0, 0)
+    torch.testing.assert_close(kernel[0], plain[0], atol=0, rtol=1e-2)
+    norm = torch.linalg.vector_norm
+    for a, b_, c in zip(kernel[1], plain[1], f32[1]):
+        assert a.dtype == b_.dtype and torch.isfinite(a).all()
+        a, b_, c = a.double(), b_.double(), c.double()
+        assert norm(a - c) <= 2.0 * norm(b_ - c)
+    ch = ChannelConfig(fading="rayleigh", noise_std=0.01)
+    step = build_train_step(build_model(cfg), TrainConfig(
+        gbma=GBMAConfig(n_nodes=8, channel=ch)), momentum(0.05))
+    params, _, metrics = step(params0, step.init_state(params0),
+                              {"tokens": tokens}, 0)
+    assert all(torch.isfinite(p).all() for p in tree_leaves(params))
+    assert abs(float(metrics["loss"]) - float(plain[0].mean())) \
+        <= 1e-2 * float(plain[0].mean())
 
 
 # ------------------------------------------------------------------ WKV6 (K3)
@@ -650,6 +751,45 @@ def test_wkv_kernel_launches_are_repeatable(cuda):
     o1, s1 = wkv6(*args)
     o2, s2 = wkv6(*args)
     assert torch.equal(o1, o2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("b,h,t,d,dtype", [
+    *[(*shape, torch.float32) for shape in WKV_TEST_SHAPES],
+    (8, 64, 256, 64, torch.float32), (8, 64, 256, 64, torch.bfloat16),
+    (2, 8, 100, 64, torch.bfloat16), (1, 3, 33, 16, torch.float32)])
+def test_wkv_backward_kernel_matches_plain_backward(cuda, b, h, t, d, dtype):
+    """The differentiable WKV on the kernel route (K3 writing its chunk
+    checkpoints, then the hand-written backward kernel) against the plain
+    pair, with a nonzero s0 and a nonzero cotangent of the final state,
+    on the model's (B, T, H, D) views: one launch each; dr, dk, dv, dw
+    within 1e-4 of each gradient's largest magnitude in f32 (plus one
+    bf16 rounding, 2^-7·|g|, in bf16), du and ds0 (f32 either way) within
+    1e-4 of theirs; the forward's o and state equal to a launch without
+    checkpoints bit for bit."""
+    args = _wkv_inputs(b, h, t, d, dtype, 7 * t + d, cuda, layout="bthd")
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    do = torch.randn(args[0].shape, generator=gen, device=cuda).to(dtype)
+    ds_fin = torch.randn(args[5].shape, generator=gen, device=cuda)
+    runs = {}
+    for use_kernel in (True, False):
+        leaves = [x.clone().requires_grad_(True) for x in args]
+        before = (wkv_ops.launch_count, wkv_ops.backward_launch_count)
+        o, s_fin = wkv_ops._WKV6.apply(*leaves, use_kernel)
+        ((o.float() * do.float()).sum() + (s_fin * ds_fin).sum()).backward()
+        torch.cuda.synchronize()
+        assert (wkv_ops.launch_count - before[0],
+                wkv_ops.backward_launch_count - before[1]) == \
+            ((1, 1) if use_kernel else (0, 0))
+        runs[use_kernel] = (o.detach(), s_fin.detach(),
+                            [x.grad for x in leaves])
+    bare_o, bare_s = wkv6(*args)
+    assert torch.equal(runs[True][0], bare_o)
+    assert torch.equal(runs[True][1], bare_s)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for i, (a, b_) in enumerate(zip(runs[True][2], runs[False][2])):
+        a, b_ = a.float(), b_.float()
+        bar = 1e-4 * b_.abs().max() + (ulp * b_.abs() if i < 4 else 0.0)
+        assert torch.all((a - b_).abs() <= bar), i
 
 
 def test_wkv_kernel_without_initial_state(cuda):

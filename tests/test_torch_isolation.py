@@ -1,12 +1,15 @@
 """The port stands alone and refuses what it does not do yet.
 
 * Importing every `repro_torch` module loads neither `jax` nor any module
-  of the reference package `repro` (checked in a fresh interpreter).
+  of the reference package `repro` (checked in a fresh interpreter), and
+  no import statement of the port's sources or `chip_smoke.py` names
+  them.
 * `run_mc`, `Model.init_params` and the serve launcher with no `device`
   raise where CUDA is absent instead of running on the CPU.
 * Every argument, value, architecture or model option outside the ported
   slices raises `NotImplementedError` naming its ROADMAP item.
 """
+import ast
 import os
 import pathlib
 import subprocess
@@ -58,6 +61,40 @@ TRAINING_MODULES = {"repro_torch.optim.gd", "repro_torch.data.synthetic",
                     "repro_torch.training.train_step",
                     "repro_torch.training.loop", "repro_torch.launch.train"}
 
+# training olmo-1b in bf16 (T4) and RWKV6 (T5): the attention kernel with
+# its log-sum-exp, the differentiable WKV and the models' training forwards
+MODEL_TRAINING_MODULES = {"repro_torch.kernels.attention.kernel",
+                          "repro_torch.kernels.attention.ops",
+                          "repro_torch.kernels.wkv.kernel",
+                          "repro_torch.kernels.wkv.ops",
+                          "repro_torch.kernels.wkv.ref",
+                          "repro_torch.models.attention",
+                          "repro_torch.models.rwkv"}
+
+
+def _imported_roots(path: pathlib.Path) -> set:
+    """The top-level package of every import statement in a source file,
+    at any depth (functions included)."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_of_the_port_imports_jax_or_the_reference():
+    """No import statement anywhere in `src/repro_torch/` or
+    `chip_smoke.py`, at module level or inside a function, names `jax`,
+    `jaxlib` or the reference package `repro`."""
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    files.append(SRC.parent / "chip_smoke.py")
+    assert len(files) >= 60
+    for path in files:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{path} imports {bad}"
+
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
     env = {**os.environ, "PYTHONPATH": str(SRC)}
@@ -70,13 +107,15 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert SERVER_MODULES <= names, SERVER_MODULES - names
     assert TRANSPORT_MODULES <= names, TRANSPORT_MODULES - names
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
+    assert MODEL_TRAINING_MODULES <= names, MODEL_TRAINING_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
 @pytest.mark.parametrize("module", sorted(TRANSPORT_MODULES
-                                          | TRAINING_MODULES))
+                                          | TRAINING_MODULES
+                                          | MODEL_TRAINING_MODULES))
 def test_transport_module_alone_loads_no_jax_and_no_reference(module):
-    """Each M7 and training module imported first in a fresh interpreter
+    """Each M7, training and model-training module imported first in a fresh interpreter
     (its own import order, the package's re-exports included) loads
     neither JAX nor the reference."""
     env = {**os.environ, "PYTHONPATH": str(SRC)}
@@ -282,17 +321,22 @@ def test_out_of_slice_config_raises(overrides, item):
 
 def test_training_entry_points_raise():
     """Training is ported for the dense decoder (`opt_flash_vjp` builds:
-    the port trains through its flash backward either way); RWKV
-    training (T5) and rbg keys (T6) raise naming their items; the
-    launcher's case is the test below."""
+    the port trains through its flash backward either way) and for RWKV
+    (T5, done: its loss is differentiable on the CPU); rbg keys (T6)
+    raise naming their item; the launcher's case is the test below."""
     from repro_torch.optim.gd import gd
     from repro_torch.training.train_step import TrainConfig, build_train_step
 
     cfg = get_config("repro-100m").reduced()
     assert build_model(cfg.with_(opt_flash_vjp=True)).kind == "transformer"
-    with pytest.raises(NotImplementedError, match="ROADMAP T5"):
-        build_model(get_config("rwkv6-7b").reduced()) \
-            .train_loss_per_example({}, {"tokens": None})
+    rwkv_cfg = get_config("rwkv6-7b").reduced().with_(n_layers=1)
+    rwkv = build_model(rwkv_cfg)
+    params = rwkv.init_params(device="cpu")
+    params["blocks"]["tm"]["wk"].requires_grad_(True)
+    losses, _ = rwkv.train_loss_per_example(
+        params, {"tokens": torch.zeros((1, 5), dtype=torch.long)})
+    losses.sum().backward()
+    assert torch.isfinite(params["blocks"]["tm"]["wk"].grad).all()
     with pytest.raises(NotImplementedError, match="ROADMAP T6"):
         build_train_step(build_model(cfg), TrainConfig(rng_impl="rbg"),
                          gd(0.1))

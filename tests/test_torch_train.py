@@ -86,11 +86,13 @@ TRANSPORT = {"momentum": ("momentum", {}), "nesterov": ("nesterov", {}),
 
 
 def _configs(model: str):
+    """(reference, port) configs: 'tiny', 'reduced' (repro-100m), or an
+    architecture's id for its reduced config."""
     if model == "tiny":
         return (jax_get_config("repro-100m").with_(**TINY),
                 get_config("repro-100m").with_(**TINY))
-    return (jax_get_config("repro-100m").reduced(),
-            get_config("repro-100m").reduced())
+    arch = "repro-100m" if model == "reduced" else model
+    return jax_get_config(arch).reduced(), get_config(arch).reduced()
 
 
 def _case(name: str):
@@ -109,24 +111,31 @@ def _channel(noise_std):
                          phase_error_max=0.3)
 
 
-def _reference(model: str, name: str) -> tuple:
-    """(initial params as numpy, logged losses, final params as numpy
-    leaves) of the reference's 4-step run."""
+def _reference_step(model: str, name: str) -> tuple:
+    """(the reference's model, train step and token stream of case
+    `name`); call inside `jax_original_layout()`."""
     algo, noise, clip, mb, route, extra = _case(name)
     jcfg, _ = _configs(model)
     ch = _channel(noise)
+    m = jax_build_model(jcfg)
+    tp = None if extra is None else jt.TransportConfig(
+        n_nodes=NODES, channel=ch, gamma=0.9, stepsize=LR, **extra)
+    tcfg = JaxTrainConfig(
+        aggregator=algo, gbma=JaxGBMAConfig(n_nodes=NODES, channel=ch),
+        clip_norm=clip, microbatches=mb, route=route, transport=tp)
+    step = jax_build_step(m, tcfg, jgd.momentum(LR))
+    ds = JaxTokens(JaxTokenConfig(vocab_size=jcfg.vocab_size,
+                                  seq_len=16, global_batch=8, seed=3))
+    return m, step, ds
+
+
+def _reference(model: str, name: str) -> tuple:
+    """(initial params as numpy, logged losses, final params as numpy
+    leaves) of the reference's 4-step run."""
     with jax_original_layout():
-        m = jax_build_model(jcfg)
+        m, step, ds = _reference_step(model, name)
         params = m.init_params(jax.random.key(0))
         init = jax.tree.map(np.asarray, params)
-        tp = None if extra is None else jt.TransportConfig(
-            n_nodes=NODES, channel=ch, gamma=0.9, stepsize=LR, **extra)
-        tcfg = JaxTrainConfig(
-            aggregator=algo, gbma=JaxGBMAConfig(n_nodes=NODES, channel=ch),
-            clip_norm=clip, microbatches=mb, route=route, transport=tp)
-        step = jax_build_step(m, tcfg, jgd.momentum(LR))
-        ds = JaxTokens(JaxTokenConfig(vocab_size=jcfg.vocab_size,
-                                      seq_len=16, global_batch=8, seed=3))
         params, _, hist = jax_run(
             step, params, step.init_state(params),
             ({"tokens": t} for t in ds), STEPS, log_every=1)
@@ -135,9 +144,8 @@ def _reference(model: str, name: str) -> tuple:
     return init, np.asarray([h["loss"] for h in hist], np.float32), leaves
 
 
-def _port(model: str, name: str, init) -> tuple:
-    """(logged losses, final params as numpy leaves in JAX's order, the
-    run's history) of the port's 4-step run from the same parameters."""
+def _port_step(model: str, name: str) -> tuple:
+    """(the port's train step of case `name`, its token stream)."""
     algo, noise, clip, mb, route, extra = _case(name)
     _, cfg = _configs(model)
     ch = port_channel(_channel(noise))
@@ -148,10 +156,17 @@ def _port(model: str, name: str, init) -> tuple:
                        clip_norm=clip, microbatches=mb, route=route,
                        transport=tp)
     step = build_train_step(build_model(cfg), tcfg, gd.momentum(LR))
-    params = params_from_reference(init)
     ds = SyntheticTokens(TokenDatasetConfig(vocab_size=cfg.vocab_size,
                                             seq_len=16, global_batch=8,
                                             seed=3))
+    return step, ds
+
+
+def _port(model: str, name: str, init) -> tuple:
+    """(logged losses, final params as numpy leaves in JAX's order, the
+    run's history) of the port's 4-step run from the same parameters."""
+    step, ds = _port_step(model, name)
+    params = params_from_reference(init)
     params, _, hist = run_training(step, params, step.init_state(params),
                                    ({"tokens": t} for t in ds), STEPS,
                                    log_every=1)

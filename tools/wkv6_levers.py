@@ -126,13 +126,31 @@ def parent_source(path) -> str:
                           check=True).stdout
 
 
+def bind_library(lib) -> tuple:
+    """`kernel.bind_library`, or for a source older than the checkpoint
+    output (`before`, `reorder`) its own interface, called through a shim
+    that drops the checkpoint pointer (always null here)."""
+    from repro_torch.kernels.wkv import kernel
+
+    if hasattr(lib, "wkv6_ckpt_steps"):
+        return kernel.bind_library(lib)
+    fn = lib.wkv6_forward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    err = lib.wkv6_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return (lambda *a: fn(*a[:-1])), err
+
+
 def kernel_summary(info) -> dict:
     """ptxas's registers and spills and the SASS's shared loads by width,
     FFMAs and FMULs of the bf16, D = 64 kernel that stages by 16-byte
-    copies (the one rwkv6-7b runs)."""
+    copies (the one rwkv6-7b serves with; no checkpoints)."""
     import chip_smoke
 
-    key = re.compile(r"wkv6_kernelI13__nv_bfloat16Li64E(?:Lb1E)?E")
+    key = re.compile(r"wkv6_kernelI13__nv_bfloat16Li64E(?:Lb1E)?(?:Lb0E)?E")
     out = dict(chip_smoke.ptxas_by_kernel(
         info.log, lambda m: "k" if key.search(m) else None).get("k", {}))
     sass = chip_smoke._sass(info.path)
@@ -182,7 +200,7 @@ def main() -> int:
         futs = {name: pool.submit(_build.build, path, path.stem)
                 for name, path in paths.items()}
         infos = {name: f.result() for name, f in futs.items()}
-    libs = {name: kernel.bind_library(ctypes.CDLL(str(info.path)))
+    libs = {name: bind_library(ctypes.CDLL(str(info.path)))
             for name, info in infos.items()}
     shipped = kernel._bound
 
