@@ -77,7 +77,8 @@ drives the port's main paths:
   bf16 kernel with its row log-sum-exp against its plain version (its
   output bits unchanged without it) and timed at olmo-1b's training
   shape; the hand-written WKV backward against the plain backward and
-  timed at rwkv6-7b's; the launcher on olmo-1b; olmo-1b at full width and
+  timed at rwkv6-7b's training shape and a transport node's; the launcher
+  on olmo-1b; olmo-1b at full width and
   depth and rwkv6-7b at full width with 4 of its 32 layers, in bf16, 4
   steps each on the fused gbma route and through the transport (gbma,
   receiver momentum): K2 in every olmo-1b forward, K3 and the backward in
@@ -2221,28 +2222,36 @@ def build_kernels() -> tuple:
 def wkv_bwd_build_summary(info) -> dict:
     """Per instantiation of the WKV backward, keyed "<dtype> d=<head_dim>":
     ptxas's registers and spill bytes and the block's dynamic shared
-    memory. Raises if an instantiation is missing."""
+    memory of the kernel, and the second pass's (summing the row groups'
+    dv partials) registers and spills under "sum". Raises if an
+    instantiation is missing."""
     import ctypes
     import re
 
     from repro_torch.kernels.wkv import kernel as wkv_kernel
 
-    def key(mangled):
-        m = re.search(r"wkv6_bwd_kernelI(13__nv_bfloat16|f)Li(\d+)EE",
-                      mangled)
-        if not m:
-            return None
-        return f"{'bf16' if m.group(1) != 'f' else 'f32'} d={m.group(2)}"
+    def keyer(name):
+        def key(mangled):
+            m = re.search(name + r"I(13__nv_bfloat16|f)Li(\d+)EE", mangled)
+            if not m:
+                return None
+            return f"{'bf16' if m.group(1) != 'f' else 'f32'} d={m.group(2)}"
+        return key
 
-    out = ptxas_by_kernel(info.log, key)
+    out = ptxas_by_kernel(info.log, keyer("wkv6_bwd_kernel"))
+    second = ptxas_by_kernel(info.log, keyer("wkv6_bwd_dv_sum_kernel"))
     smem = ctypes.CDLL(str(info.path)).wkv6_bwd_smem_bytes
-    smem.argtypes = [ctypes.c_int]
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_int
     for dtype in ("f32", "bf16"):
         for d in wkv_kernel.HEAD_DIMS:
-            out.setdefault(f"{dtype} d={d}", {})["smem_bytes"] = smem(d)
+            key = f"{dtype} d={d}"
+            out.setdefault(key, {})["smem_bytes"] = smem(d, int(dtype ==
+                                                                "bf16"))
+            out[key]["sum"] = second.get(key, {})
     log(f"wkv6_bwd ptxas and shared memory per kernel: {out}")
-    if not all("registers" in v for v in out.values()):
+    if not all("registers" in v and "registers" in v["sum"]
+               for v in out.values()):
         raise AssertionError("the WKV backward library lacks an "
                              "instantiation")
     return out
@@ -3606,12 +3615,14 @@ RWKV_TRAIN_LAYERS = 4
 # ~10 s of profiler overhead; gbma through the transport issues what
 # momentum's does but the carry)
 MODEL_TRAIN_PROFILED = ("gbma fused", "momentum transport")
-# the WKV backward at rwkv6-7b's training shape (B, H, T, D), then the
-# reference tests' shapes and a length off the chunks
+# the WKV backward at rwkv6-7b's training shape (B, H, T, D) and at a
+# transport node's (one example a node), then the reference tests' shapes
+# and a length off the chunks
 WKV_TRAIN_SHAPE = (8, 64, 256, 64)
+WKV_NODE_SHAPE = (1, 64, 256, 64)
 WKV_BWD_CASES = (*((s, "float32") for s in WKV_TEST_SHAPES),
                  (WKV_TRAIN_SHAPE, "float32"), (WKV_TRAIN_SHAPE, "bfloat16"),
-                 ((2, 8, 100, 64), "bfloat16"))
+                 (WKV_NODE_SHAPE, "bfloat16"), ((2, 8, 100, 64), "bfloat16"))
 # the backward kernel against the plain backward: every gradient within
 # 1e-4 of its largest magnitude, plus one bf16 rounding (2^-7·|g|) of the
 # four the kernel writes in bf16 (du and ds0 are f32)
@@ -3711,43 +3722,48 @@ def check_wkv_backward() -> dict:
     return errs
 
 
-def time_wkv_backward() -> dict:
-    """(f) At rwkv6-7b's training shape in bf16: the backward kernel (bare
-    launch with its scratch) and the plain backward per call, against
-    the bound; K3's forward with and without checkpoints."""
+def time_wkv_backward() -> list:
+    """(f) At rwkv6-7b's training shape and a transport node's, in bf16:
+    the backward kernel (bare launch: its kernel and the second pass
+    summing the row groups' dv partials) and the plain backward per call,
+    against the bound; K3's forward with and without checkpoints. One row
+    a shape."""
     import torch
 
     from repro_torch.kernels.wkv import kernel
     from repro_torch.kernels.wkv import ops as wkv_ops
 
-    b, h, t, d = WKV_TRAIN_SHAPE
-    r, k, v, w, u, _ = wkv_inputs(b, h, t, d, torch.bfloat16, 8,
-                                  layout="bthd")
-    do = torch.randn(r.shape, device="cuda").to(torch.bfloat16)
-    ckpt = torch.empty((b, h, kernel.n_ckpt(t), d, d), device="cuda")
-    s_out = torch.empty((b, h, d, d), device="cuda")
-    o = torch.empty((b, t, h, d), dtype=torch.bfloat16,
-                    device="cuda").transpose(1, 2)
-    grads = [torch.empty_like(o) for _ in range(4)]
-    du = torch.empty((b, h, d), device="cuda")
-    bound, bound_by = wkv_bwd_bound(b, h, t, d, "bfloat16")
-    row = {"shape": list(WKV_TRAIN_SHAPE), "dtype": "bfloat16",
-           "forward_ms": cuda_ms(lambda: kernel.launch(
-               r, k, v, w, u, None, s_out, o), 50),
-           "forward_ckpt_ms": cuda_ms(lambda: kernel.launch(
-               r, k, v, w, u, None, s_out, o, ckpt=ckpt), 50),
-           "ms": cuda_ms(lambda: kernel.launch_backward(
-               r, k, v, w, do, u, ckpt, None, dr=grads[0], dk=grads[1],
-               dv=grads[2], dw=grads[3], du=du, ds0=None), 20),
-           "plain_ms": cuda_ms(lambda: wkv_ops._plain_backward(
-               r, k, v, w, u, None, do, None), 2, warmup=1),
-           "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
-    log(f"train models (f) WKV at {WKV_TRAIN_SHAPE} bf16: backward kernel "
-        f"{row['ms']:.6f} ms, plain backward {row['plain_ms']:.3f} ms, no "
-        f"library call, bound {bound:.6f} ms ({bound_by}), kernel at "
-        f"{bound / row['ms']:.1%} of it; K3 forward {row['forward_ms']:.6f} "
-        f"ms, with checkpoints {row['forward_ckpt_ms']:.6f} ms")
-    return row
+    rows = []
+    for b, h, t, d in (WKV_TRAIN_SHAPE, WKV_NODE_SHAPE):
+        r, k, v, w, u, _ = wkv_inputs(b, h, t, d, torch.bfloat16, 8,
+                                      layout="bthd")
+        do = torch.randn(r.shape, device="cuda").to(torch.bfloat16)
+        ckpt = torch.empty((b, h, kernel.n_ckpt(t), d, d), device="cuda")
+        s_out = torch.empty((b, h, d, d), device="cuda")
+        o = torch.empty((b, t, h, d), dtype=torch.bfloat16,
+                        device="cuda").transpose(1, 2)
+        grads = [torch.empty_like(o) for _ in range(4)]
+        du = torch.empty((b, h, d), device="cuda")
+        bound, bound_by = wkv_bwd_bound(b, h, t, d, "bfloat16")
+        row = {"shape": [b, h, t, d], "dtype": "bfloat16",
+               "forward_ms": cuda_ms(lambda: kernel.launch(
+                   r, k, v, w, u, None, s_out, o), 50),
+               "forward_ckpt_ms": cuda_ms(lambda: kernel.launch(
+                   r, k, v, w, u, None, s_out, o, ckpt=ckpt), 50),
+               "ms": cuda_ms(lambda: kernel.launch_backward(
+                   r, k, v, w, do, u, ckpt, None, dr=grads[0], dk=grads[1],
+                   dv=grads[2], dw=grads[3], du=du, ds0=None), 20),
+               "plain_ms": cuda_ms(lambda: wkv_ops._plain_backward(
+                   r, k, v, w, u, None, do, None), 2, warmup=1),
+               "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+        log(f"train models (f) WKV at {(b, h, t, d)} bf16: backward kernel "
+            f"{row['ms']:.6f} ms, plain backward {row['plain_ms']:.3f} ms, "
+            f"no library call, bound {bound:.6f} ms ({bound_by}), kernel at "
+            f"{bound / row['ms']:.1%} of it; K3 forward "
+            f"{row['forward_ms']:.6f} ms, with checkpoints "
+            f"{row['forward_ckpt_ms']:.6f} ms")
+        rows.append(row)
+    return rows
 
 
 def _reset_counts(*mods) -> None:
@@ -4325,7 +4341,7 @@ def main() -> int:
             str(s): {**rwkv_served[s], **rwkv_routes[s], **rwkv_times[s]}
             for s in SERVE_PROMPTS}},
     }
-    bwd = model_record["wkv_backward_timing"]
+    bwd = model_record["wkv_backward_timing"][0]
     wkv_bwd_entry = {
         "name": "wkv6_backward", "route": "cuda", "source": WKV_BWD_SOURCE,
         "replaces": WKV_BWD_REPLACES,
@@ -4339,6 +4355,7 @@ def main() -> int:
         "library_ms": None, "shape": bwd["shape"], "dtype": bwd["dtype"],
         "forward_ms": bwd["forward_ms"],
         "forward_ckpt_ms": bwd["forward_ckpt_ms"],
+        "shapes": model_record["wkv_backward_timing"],
         "errors": model_record["wkv_backward_errors"],
         "build": wkv_bwd_build,
         "launches_by_run": {"train rwkv6-7b (4 layers)":

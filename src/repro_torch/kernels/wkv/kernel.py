@@ -7,7 +7,10 @@ by element copies of the same kernel for a view those cannot read
 (`copy_bytes`). For training it also writes the state at the start of
 every chunk of `CKPT_STEPS` steps (`ckpt`), from which the backward
 (`csrc/wkv6_bwd.cu`, hand-written; the JAX package differentiates its
-scan instead) recomputes each chunk. This module builds each at first use
+scan instead) recomputes each chunk on chip; it stages r, k, v, w and do
+by 16-byte copies only, so the wrapper copies a view off 16 bytes first,
+and sums dv's per-row-group partials in a second pass over a buffer the
+wrapper allocates. This module builds each at first use
 (`kernels._build`), binds its C interface with `ctypes`, and launches it
 on PyTorch's current stream. Validation and the launch counts live in
 `ops.py`.
@@ -69,7 +72,8 @@ def bind_library(lib: ctypes.CDLL) -> tuple:
 
 
 def bind_backward_library(lib: ctypes.CDLL) -> tuple:
-    """(launch, error string) of a loaded backward library."""
+    """(launch, error string, row groups per head dim) of a loaded
+    backward library."""
     fn = lib.wkv6_backward
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
@@ -78,7 +82,10 @@ def bind_backward_library(lib: ctypes.CDLL) -> tuple:
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     _check_ckpt_steps(lib.wkv6_bwd_ckpt_steps)
-    return fn, err
+    groups = lib.wkv6_bwd_groups
+    groups.argtypes = [ctypes.c_int]
+    groups.restype = ctypes.c_int
+    return fn, err, groups
 
 
 def _bind():
@@ -151,15 +158,18 @@ def launch_backward(r, k, v, w, do, u, ckpt, ds_fin, *, dr, dk, dv, dw,
 
     Expects validated CUDA tensors: r, k, v, w, do and the four
     gradients (B, H, T, D) of one dtype with unit stride along D (any
-    other strides); u (H, D) f32 contiguous; ckpt the forward's
+    other strides), r, k, v, w and do readable by 16-byte copies
+    (`copy_bytes` 16); u (H, D) f32 contiguous; ckpt the forward's
     checkpoints of the same inputs; ds_fin (or None: zeros) contiguous
-    f32 (B, H, D, D). Allocates the kernel's scratch (B·H·CKPT_STEPS·D²
-    f32). Raises if the launch is refused."""
-    fn, err = _bind_backward()
+    f32 (B, H, D, D). The kernel keeps every state on chip; it is given
+    only the per-row-group dv partials (groups·B·H·T·(D + 1) f32, the
+    groups `wkv6_bwd_groups(D)`), which its second pass sums. Raises if
+    the launch is refused."""
+    fn, err, groups = _bind_backward()
     batch, heads, steps, head_dim = r.shape
-    scratch = torch.empty((batch * heads * CKPT_STEPS * head_dim
-                           * head_dim,), dtype=torch.float32,
-                          device=r.device)
+    part = torch.empty((groups(head_dim) * batch * heads * steps
+                        * (head_dim + 1),), dtype=torch.float32,
+                       device=r.device)
     strides = (ctypes.c_int64 * 27)(*(s for t in (r, k, v, w, do, dr, dk,
                                                   dv, dw)
                                       for s in t.stride()[:3]))
@@ -168,7 +178,7 @@ def launch_backward(r, k, v, w, do, u, ckpt, ds_fin, *, dr, dk, dv, dw,
         code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                   do.data_ptr(), u.data_ptr(), ckpt.data_ptr(),
                   None if ds_fin is None else ds_fin.data_ptr(),
-                  scratch.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                  part.data_ptr(), dr.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
                   None if ds0 is None else ds0.data_ptr(),
                   ctypes.addressof(strides), batch, heads, steps, head_dim,

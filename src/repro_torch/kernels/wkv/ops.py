@@ -96,6 +96,11 @@ def _launch_backward(r, k, v, w, do, u, ckpt, ds_fin, want_ds0) -> tuple:
         do = do.contiguous()
     _validate((r, k, v, w, do), [x for x in (u, ckpt, ds_fin)
                                  if x is not None])
+    # the backward stages by 16-byte copies only: a view off 16 bytes
+    # (never the model's) is copied first
+    r, k, v, w, do = (x if kernel.copy_bytes(x) == 16 else
+                      x.clone(memory_format=torch.contiguous_format)
+                      for x in (r, k, v, w, do))
     b, h, t, d = r.shape
     grads = [_like_o(r) for _ in range(4)]
     du = torch.empty((b, h, d), dtype=torch.float32, device=r.device)

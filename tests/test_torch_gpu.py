@@ -17,7 +17,9 @@ flash attention (K2: the f32 CUDA-core kernel and the bf16 Hopper kernel,
 each at every reference case; both kernels' row log-sum-exp, the
 flash backward through it and reduced training steps on both routes, in
 bf16 for olmo-1b and rwkv6-7b) and the WKV6 recurrence (K3; its
-hand-written backward against the plain backward), the last two
+hand-written backward against the plain backward, also at a transport
+node's shape, bit for bit across two launches and against the CPU
+emulation of its order of operations), the last two
 also at their serving slices' shapes; K3 also at lengths off its chunk,
 on views off 16 bytes and for repeatability. The port's threefry is
 checked to draw an odd count without a host-to-device copy, and a long
@@ -756,6 +758,7 @@ def test_wkv_kernel_launches_are_repeatable(cuda):
 @pytest.mark.parametrize("b,h,t,d,dtype", [
     *[(*shape, torch.float32) for shape in WKV_TEST_SHAPES],
     (8, 64, 256, 64, torch.float32), (8, 64, 256, 64, torch.bfloat16),
+    (1, 64, 256, 64, torch.float32), (1, 64, 256, 64, torch.bfloat16),
     (2, 8, 100, 64, torch.bfloat16), (1, 3, 33, 16, torch.float32)])
 def test_wkv_backward_kernel_matches_plain_backward(cuda, b, h, t, d, dtype):
     """The differentiable WKV on the kernel route (K3 writing its chunk
@@ -790,6 +793,84 @@ def test_wkv_backward_kernel_matches_plain_backward(cuda, b, h, t, d, dtype):
         a, b_ = a.float(), b_.float()
         bar = 1e-4 * b_.abs().max() + (ulp * b_.abs() if i < 4 else 0.0)
         assert torch.all((a - b_).abs() <= bar), i
+
+
+@pytest.mark.parametrize("b,h,t,d,dtype", [
+    (8, 64, 256, 64, torch.bfloat16), (1, 64, 256, 64, torch.float32),
+    (2, 4, 70, 32, torch.float32), (1, 3, 33, 16, torch.bfloat16)])
+def test_wkv_backward_launches_are_repeatable(cuda, b, h, t, d, dtype):
+    """Two backward launches on the same inputs give the same bits in dr,
+    dk, dv, dw, du and ds0: every sum runs in a fixed order, no atomics
+    (the row groups' dv partials are summed in group order)."""
+    r, k, v, w, u, s0 = _wkv_inputs(b, h, t, d, dtype, 3 * t + d, cuda,
+                                    layout="bthd")
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    do = torch.randn(r.shape, generator=gen, device=cuda).to(dtype)
+    ds_fin = torch.randn(s0.shape, generator=gen, device=cuda)
+    ckpt = torch.empty((b, h, wkv_kernel.n_ckpt(t), d, d), device=cuda)
+    wkv_kernel.launch(r, k, v, w, u, s0, torch.empty_like(s0),
+                      torch.empty_like(r), ckpt=ckpt)
+    runs = [wkv_ops._launch_backward(r, k, v, w, do, u, ckpt, ds_fin, True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("b,h,t,d,dtype", [
+    (1, 3, 33, 16, torch.float32), (2, 2, 70, 32, torch.float32),
+    (1, 2, 100, 64, torch.float32), (1, 2, 70, 64, torch.bfloat16)])
+def test_wkv_backward_kernel_is_its_cpu_emulation(cuda, b, h, t, d, dtype):
+    """The backward kernel's dr, dk, dv, dw, du and ds0 equal bit for bit
+    `wkv_kernel_order`, the CPU emulation of its order of operations that
+    tests/test_torch_wkv_vjp.py holds to the plain backward, on the same
+    inputs (bf16 ones widened) from K3's checkpoints; bf16 gradients are
+    the emulation's rounded once."""
+    from test_torch_helpers import wkv_kernel_order
+
+    gen = torch.Generator().manual_seed(7 * t + d)
+    r, k, v, do = (torch.randn((b, h, t, d), generator=gen).to(dtype)
+                   for _ in range(4))
+    w = torch.exp(-torch.exp(torch.randn((b, h, t, d),
+                                         generator=gen))).to(dtype)
+    u = 0.5 * torch.randn((h, d), generator=gen)
+    s0, ds_fin = (torch.randn((b, h, d, d), generator=gen) * scale
+                  for scale in (0.1, 1.0))
+    dev = [x.to(cuda) for x in (r, k, v, w, u, s0, do, ds_fin)]
+    ckpt = torch.empty((b, h, wkv_kernel.n_ckpt(t), d, d), device=cuda)
+    wkv_kernel.launch(*dev[:6], torch.empty_like(dev[5]),
+                      torch.empty_like(dev[0]), ckpt=ckpt)
+    got = wkv_ops._launch_backward(*dev[:4], dev[6], dev[4], ckpt, dev[7],
+                                   True)
+    flat = [x.float().reshape(b * h, *x.shape[2:]) for x in
+            (r, k, v, w, u.expand(b, h, d), s0, do, ds_fin)]
+    want = wkv_kernel_order(*flat)
+    for name, a, e in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert torch.equal(a.cpu(), e.to(a.dtype).reshape(a.shape)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_backward_copies_views_off_16_bytes(cuda, dtype):
+    """The backward stages by 16-byte copies only: r, k, v, w and do as
+    views one element off 16 bytes are copied first and give the bits of
+    their contiguous copies."""
+    b, h, t, d = 2, 4, 70, 32
+    args = _wkv_inputs(b, h, t, d + 1, dtype, 13, cuda)
+    views = [x[..., 1:] for x in args[:4]]
+    u, s0 = args[4][:, 1:].contiguous(), args[5][..., 1:, 1:].contiguous()
+    assert wkv_kernel.copy_bytes(*views) != 16
+    do = torch.randn((b, h, t, d + 1), device=cuda).to(dtype)[..., 1:]
+    ckpt = torch.empty((b, h, wkv_kernel.n_ckpt(t), d, d), device=cuda)
+    wkv_kernel.launch(*(x.contiguous() for x in views), u, s0,
+                      torch.empty_like(s0),
+                      torch.empty((b, h, t, d), dtype=dtype, device=cuda),
+                      ckpt=ckpt)
+    off = wkv_ops._launch_backward(*views, do, u, ckpt, None, True)
+    dense = wkv_ops._launch_backward(*(x.contiguous() for x in views),
+                                     do.contiguous(), u, ckpt, None, True)
+    torch.cuda.synchronize()
+    for a, c in zip(off, dense):
+        assert torch.equal(a, c)
 
 
 def test_wkv_kernel_without_initial_state(cuda):

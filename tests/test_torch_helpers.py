@@ -170,3 +170,132 @@ class FlakyOnce:
             self.hits += 1
             return True
         return False
+
+
+# ------------------------------------------- the WKV backward kernel's order
+# csrc/wkv6_bwd.cu's split of a (batch, head) per head dim (Split<D>):
+# columns a lane owns and warps a block; kSub, the steps whose states a
+# lane keeps in registers
+WKV_SPLIT = {16: (4, 1), 32: (8, 2), 64: (16, 4)}
+WKV_SUB = 8
+
+
+def _fma(a, b, c):
+    """fmaf: the product exact in f64, one rounding to f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tree(x, dim):
+    """A balanced tree sum along `dim` (a power of two long), adjacent
+    pairs first: an xor butterfly's or a reduce-scatter's order."""
+    while x.shape[dim] > 1:
+        x = x.unflatten(dim, (x.shape[dim] // 2, 2))
+        x = x.select(dim + 1, 0) + x.select(dim + 1, 1)
+    return x.squeeze(dim)
+
+
+def _in_order(x, dim):
+    """A sum along `dim` one term after another from 0, in order."""
+    import torch
+
+    acc = torch.zeros_like(x.select(dim, 0))
+    for e in range(x.shape[dim]):
+        acc = acc + x.select(dim, e)
+    return acc
+
+
+def wkv_kernel_order(r, k, v, w, u, s0, do, ds_fin):
+    """The backward kernel's arithmetic (`csrc/wkv6_bwd.cu`) on (BH, T, D)
+    f32 CPU tensors (u (BH, D), s0 and ds_fin (BH, D, D)), vectorized
+    here over (BH, rows, lanes); returns (dr, dk, dv, dw, du, ds0). A
+    (batch, head) is split into row groups of `rows` rows (blocks of
+    `warps` warps); `lanes` lanes share a row, each owning `cols`
+    consecutive columns. States: K3's checkpoints every
+    `kernel.CKPT_STEPS` steps, each chunk walked forward once keeping
+    every `WKV_SUB`-step sub-chunk's start, each sub-chunk re-walked,
+    always with the forward's FMA s = fma(w, s, k v).
+    Per step in reverse: x = Σ_j do_j S_ij, y = Σ_j dS_ij v_j and
+    z = Σ_j dS_ij S_ij by FMAs over a lane's columns in order, then over
+    the row's lanes by an xor butterfly (a balanced tree); v·do by FMAs
+    over j in order, once a step; dr = fma(u k, v·do, x), dk = fma(r u,
+    v·do, y), dw = z, du = fma(r k, v·do, du); dS_ij k_i summed over a
+    warp's rows by a balanced tree (the shuffle reduce-scatter), over a
+    group's warps in order (its partial), then over the groups' partials
+    in order (the second pass); σ_g = Σ over a group's rows of fma(r u,
+    k, ·) in order, summed over the groups in order; dv = fma(do_j, σ,
+    the dv sum); dS ← fma(w_i, dS, r_i do_j)."""
+    import torch
+
+    from repro_torch.kernels.wkv import kernel
+
+    bh, t, d = r.shape
+    cols, warps = WKV_SPLIT[d]
+    lanes = d // cols
+    warp_rows = 32 // lanes
+    rows = warps * warp_rows
+    groups = d // rows
+    chunk = kernel.CKPT_STEPS
+
+    def step(s, tt):
+        return _fma(w[:, tt, :, None], s, k[:, tt, :, None]
+                    * v[:, tt, None, :])
+
+    def lane_sum(a, b):
+        """Σ_j a_ij b_ij (a or b broadcast along rows), over each lane's
+        columns in order by FMAs, then the butterfly over the lanes."""
+        a = a.expand(bh, d, d).reshape(bh, d, lanes, cols)
+        b = b.expand(bh, d, d).reshape(bh, d, lanes, cols)
+        acc = torch.zeros((bh, d, lanes))
+        for c in range(cols):
+            acc = _fma(a[..., c], b[..., c], acc)
+        return _tree(acc, 2)
+
+    vdo = torch.zeros((bh, t))
+    for j in range(d):
+        vdo = _fma(v[:, :, j], do[:, :, j], vdo)
+    ruk = (r * u[:, None, :]).reshape(bh, t, groups, rows)
+    kg = k.reshape(bh, t, groups, rows)
+    sig_g = torch.zeros((bh, t, groups))
+    for i in range(rows):
+        sig_g = _fma(ruk[..., i], kg[..., i], sig_g)
+    sig = _in_order(sig_g, 2)
+
+    ckpts, s = [], s0
+    for t0 in range(0, t, chunk):
+        ckpts.append(s)
+        for tt in range(t0, min(t0 + chunk, t)):
+            s = step(s, tt)
+    ds = ds_fin.clone()
+    du = torch.zeros((bh, d))
+    dr, dk, dv, dw = (torch.empty((bh, t, d)) for _ in range(4))
+    for c in reversed(range(len(ckpts))):
+        t0 = c * chunk
+        n = min(chunk, t - t0)
+        starts, s = [], ckpts[c]
+        for sb in range(0, n, WKV_SUB):
+            starts.append(s)
+            for tt in range(t0 + sb, min(t0 + sb + WKV_SUB, t0 + n)):
+                s = step(s, tt)
+        for sb in reversed(range(len(starts))):
+            lo = t0 + sb * WKV_SUB
+            hi = min(lo + WKV_SUB, t0 + n)
+            states = [starts[sb]]
+            for tt in range(lo, hi - 1):
+                states.append(step(states[-1], tt))
+            for tt in reversed(range(lo, hi)):
+                sp = states[tt - lo]
+                r_i, k_i, w_i = r[:, tt], k[:, tt], w[:, tt]
+                g, vv = do[:, tt, None, :], v[:, tt, None, :]
+                x = lane_sum(g, sp)
+                y = lane_sum(ds, vv)
+                z = lane_sum(ds, sp)
+                dr[:, tt] = _fma(u * k_i, vdo[:, tt, None], x)
+                dk[:, tt] = _fma(r_i * u, vdo[:, tt, None], y)
+                dw[:, tt] = z
+                du = _fma(r_i * k_i, vdo[:, tt, None], du)
+                part = _tree((ds * k_i[:, :, None]).reshape(
+                    bh, groups, warps, warp_rows, d), 3)
+                dv[:, tt] = _fma(do[:, tt], sig[:, tt, None],
+                                 _in_order(_in_order(part, 2), 1))
+                ds = _fma(w_i[:, :, None], ds, r_i[:, :, None] * g)
+    return dr, dk, dv, dw, du, ds

@@ -15,10 +15,14 @@ gradient's largest magnitude (f32 sums taken in another order; measured
 (the differentiable route training takes) against `jax.vjp` of the
 reference's `wkv6` (u broadcast over the batch, so du summed over it),
 the same route bit for bit against the plain backward, and an emulation
-of the backward kernel's order of operations — rows per thread, sums
-over columns in order with FMAs, states recomputed from 32-step
-checkpoints with the forward's FMA, dv as a column sum over rows —
-held to the plain backward at the same bar. Inputs are made with numpy
+of the backward kernel's order of operations — row groups across
+blocks, a row's columns split over lanes and summed in order with FMAs
+then by an xor butterfly, v·do once a step, dv summed over a warp's
+rows by a tree, over a group's warps in order, then over the groups
+in order, states
+recomputed per 8-step sub-chunk from 32-step checkpoints with the
+forward's FMA — held to the plain backward at the same bar at T = 7,
+33, 64, 70 and 100 and D = 16, 32 and 64. Inputs are made with numpy
 and handed to both.
 """
 import pytest
@@ -31,9 +35,10 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.wkv.ops import wkv6 as jax_wkv6  # noqa: E402
 from repro.kernels.wkv.ref import wkv6_ref as jax_wkv6_ref  # noqa: E402
-from repro_torch.kernels.wkv import kernel, ops  # noqa: E402
+from repro_torch.kernels.wkv import ops  # noqa: E402
 from repro_torch.kernels.wkv.ops import wkv6  # noqa: E402
 from repro_torch.kernels.wkv.ref import wkv6_ref_backward  # noqa: E402
+from test_torch_helpers import wkv_kernel_order  # noqa: E402
 
 BAR = (1e-4, 1e-4)  # atol + rtol * max |g|, per gradient
 NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
@@ -145,76 +150,17 @@ def test_state_output_is_not_differentiable():
         wkv6(r.requires_grad_(True), k, v, w, u, s0, s_out=s0.clone())
 
 
-# ------------------------------------------- the backward kernel's order
-def _fma(a, b, c):
-    """fmaf: the product exact in f64, one rounding to f32."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _kernel_order(r, k, v, w, u, s0, do, ds_fin):
-    """The backward kernel's arithmetic (`csrc/wkv6_bwd.cu`) on (BH, T, D)
-    f32 tensors, one row i of S and dS per thread (vectorized here over
-    (BH, i)): the forward's checkpoints every `kernel.CKPT_STEPS` steps
-    and each chunk's states recomputed from them with the forward's FMA
-    s = fma(w, s, k v); in reverse, for each step, x = Σ_j do_j S_ij,
-    y = Σ_j dS_ij v_j, z = Σ_j dS_ij S_ij and v·do summed over j in order
-    by FMAs, the column terms fma(dS_ij, k_i, (r_i u_i k_i) do_j), dS
-    updated by fma(w_i, dS_ij, r_i do_j), then dr = fma(u k, v·do, x),
-    dk = fma(r u, v·do, y), dw = z, du = fma(r k, v·do, du), and dv_j the
-    sum of the column terms over rows i = 0 .. D-1 in order."""
-    bh, t, d = r.shape
-    chunk = kernel.CKPT_STEPS
-
-    def step(s, tt):
-        return _fma(w[:, tt, :, None], s, k[:, tt, :, None]
-                    * v[:, tt, None, :])
-
-    ckpts, s = [], s0
-    for t0 in range(0, t, chunk):
-        ckpts.append(s)
-        for tt in range(t0, min(t0 + chunk, t)):
-            s = step(s, tt)
-    ds = ds_fin.clone()
-    du = torch.zeros((bh, d))
-    dr, dk, dv, dw = (torch.empty((bh, t, d)) for _ in range(4))
-    for c in reversed(range(len(ckpts))):
-        t0 = c * chunk
-        t1 = min(t0 + chunk, t)
-        states = [ckpts[c]]
-        for tt in range(t0, t1 - 1):
-            states.append(step(states[-1], tt))
-        for tt in reversed(range(t0, t1)):
-            sp = states[tt - t0]
-            r_i, k_i, w_i = r[:, tt], k[:, tt], w[:, tt]
-            g, vv = do[:, tt], v[:, tt]
-            ruk = r_i * u * k_i
-            x, y, z, vdo = (torch.zeros((bh, d)) for _ in range(4))
-            red = torch.empty((bh, d, d))
-            for j in range(d):
-                gj, vj = g[:, j:j + 1], vv[:, j:j + 1]
-                x = _fma(gj, sp[:, :, j], x)
-                y = _fma(ds[:, :, j], vj, y)
-                z = _fma(ds[:, :, j], sp[:, :, j], z)
-                vdo = _fma(vj, gj, vdo)
-                red[:, :, j] = _fma(ds[:, :, j], k_i, ruk * gj)
-                ds[:, :, j] = _fma(w_i, ds[:, :, j], r_i * gj)
-            dr[:, tt] = _fma(u * k_i, vdo, x)
-            dk[:, tt] = _fma(r_i * u, vdo, y)
-            dw[:, tt] = z
-            du = _fma(r_i * k_i, vdo, du)
-            col = torch.zeros((bh, d))
-            for i in range(d):
-                col = col + red[:, i, :]
-            dv[:, tt] = col
-    return dr, dk, dv, dw, du, ds
-
-
-@pytest.mark.parametrize("b,h,t,d", [(1, 2, 100, 16), (1, 1, 70, 64),
-                                     (2, 1, 64, 32)])
+# the reference's three, then lengths off the 8-step sub-chunk and the
+# 32-step chunk at every head dim the kernel takes
+@pytest.mark.parametrize("b,h,t,d", [
+    (1, 2, 100, 16), (1, 1, 70, 64), (2, 1, 64, 32),
+    (2, 1, 7, 16), (1, 2, 7, 32), (1, 1, 7, 64), (1, 2, 33, 16),
+    (1, 1, 33, 32), (2, 1, 33, 64), (1, 1, 70, 16), (1, 1, 70, 32),
+    (1, 1, 100, 32), (1, 1, 100, 64)])
 def test_kernel_order_emulation_holds_the_bar(b, h, t, d):
     flat = [torch.from_numpy(np.array(x))
             for x in _flat(_inputs(b, h, t, d, 13 * t + d))]
-    emu = _kernel_order(*flat)
+    emu = wkv_kernel_order(*flat)
     plain = wkv6_ref_backward(*flat)
     _hold(f"kernel order {(b, h, t, d)}", [g.numpy() for g in emu],
           [g.numpy() for g in plain])
