@@ -72,7 +72,10 @@ drives the port's main paths:
   through the transport (gbma, receiver momentum): K2 in every forward,
   K1 in every slot, the kernel route held to the plain route, each
   step timed whole and by part with its peak memory, and the card held
-  to the CPU on the reduced model;
+  to the CPU on the reduced model; then 2 steps each on the fused gbma
+  route and through the transport with rbg keys (`rng_impl="rbg"`), the
+  card's rbg bits for the transport's full-D draw held to the CPU's bit
+  for bit and the draw timed beside threefry's;
 * training olmo-1b and rwkv6-7b over the MAC ("train models"): K2's
   bf16 kernel with its row log-sum-exp against its plain version (its
   output bits unchanged without it) and timed at olmo-1b's training
@@ -88,7 +91,16 @@ drives the port's main paths:
   models;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
   bf16 at a 32- and a 2048-token prompt, with the same checks (the plain
-  route at the 32-token prompt) and the weights' initialization peak.
+  route at the 32-token prompt) and the weights' initialization peak;
+* serving the window, softcap and qk-norm families ("serve S2"): K2's
+  bf16 kernel at their shapes (head_dim 256, GQA groups of 2 and 3, the
+  attention softcap, a 4,096-token window at 8,192 tokens) against its
+  plain version and timed beside its bound and SDPA; gemma2-9b, gemma-7b
+  and minitron-4b at full width and depth in bf16 (B = 4, 32- and
+  2048-token prompts; gemma2-9b also at B = 1 over its 8,192-token
+  context), with the kernel route held to the plain route, decode held
+  to prefill and each prefill and decode step timed and profiled; and
+  the reduced models on the card against the CPU.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Any failed phase raises, so the script exits
@@ -1380,8 +1392,10 @@ def step_profile(cases: dict) -> dict:
             t0 = time.perf_counter()
             run(steps)
             walls.setdefault(steps, []).append(time.perf_counter() - t0)
-        lo, hi = (_profile_counts(lambda s=s: run(s)) for s in (4, 12))
-        per = {k: (hi[k] - lo[k]) / 8 for k in lo}
+        # short profiled runs: the profiler adds ~0.5 ms a launch, and a
+        # step's launch count is the same at any length
+        lo, hi = (_profile_counts(lambda s=s: run(s)) for s in (2, 6))
+        per = {k: (hi[k] - lo[k]) / 4 for k in lo}
         wall_ms = (min(walls[60]) - min(walls[10])) / 50 * 1e3
         busy_ms = per["device_us"] / 1e3
         out[name] = {
@@ -2785,8 +2799,8 @@ def time_wkv(errs: dict) -> list:
     return rows
 
 
-def build_rwkv() -> tuple:
-    """rwkv6-7b at full width and depth with seeded random weights on the
+def build_served(arch: str = "rwkv6-7b") -> tuple:
+    """`arch` at full width and depth with seeded random weights on the
     card, and the peak device memory of their initialization (each leaf
     is drawn in f32 before its cast to bf16)."""
     import torch
@@ -2795,13 +2809,13 @@ def build_rwkv() -> tuple:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    model, params = _serve_model("rwkv6-7b")
+    model, params = _serve_model(arch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     weights = torch.cuda.memory_allocated() - base
     peak = torch.cuda.max_memory_allocated() - base
     n_params = sum(x.numel() for x in _leaves(params))
-    log(f"rwkv6-7b weights: {n_params / 1e9:.4f} B parameters, "
+    log(f"{arch} weights: {n_params / 1e9:.4f} B parameters, "
         f"{weights / 2**30:.3f} GiB on the card; initialization took "
         f"{wall:.2f} s with a peak of {peak / 2**30:.3f} GiB")
     return model, params, {"params": n_params, "weights_bytes": weights,
@@ -2828,11 +2842,11 @@ def _serve_model(arch: str, params=None, impl: str = "auto"):
         device="cuda")
 
 
-def _prompt(vocab: int, s: int, seed: int = 1):
+def _prompt(vocab: int, s: int, seed: int = 1, batch: int = SERVE_BATCH):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randint(0, vocab, (SERVE_BATCH, s), generator=gen,
+    return torch.randint(0, vocab, (batch, s), generator=gen,
                          device="cuda")
 
 
@@ -2841,13 +2855,18 @@ def _rel_to_max(a, b) -> float:
 
 
 def run_serve_main_path(ops, model, params, *, kernel: str,
-                        per_generate: int) -> dict:
+                        per_generate: int, prompts: tuple = SERVE_PROMPTS,
+                        batch: int = SERVE_BATCH,
+                        profile: bool = True) -> dict:
     """`model` served by `Engine.generate` at each prompt length, after
     one untimed warm-up run: the kernel's launch count (`ops`) is set to 0
     before and read after the timed run and must be `per_generate`, and
-    the tokens are checked to lie in the vocabulary. A further run under
-    torch.profiler counts launches, syncs, copies and device busy time
-    (idle share against the timed run's wall)."""
+    the tokens are checked to lie in the vocabulary. With `profile`, a
+    further run under torch.profiler counts launches, syncs, copies and
+    device busy time (idle share against the timed run's wall); the S2
+    models skip it (~150,000 launches a gemma2-9b `generate`, over a
+    minute under the profiler), and `serve_timing` profiles their
+    prefill and one decode step instead."""
     import torch
 
     from repro_torch.serving.engine import Engine, ServeConfig
@@ -2855,8 +2874,8 @@ def run_serve_main_path(ops, model, params, *, kernel: str,
     cfg = model.cfg
     eng = Engine(model, params, ServeConfig(max_new_tokens=SERVE_NEW_TOKENS))
     out = {}
-    for s in SERVE_PROMPTS:
-        tokens = _prompt(cfg.vocab_size, s)
+    for s in prompts:
+        tokens = _prompt(cfg.vocab_size, s, batch=batch)
         # warm-up at this prompt length (cuBLAS plans, allocator growth),
         # so the timed run below is the steady state
         eng.generate({"tokens": tokens})
@@ -2869,41 +2888,45 @@ def run_serve_main_path(ops, model, params, *, kernel: str,
         launches = ops.launch_count
         ok_vocab = bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
         log(f"serve {cfg.arch_id} (full: {cfg.n_layers} layers, d_model "
-            f"{cfg.d_model}, {cfg.dtype}) B={SERVE_BATCH} prompt={s} "
+            f"{cfg.d_model}, {cfg.dtype}) B={batch} prompt={s} "
             f"new={SERVE_NEW_TOKENS}: wall {wall:.4f} s, "
-            f"{SERVE_BATCH * SERVE_NEW_TOKENS / wall:.1f} tok/s, "
+            f"{batch * SERVE_NEW_TOKENS / wall:.1f} tok/s, "
             f"{launches} {kernel} kernel launches, tokens in vocabulary: "
             f"{ok_vocab}; first row {gen[0, :8].tolist()}")
         if launches != per_generate:
             raise AssertionError(f"expected {per_generate} {kernel} kernel "
                                  f"launches per generate, got {launches}")
-        if gen.shape != (SERVE_BATCH, SERVE_NEW_TOKENS) or not ok_vocab:
+        if gen.shape != (batch, SERVE_NEW_TOKENS) or not ok_vocab:
             raise AssertionError("generated ids out of shape or vocabulary")
+        out[s] = {"wall_s": wall, "launches": launches,
+                  "tok_per_s": batch * SERVE_NEW_TOKENS / wall}
+        if not profile:
+            continue
         prof = _profile_counts(lambda: eng.generate({"tokens": tokens}),
                                kernel=kernel)
         busy = prof["device_us"] / 1e6
-        out[s] = {"wall_s": wall, "launches": launches,
-                  "tok_per_s": SERVE_BATCH * SERVE_NEW_TOKENS / wall,
-                  "generate_profile": {
-                      "launches": prof["launches"], "syncs": prof["syncs"],
-                      "memcpy": prof["memcpy"], "device_busy_s": busy,
-                      "device_idle_share": 1.0 - busy / wall}}
+        out[s]["generate_profile"] = {
+            "launches": prof["launches"], "syncs": prof["syncs"],
+            "memcpy": prof["memcpy"], "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall}
         log(f"serve {cfg.arch_id} prompt={s} generate profile: "
             f"{json.dumps(out[s]['generate_profile'])}")
     return out
 
 
-def check_serve_routes(model, params) -> dict:
-    """olmo-1b in bf16 at each prompt length: prefill logits finite and
-    within the bar between the kernel route and the plain route, and
-    prefill(S) + one decode step against prefill(S + 1)."""
+def check_serve_routes(model, params, prompts: tuple = SERVE_PROMPTS,
+                       batch: int = SERVE_BATCH) -> dict:
+    """A dense decoder in bf16 (olmo-1b; the S2 models) at each prompt
+    length: prefill logits finite and within the bar between the kernel
+    route and the plain route, and prefill(S) + one decode step against
+    prefill(S + 1)."""
     import torch
 
     cfg = model.cfg
     plain, _ = _serve_model(cfg.arch_id, params, impl="ref")
     out = {}
-    for s in SERVE_PROMPTS:
-        tokens = _prompt(cfg.vocab_size, s + 1, seed=2)
+    for s in prompts:
+        tokens = _prompt(cfg.vocab_size, s + 1, seed=2, batch=batch)
         ker_logits, cache = model.prefill(params, {"tokens": tokens[:, :s]},
                                           s + 1)
         ref_logits, _ = plain.prefill(params, {"tokens": tokens[:, :s]},
@@ -2917,7 +2940,7 @@ def check_serve_routes(model, params) -> dict:
         log(f"serve {cfg.arch_id} prompt={s}: logits finite {finite}, "
             f"max |logit| {ref_logits.abs().max().item():.4f}; kernel vs "
             f"plain route max|diff|/max|logit| {routes:.3e} (bar "
-            f"{BF16_LOGIT_BAR}), argmax agree {agree}/{SERVE_BATCH}; "
+            f"{BF16_LOGIT_BAR}), argmax agree {agree}/{batch}; "
             f"prefill({s})+decode vs prefill({s + 1}) {decode:.3e} (bar "
             f"{BF16_LOGIT_BAR})")
         if not (finite and routes <= BF16_LOGIT_BAR
@@ -3071,7 +3094,8 @@ def _best_ms(fn, reps: int = 3) -> float:
 
 
 def serve_timing(model, params, kernel: str,
-                 prompts: tuple = SERVE_PROMPTS) -> dict:
+                 prompts: tuple = SERVE_PROMPTS,
+                 batch: int = SERVE_BATCH) -> dict:
     """Prefill ms and decode ms per step (host clock around work that ends
     in a synchronize; best of 3 after a warm-up) at each prompt length,
     and a torch.profiler count of one prefill and one decode step
@@ -3082,7 +3106,7 @@ def serve_timing(model, params, kernel: str,
 
     out = {}
     for s in prompts:
-        tokens = _prompt(model.cfg.vocab_size, s)
+        tokens = _prompt(model.cfg.vocab_size, s, batch=batch)
         max_len = s + SERVE_NEW_TOKENS
         tok = tokens[:, -1]
 
@@ -3098,7 +3122,7 @@ def serve_timing(model, params, kernel: str,
         prof = {name: _profile_counts(fn, kernel=kernel)
                 for name, fn in (("prefill", prefill), ("decode", decode))}
         row = {"prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
-               "decode_tok_per_s": SERVE_BATCH / dec_ms * 1e3}
+               "decode_tok_per_s": batch / dec_ms * 1e3}
         for name, wall in (("prefill", pre_ms), ("decode", dec_ms)):
             p = prof[name]
             busy = p["device_us"] / 1e3
@@ -3107,10 +3131,228 @@ def serve_timing(model, params, kernel: str,
                          "device_idle_share": 1.0 - busy / wall,
                          f"{kernel}_kernels": p["kernel"],
                          f"{kernel}_device_ms": p["kernel_us"] / 1e3}
-        log(f"serve timing {model.cfg.arch_id} B={SERVE_BATCH} prompt={s}: "
+        log(f"serve timing {model.cfg.arch_id} B={batch} prompt={s}: "
             f"{json.dumps(row)}")
         out[s] = row
     return out
+
+
+# --------------------------------------------------------------------------
+# serving the window, softcap and qk-norm families (S2): gemma2-9b,
+# gemma-7b and minitron-4b at full width and depth, through K2's bf16
+# kernel at head_dim 256 with windows and softcaps
+# --------------------------------------------------------------------------
+S2_ARCHS = ("gemma2-9b", "gemma-7b", "minitron-4b")
+# gemma2-9b's context length, served at B = 1: its local layers' window
+# (4,096) masks keys in prefill and decode
+S2_LONG_PROMPT = 8192
+# K2's shapes on the S2 path (label, B, Hq, Hkv, S, d, window, softcap):
+# gemma2-9b's local layers at the 2048-token prompt (the window is passed
+# and does not bite), its local and global layers at 8,192 tokens,
+# gemma-7b (MHA) and minitron-4b (groups of 3) at 2048
+S2_ATTN_CASES = (
+    ("gemma2-9b local, prompt 2048", 4, 16, 8, 2048, 256, 4096, 50.0),
+    ("gemma2-9b local, prompt 8192", 1, 16, 8, 8192, 256, 4096, 50.0),
+    ("gemma2-9b global, prompt 8192", 1, 16, 8, 8192, 256, None, 50.0),
+    ("gemma-7b, prompt 2048", 4, 16, 16, 2048, 256, None, None),
+    ("minitron-4b, prompt 2048", 4, 24, 8, 2048, 128, None, None),
+)
+S2_BF16_BAR = 3e-2  # atol, the bf16 kernel's bar
+# (e) the reduced models in f32 on the card (K2's f32 kernel) against the
+# CPU (its plain version): prefill past the reduced window of 16, then
+# decode; logits within this share of the largest
+S2_CPU_BAR = 1e-4
+S2_CPU_PROMPT, S2_CPU_STEPS = 24, 3
+
+
+def live_pairs(s: int, window) -> int:
+    """(query, key) pairs a causal self-attention over `s` positions
+    computes, each query seeing at most `window` keys."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def s2_attention_bound(b, hq, hkv, s, d, window) -> tuple:
+    """(least ms, what bounds it) for one bf16 causal attention call with
+    GQA and a window: q and o at Hq heads and k, v at Hkv heads moved
+    once, against 4·d flops (QKᵀ and PV) per live pair and query head at
+    the tensor cores' bf16 peak. The softcap's tanh is not counted."""
+    nbytes = 2 * b * s * d * (2 * hq + 2 * hkv)
+    flops = 4.0 * b * hq * d * live_pairs(s, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_s2_attention() -> list:
+    """(a) K2's bf16 kernel at each S2 shape against its plain version
+    (atol 3e-2), timed with CUDA events beside its bound, the plain
+    version and, where one call computes the same function (no softcap,
+    no window), `F.scaled_dot_product_attention` (`enable_gqa` for
+    minitron-4b's groups of 3)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.ops import multi_head_attention
+
+    rows = []
+    for label, b, hq, hkv, s, d, window, cap in S2_ATTN_CASES:
+        q, k, v = attn_inputs(b, hq, hkv, s, d, torch.bfloat16, s + hq)
+        scale = d ** -0.5
+        kw = {"scale": scale, "window": window, "softcap": cap}
+        ker = multi_head_attention(q, k, v, impl="kernel", **kw)
+        ref = multi_head_attention(q, k, v, impl="ref", **kw)
+        torch.cuda.synchronize()
+        err = (ker.float() - ref.float()).abs().max().item()
+        ok = bool(torch.isfinite(ker.float()).all()) and err <= S2_BF16_BAR
+        del ker, ref
+        reps = 5 if s > 4096 else 20
+        ker_ms = cuda_ms(lambda: multi_head_attention(q, k, v, impl="kernel",
+                                                      **kw), reps)
+        plain_ms = cuda_ms(lambda: multi_head_attention(q, k, v, impl="ref",
+                                                        **kw), 2, warmup=1)
+        lib_ms, lib_note = None, "none: a softcap or window"
+        if cap is None and window is None:
+            gqa = {"enable_gqa": True} if hkv != hq else {}
+            try:
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=scale, **gqa), reps)
+                lib_note = "SDPA" + (" (enable_gqa)" if gqa else "")
+            except TypeError as e:  # a torch without enable_gqa
+                lib_note = f"none: {e}"
+        bound, bound_by = s2_attention_bound(b, hq, hkv, s, d, window)
+        flops = 4.0 * b * hq * d * live_pairs(s, window)
+        row = {"case": label, "shape": [b, hq, s, d], "kv_heads": hkv,
+               "window": window, "softcap": cap, "dtype": "bfloat16",
+               "max_abs_err": err, "ms": ker_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "library": lib_note,
+               "bound_ms": bound, "bound_by": bound_by, "gflop": flops / 1e9,
+               "tflops": flops / (ker_ms * 1e-3) / 1e12}
+        log(f"serve S2 (a) K2 {label} q({b}, {hq}, {s}, {d}) kv heads {hkv} "
+            f"window {window} softcap {cap}: kernel vs plain max_abs_err "
+            f"{err:.3e} (atol {S2_BF16_BAR}) {'ok' if ok else 'FAIL'}; "
+            f"kernel {ker_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{lib_ms} ms ({lib_note}), bound {bound:.4f} ms ({bound_by}, "
+            f"{flops / 1e9:.1f} GFLOP), {bound / ker_ms:.1%} of the bound, "
+            f"{row['tflops']:.1f} TFLOP/s")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"{label}")
+        rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_s2_card_vs_cpu(attn_ops) -> dict:
+    """(e) Each reduced S2 model (and gemma-7b with qk-norm) in f32, from
+    one CPU initialization: prefill past the reduced window and decode
+    steps on the card (K2's f32 kernel) against the CPU (the plain
+    version, which the CPU tests hold to the JAX reference)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+
+    out = {}
+    cases = [(a, {}) for a in S2_ARCHS] + [("gemma-7b", {"qk_norm": True})]
+    for arch, extra in cases:
+        name = arch + (" qk-norm" if extra else "")
+        cfg = get_config(arch).reduced().with_(**extra)
+        model = build_model(cfg)
+        cpu_params = model.init_params(device="cpu")
+        cuda_params = _tree_map(lambda x: x.cuda(), cpu_params)
+        gen = torch.Generator().manual_seed(4)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (2, S2_CPU_PROMPT + S2_CPU_STEPS),
+                               generator=gen)
+        max_len = S2_CPU_PROMPT + S2_CPU_STEPS
+        worst = 0.0
+        attn_ops.launch_count = 0
+        runs = {}
+        for dev, params in (("cuda", cuda_params), ("cpu", cpu_params)):
+            t = tokens.to(dev)
+            logits, cache = model.prefill(
+                params, {"tokens": t[:, :S2_CPU_PROMPT]}, max_len)
+            seq = [logits.cpu()]
+            for i in range(S2_CPU_STEPS):
+                pos = S2_CPU_PROMPT + i
+                logits, cache = model.decode_step(params, cache, t[:, pos],
+                                                  pos)
+                seq.append(logits.cpu())
+            runs[dev] = seq
+            if dev == "cuda":
+                launches = attn_ops.launch_count
+        for a, b in zip(runs["cuda"], runs["cpu"]):
+            worst = max(worst, _rel_to_max(a, b))
+        ok = worst <= S2_CPU_BAR and launches == cfg.n_layers
+        log(f"serve S2 (e) reduced {name} f32: card vs CPU logits over the "
+            f"prefill ({S2_CPU_PROMPT} tokens, window "
+            f"{cfg.sliding_window}) and {S2_CPU_STEPS} decode steps "
+            f"{worst:.3e} of the largest (bar {S2_CPU_BAR}); K2 {launches} "
+            f"launches on the card {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"serve S2 card vs CPU {name}")
+        out[name] = worst
+    return out
+
+
+def serve_s2(attn_ops) -> tuple:
+    """The "serve S2" phase: (a) K2 at the S2 shapes (`check_s2_attention`);
+    then each S2 model at full width and depth in bf16 from seeded random
+    weights, freed before the next: (b) `Engine.generate` at B = 4 with
+    32- and 2048-token prompts and 32 new tokens (gemma2-9b also at B = 1
+    with its 8,192-token context), K2 n_layers launches a generate; (c)
+    the kernel route against the plain route and prefill(S) + decode
+    against prefill(S + 1) at BF16_LOGIT_BAR; (d) prefill and decode ms,
+    launches, device busy time and idle share, K2's device ms inside the
+    prefill; then (e) the reduced models on the card against the CPU.
+    Returns (K2 launches by run, the record)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def mark(part: str) -> None:
+        torch.cuda.synchronize()
+        seconds[part] = time.perf_counter() - t_phase - sum(seconds.values())
+
+    record = {"attention": check_s2_attention(), "models": {},
+              "seconds": seconds}
+    mark("(a)")
+    launches = {}
+    for arch in S2_ARCHS:
+        model, params, init = build_served(arch)
+        runs = [(SERVE_PROMPTS, SERVE_BATCH)]
+        if model.cfg.sliding_window:
+            runs.append(((S2_LONG_PROMPT,), 1))
+        rows = {}
+        for prompts, batch in runs:
+            served = run_serve_main_path(
+                attn_ops, model, params, kernel="flash_attention",
+                per_generate=model.cfg.n_layers, prompts=prompts,
+                batch=batch, profile=False)
+            routes = check_serve_routes(model, params, prompts, batch)
+            times = serve_timing(model, params, "flash_attention", prompts,
+                                 batch)
+            for s in prompts:
+                key = f"B={batch} prompt {s}"
+                rows[key] = {**served[s], **routes[s], **times[s]}
+                launches[f"{arch} {key}"] = served[s]["launches"]
+                k2 = times[s]["prefill"]["flash_attention_kernels"]
+                if k2 != model.cfg.n_layers:
+                    raise AssertionError(
+                        f"{arch} {key}: {k2} K2 kernels in a profiled "
+                        f"prefill, expected {model.cfg.n_layers}")
+        record["models"][arch] = {"init": init, **rows}
+        del model, params
+        torch.cuda.empty_cache()
+        mark(f"(b)-(d) {arch}")
+    record["card_vs_cpu"] = check_s2_card_vs_cpu(attn_ops)
+    mark("(e)")
+    log(f"serve S2: seconds by part {json.dumps(seconds)}")
+    return launches, record
 
 
 # --------------------------------------------------------------------------
@@ -3254,11 +3496,13 @@ def check_flash_vjp() -> dict:
     return out_errs
 
 
-def _train_parts(cfg, aggregator: str, route: str, impl: str):
+def _train_parts(cfg, aggregator: str, route: str, impl: str,
+                 rng_impl: str = "threefry2x32"):
     """(model, TrainConfig, optimizer, train step) as the launcher builds
     them at its defaults (`route` 'auto' for the fused aggregators,
-    'transport' for the rest); `impl='ref'` takes the plain attention
-    and, on the transport route, the plain OTA route."""
+    'transport' for the rest), with keys of kind `rng_impl`;
+    `impl='ref'` takes the plain attention and, on the transport route,
+    the plain OTA route."""
     from repro_torch.core import transport
     from repro_torch.core.channel import ChannelConfig
     from repro_torch.core.gbma import GBMAConfig
@@ -3276,7 +3520,7 @@ def _train_parts(cfg, aggregator: str, route: str, impl: str):
             stepsize=TRAIN_LR, ota_impl="ref" if impl == "ref" else "auto")
     tcfg = TrainConfig(aggregator=aggregator,
                        gbma=GBMAConfig(n_nodes=TRAIN_NODES, channel=ch),
-                       route=route, transport=tp)
+                       route=route, transport=tp, rng_impl=rng_impl)
     model = build_model(cfg, impl=impl)
     opt = get_optimizer("momentum", TRAIN_LR)
     return model, tcfg, opt, build_train_step(model, tcfg, opt)
@@ -3292,7 +3536,8 @@ def _train_batches(cfg, steps: int) -> list:
     return [{"tokens": ds.batch(i)} for i in range(steps)]
 
 
-def _train_run(cfg, aggregator, route, impl, params0, batches):
+def _train_run(cfg, aggregator, route, impl, params0, batches,
+               rng_impl: str = "threefry2x32"):
     """`run_training` over `batches` from a copy of `params0`: (logged
     losses, final params, history, K2 and K1 launches of the run)."""
     import torch
@@ -3302,7 +3547,7 @@ def _train_run(cfg, aggregator, route, impl, params0, batches):
     from repro_torch.kernels.ota import ops as ota_ops
     from repro_torch.training.loop import run_training
 
-    _, _, _, step = _train_parts(cfg, aggregator, route, impl)
+    _, _, _, step = _train_parts(cfg, aggregator, route, impl, rng_impl)
     params = tree_map(lambda p: p.clone(), params0)
     state = step.init_state(params)
     attn_ops.launch_count = ota_ops.launch_count = 0
@@ -3447,6 +3692,94 @@ def time_train_attention(dtype_name: str = "float32") -> dict:
     return row
 
 
+# (f): rbg keys (T6) on the fused gbma route and through the transport
+# (gbma), 2 steps each at full width
+TRAIN_RBG_STEPS = 2
+TRAIN_RBG_ROUTES = (("gbma", "auto"), ("gbma", "transport"))
+
+
+def train_rbg(cfg, params0, batches) -> tuple:
+    """(f) `TrainConfig(rng_impl="rbg")` at repro-100m's full width: 2
+    steps on each route of TRAIN_RBG_ROUTES, the kernel route against the
+    plain route at TRAIN_ROUTE_BAR with K2's and K1's launches; the
+    transport's full-D draw (the noise key of step 0's slot,
+    `split(fold_in(key(0, 'rbg'), 0))[1]`, D bits) on the card against
+    the CPU, bit for bit; and that draw's normals timed with CUDA events
+    beside the threefry key's. Returns (K2 launches by route, K1
+    launches, the record)."""
+    import torch
+
+    from repro_torch.core import rng
+    from repro_torch.core.tree import tree_leaves
+
+    n_leaves = len(tree_leaves(params0))
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    k2_launches, k1_launches, record = {}, 0, {"routes": {}}
+    steps = len(batches)
+    for aggregator, route in TRAIN_RBG_ROUTES:
+        name = f"{aggregator} {'fused' if route == 'auto' else route} rbg"
+        losses, params, hist, (k2, k1) = _train_run(
+            cfg, aggregator, route, "auto", params0, batches, "rbg")
+        ref_losses, ref_params, _, ref_counts = _train_run(
+            cfg, aggregator, route, "ref", params0, batches, "rbg")
+        transport_route = route == "transport"
+        per_step = cfg.n_layers * (TRAIN_NODES if transport_route else 1)
+        want = (steps * per_step, steps * n_leaves if transport_route else 0)
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref_losses))
+        param_rel = _tree_rel_to_max(params, ref_params)
+        ok = (all(math.isfinite(x) for x in losses) and (k2, k1) == want
+              and ref_counts == (0, 0) and loss_rel <= TRAIN_ROUTE_BAR
+              and param_rel <= TRAIN_ROUTE_BAR)
+        log(f"train (f) {TRAIN_ARCH} {name}, {steps} steps: losses "
+            f"{losses}; K2 {k2}, K1 {k1} launches, expected {want}; plain "
+            f"route {ref_counts}; kernel vs plain route losses "
+            f"{loss_rel:.3e} rel, params {param_rel:.3e} of each leaf's max "
+            f"(bar {TRAIN_ROUTE_BAR}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train rbg route {name}")
+        k2_launches[name] = k2
+        k1_launches += k1
+        record["routes"][name] = {
+            "losses": losses, "plain_losses": ref_losses,
+            "loss_rel": loss_rel, "param_rel_to_max": param_rel,
+            "k2_launches": k2, "k1_launches": k1}
+        del params, ref_params
+        torch.cuda.empty_cache()
+
+    keys = {impl: rng.split(rng.fold_in(
+        rng.key(0, device="cuda", impl=impl), 0))[1]
+        for impl in ("rbg", "threefry2x32")}
+    t0 = time.perf_counter()
+    card = rng.random_bits(keys["rbg"], (n_params,))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = rng.random_bits(keys["rbg"].cpu(), (n_params,))
+    cpu_s = time.perf_counter() - t0
+    same = bool(torch.equal(card.cpu(), cpu))
+    del card, cpu
+    head = 1 << 20
+    z_card = rng.normal(keys["rbg"], (head,)).cpu()
+    z_cpu = rng.normal(keys["rbg"].cpu(), (head,))
+    z_diff = (z_card - z_cpu).abs().max().item()
+    torch.cuda.empty_cache()
+    draw_ms = {impl: cuda_ms(lambda k=k: rng.normal(k, (n_params,)), 3,
+                             warmup=1) for impl, k in keys.items()}
+    record["draw"] = {"values": n_params, "bits_equal": same,
+                      "bits_card_s": card_s, "bits_cpu_s": cpu_s,
+                      "normal_head_max_abs_diff": z_diff,
+                      "normal_ms": draw_ms}
+    log(f"train (f) the transport's full-D rbg draw ({n_params:,} values): "
+        f"card bits == CPU bits: {same} (card {card_s:.3f} s, CPU "
+        f"{cpu_s:.3f} s); first {head:,} normals card vs CPU max |diff| "
+        f"{z_diff:.3e}; normals of the draw {draw_ms['rbg']:.3f} ms (rbg) "
+        f"against {draw_ms['threefry2x32']:.3f} ms (threefry), CUDA events")
+    if not same:
+        raise AssertionError("the card's rbg bits differ from the CPU's")
+    return k2_launches, k1_launches, record
+
+
 def run_train(attn_ops, ota_ops) -> tuple:
     """The training stack on the card:
 
@@ -3468,7 +3801,8 @@ def run_train(attn_ops, ota_ops) -> tuple:
         memory and a profile (`train_step_split`), and K2 at the
         training shape (`time_train_attention`);
     (e) the card against the CPU on the reduced repro-100m: 4 steps of
-        each route in (c).
+        each route in (c);
+    (f) rbg keys (`train_rbg`).
 
     Returns (K2 launches, K1 launches, the record)."""
     import torch
@@ -3591,6 +3925,13 @@ def run_train(attn_ops, ota_ops) -> tuple:
             raise AssertionError(f"train card vs CPU {name}")
         record["card_vs_cpu"][name] = rel
     mark("(e)")
+
+    # (f) rbg keys at full width
+    rbg_k2, rbg_k1, record["rbg"] = train_rbg(
+        cfg, params0, batches[:TRAIN_RBG_STEPS])
+    launches.update(rbg_k2)
+    k1_launches += rbg_k1
+    mark("(f)")
     record["launcher_s"] = launcher_s
     log(f"train: seconds by part {json.dumps(seconds)}")
     return launches, k1_launches, record
@@ -4251,7 +4592,7 @@ def main() -> int:
     # and in each decode step
     wkv_errs = check_wkv_vs_plain()
     wkv_timings = time_wkv(wkv_errs)
-    rwkv, rwkv_params, rwkv_init = build_rwkv()
+    rwkv, rwkv_params, rwkv_init = build_served("rwkv6-7b")
     rwkv_served = run_serve_main_path(
         wkv_ops, rwkv, rwkv_params, kernel="wkv6",
         per_generate=rwkv.cfg.n_layers * (1 + SERVE_NEW_TOKENS))
@@ -4260,6 +4601,12 @@ def main() -> int:
     elapsed('K3 and serving rwkv6-7b')
     del rwkv, rwkv_params
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the window, softcap and qk-norm families (S2): K2's bf16 kernel at
+    # head_dim 256 with windows and softcaps, n_layers launches a prefill
+    s2_launches, s2_record = serve_s2(attn_ops)
+    elapsed('serve S2')
 
     primary = timings[0]  # the LARGE shape
     ota_entry = {
@@ -4290,7 +4637,8 @@ def main() -> int:
         "f32_source": ATTN_F32_SOURCE, "replaces": ATTN_REPLACES,
         "sass": sass,
         "launches": sum(r["launches"] for r in served.values())
-        + sum(train_launches.values()) + model_launches["k2"],
+        + sum(train_launches.values()) + model_launches["k2"]
+        + sum(s2_launches.values()),
         "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
         "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes; "
         "lse atol 1e-05 + rtol 1e-06",
@@ -4303,8 +4651,10 @@ def main() -> int:
                             for s, r in served.items()}
         | {"repro-100m prompt 2048 (route check)": repro_launches}
         | {f"train {name}": n for name, n in train_launches.items()}
-        | {"train olmo-1b (bf16, with lse)": model_launches["k2"]},
-        "shapes": attn_timings, "lse": train_record["attention"],
+        | {"train olmo-1b (bf16, with lse)": model_launches["k2"]}
+        | {f"serve S2 {run}": n for run, n in s2_launches.items()},
+        "shapes": attn_timings + s2_record["attention"],
+        "s2": s2_record, "lse": train_record["attention"],
         "bf16_lse": model_record["lse_timing"],
         "bf16_lse_errors": model_record["lse_errors"],
         "train": train_record, "train_models": model_record,

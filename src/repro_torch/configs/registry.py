@@ -1,8 +1,9 @@
 """Architecture registry: `--arch <id>` resolution (port of
 `repro.configs.registry`).
 
-The port knows the models it serves: the dense decoders olmo-1b and
-repro-100m, and the RWKV6 model rwkv6-7b.
+The port knows the models it serves: the dense decoders olmo-1b,
+repro-100m, gemma2-9b, gemma-7b and minitron-4b, and the RWKV6 model
+rwkv6-7b.
 Every other architecture of the reference raises `NotImplementedError`
 naming the ROADMAP item that ports it; an unknown id raises `KeyError`,
 as in the reference.
@@ -14,6 +15,9 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "gemma-7b": "gemma_7b",
+    "gemma2-9b": "gemma2_9b",
+    "minitron-4b": "minitron_4b",
     "olmo-1b": "olmo_1b",
     "repro-100m": "repro_100m",
     "rwkv6-7b": "rwkv6_7b",
@@ -21,9 +25,6 @@ _MODULES = {
 
 # the reference's other architectures -> the ROADMAP item that ports them
 PENDING = {
-    "gemma2-9b": "S2",
-    "gemma-7b": "S2",
-    "minitron-4b": "S2",
     "llama4-maverick-400b-a17b": "S4",
     "deepseek-v3-671b": "S5",
     "hymba-1.5b": "S6",

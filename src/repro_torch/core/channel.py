@@ -144,7 +144,7 @@ def sample_gains(key: torch.Tensor, cfg: ChannelConfig,
     from repro_torch.core.mc.sampling import _sample_gains
 
     lead = key.shape[:-1]
-    keys = key.reshape(-1, 2)
+    keys = key.reshape(-1, key.shape[-1])
     p = _cfg_params(cfg, keys, ("scale", "rician_k", "phase_error_max"))
     h = _sample_gains(keys, cfg.fading, p, tuple(shape),
                       phase_zero=cfg.phase_error_max <= 0.0)
@@ -173,7 +173,7 @@ def sample_complex_gains(key: torch.Tensor, cfg: ChannelConfig,
     from repro_torch.core.mc.sampling import _sample_complex_gains
 
     lead = key.shape[:-1]
-    keys = key.reshape(-1, 2)
+    keys = key.reshape(-1, key.shape[-1])
     a, b = _sample_complex_gains(
         keys, cfg.fading, _cfg_params(cfg, keys, ("scale", "rician_k")),
         tuple(shape))

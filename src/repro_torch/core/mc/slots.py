@@ -230,15 +230,15 @@ def _gains_noise(draws: dict, ctx: SlotCtx, n: int) -> tuple:
 
 
 def _step_antenna_keys(key: torch.Tensor, ctx: SlotCtx) -> torch.Tensor:
-    """One slot's `(B·M, 2)` antenna keys, trajectory-major: the plain
-    split for a static M, the per-row replay of `split(key, m)` for
-    per-row counts."""
+    """One slot's `(B·M, w)` antenna keys (w words a key), trajectory-
+    major: the plain split for a static M, the per-row replay of
+    `split(key, m)` for per-row counts."""
     if ctx.m_sizes:
         keys = _antenna_keys(key, ctx.m_sizes, ctx.p["n_antennas"],
                              ctx.m_max)
     else:
         keys = rng.split(key, ctx.m_max)
-    return keys.reshape(-1, 2)
+    return keys.reshape(-1, key.shape[-1])
 
 
 def _gbma_draw(key: torch.Tensor, ctx: SlotCtx, n: int, d: int) -> dict:
@@ -442,9 +442,11 @@ def _all_steps(draw: Callable, step_keys: torch.Tensor, ctx: SlotCtx,
     """`draw(keys, ctx, n, d)` — a per-step draw function — over the
     `(T, B, 2)` step keys of all T steps at once: a dict of `(T, …)`
     tensors whose step-t slice is `draw(step_keys[t], ctx, n, d)` bit for
-    bit."""
+    bit (for threefry keys; rbg keys, which the transport hoists at one
+    step and one trajectory, draw a batch from its first key)."""
     steps = step_keys.shape[0]
-    out = draw(step_keys.reshape(-1, 2), _steps_ctx(ctx, steps), n, d)
+    out = draw(step_keys.reshape(-1, step_keys.shape[-1]),
+               _steps_ctx(ctx, steps), n, d)
     return {k: v.unflatten(0, (steps, -1)) for k, v in out.items()}
 
 

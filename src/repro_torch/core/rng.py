@@ -1,4 +1,5 @@
-"""Threefry-2x32 counter-based RNG in the ORIGINAL JAX layout, on torch.
+"""Threefry-2x32 counter-based RNG in the ORIGINAL JAX layout, and JAX's
+rbg keys, on torch.
 
 This stands in for `jax.random` in the port. The reference's Monte Carlo
 streams are defined by `jax.random` under the original (non-partitionable)
@@ -21,6 +22,28 @@ after every add and shift, so the arithmetic is exact on every device.
 Every function is batched over leading key axes: `key` is `(..., 2)` and
 the draw comes out `(..., *shape)`, so one call draws for all
 trajectories of a Monte Carlo step.
+
+The rbg key (`key(seed, impl="rbg")`, JAX's `impl='rbg'`) is four
+uint32 words; every function tells the kinds apart by the key's last
+dimension (2 or 4), as JAX's typed keys carry their implementation:
+
+* `key(seed)` is the threefry key twice, `[0, seed, 0, seed]`;
+* `split` and `fold_in` are threefry's on each half `(w0, w1)`,
+  `(w2, w3)` (JAX's `_rbg_split`, `_rbg_fold_in`), in the original
+  layout;
+* `random_bits` is XLA's `RngBitGenerator` as the CPU backend computes
+  it: Philox-4x32-10 keyed by `(w0, w1)` over the 128-bit counter whose
+  words, lowest first, are `(w2, w3, w0, w1)`, plus j for the j-th block
+  of four outputs (with carries). 8- and 16-bit draws are the low bits
+  of the same 32-bit outputs, one output an element. A batch of rbg
+  keys draws as JAX's vmap of the draw does: one stream of
+  `batch x shape` outputs from the FIRST key of the batch
+  (`lax.rng_bit_generator`'s batching rule). XLA picks the generator per
+  platform, so the reference draws other bits on a TPU; these are its
+  CPU bits.
+
+Everything downstream of the bits (uniforms, normals in f32 and bf16)
+is the same for both kinds.
 
 Bits and uniforms are bit-exact with `jax.random`. Normals go through
 `erfinv_f32`, a copy of XLA's single-precision `erf_inv` (Giles'
@@ -65,6 +88,13 @@ Shape = Union[int, Sequence[int]]
 # engine's draws, at the width of a model's parameters
 NORMAL_PASS = 1 << 24
 
+# the key kinds by their width in uint32 words
+KEY_WIDTHS = {"threefry2x32": 2, "rbg": 4}
+# Philox-4x32's multipliers and Weyl key increments (Salmon et al. 2011)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_PHILOX_ROUNDS = 10
+
 
 def _shape(shape: Shape) -> tuple:
     return (int(shape),) if isinstance(shape, (int, np.integer)) \
@@ -91,12 +121,69 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
-def key(seed, device=None) -> torch.Tensor:
-    """`jax.random.key(seed)` key data: `[0, seed]` (uint32 words in
-    int64). `seed` may be an int or an integer tensor of any shape; the
-    result is `(*seed.shape, 2)`."""
+def key(seed, device=None, impl: str = "threefry2x32") -> torch.Tensor:
+    """`jax.random.key(seed, impl=impl)` key data (uint32 words in
+    int64): threefry's `[0, seed]`, or rbg's `[0, seed, 0, seed]` (JAX's
+    `_rbg_seed`: the threefry key twice). `seed` may be an int or an
+    integer tensor of any shape; the result is `(*seed.shape, width)`."""
+    if impl not in KEY_WIDTHS:
+        raise ValueError(f"impl must be one of {tuple(KEY_WIDTHS)}, got "
+                         f"{impl!r}")
     s = torch.as_tensor(seed, dtype=torch.int64, device=device) & MASK32
-    return torch.stack([torch.zeros_like(s), s], dim=-1)
+    half = torch.stack([torch.zeros_like(s), s], dim=-1)
+    return half if impl == "threefry2x32" else torch.cat([half, half], -1)
+
+
+def is_rbg(k: torch.Tensor) -> bool:
+    """Whether `k` holds rbg keys (4 words) rather than threefry's (2)."""
+    if k.shape[-1] not in (2, 4):
+        raise ValueError(f"key data ends in 2 (threefry) or 4 (rbg) words, "
+                         f"got shape {tuple(k.shape)}")
+    return k.shape[-1] == 4
+
+
+def _halves(k: torch.Tensor) -> torch.Tensor:
+    """rbg keys `(..., 4)` as their two threefry halves `(..., 2, 2)`."""
+    return k.reshape(k.shape[:-1] + (2, 2))
+
+
+def _add32(a: torch.Tensor, b) -> tuple:
+    """(a + b) mod 2^32 and its carry, for uint32 values in int64."""
+    t = a + b
+    return t & MASK32, t >> 32
+
+
+def _philox_stream(k: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Outputs [start, start + n) of XLA's CPU `RngBitGenerator` stream
+    of the ONE rbg key `k (4,)`: Philox-4x32-10 keyed by (w0, w1), block
+    j from the 128-bit counter (w2, w3, w0, w1) + j (lowest word first),
+    its four words the outputs 4j .. 4j + 3. `start` is a multiple of 4.
+    The 32 x 32 products wrap in int64; their low 64 bits are exact."""
+    j = torch.arange(start // 4, start // 4 + (n + 3) // 4,
+                     dtype=torch.int64, device=k.device)
+    w = [k[i:i + 1] for i in range(4)]
+    x0, c = _add32(w[2], j)
+    x1, c = _add32(w[3], c)
+    x2, c = _add32(w[0], c)
+    x3, _ = _add32(w[1], c)
+    k0, k1 = w[0], w[1]
+    for r in range(_PHILOX_ROUNDS):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & MASK32
+            k1 = (k1 + _PHILOX_W[1]) & MASK32
+        p0, p1 = x0 * _PHILOX_M[0], x2 * _PHILOX_M[1]
+        x0, x1, x2, x3 = (((p1 >> 32) & MASK32) ^ x1 ^ k0, p1 & MASK32,
+                          ((p0 >> 32) & MASK32) ^ x3 ^ k1, p0 & MASK32)
+    return torch.stack([x0, x1, x2, x3], dim=-1).reshape(-1)[:n]
+
+
+def _rbg_bits(k: torch.Tensor, n: int) -> torch.Tensor:
+    """`(..., n)` uint32 outputs of rbg keys `k (..., 4)`: one stream of
+    batch x n outputs from the first key (JAX's vmap of the draw)."""
+    batch = k.shape[:-1]
+    first = k.reshape(-1, 4)[0]
+    return _philox_stream(first, 0, math.prod(batch) * n).reshape(
+        batch + (n,))
 
 
 def _counter_bits(k: torch.Tensor, n: int) -> torch.Tensor:
@@ -123,7 +210,11 @@ def dynamic_bits(k: torch.Tensor, size: torch.Tensor,
     counter pairs (j, j + m) with m = ceil(size / 2) and the odd pad slot
     hashed on 0 are built from the sizes on the device, so one program
     serves every size and nothing synchronizes with the host. Lanes past
-    a trajectory's size hold other hashes; the caller masks them."""
+    a trajectory's size hold other hashes; the caller masks them.
+    Threefry keys only (the engine's)."""
+    if is_rbg(k):
+        raise ValueError("dynamic_bits replays threefry's layout; rbg keys "
+                         "draw through random_bits")
     m_max = (out_max + 1) // 2
     size = size.to(torch.int64)[:, None]
     m = (size + 1) // 2
@@ -137,7 +228,11 @@ def dynamic_bits(k: torch.Tensor, size: torch.Tensor,
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """`jax.random.split(k, num)`: `(..., 2)` -> `(..., num, 2)`."""
+    """`jax.random.split(k, num)`: `(..., w)` -> `(..., num, w)`; an rbg
+    key's halves are split apart and key j joins their j-th keys."""
+    if is_rbg(k):
+        halves = split(_halves(k), num)  # (..., 2, num, 2)
+        return halves.transpose(-3, -2).reshape(k.shape[:-1] + (num, 4))
     bits = _counter_bits(k, 2 * num)
     return bits.reshape(k.shape[:-1] + (num, 2))
 
@@ -147,7 +242,13 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
 
     `data` is a non-negative int, giving `(..., 2)`, or an integer tensor
     that broadcasts against `k[..., 0]`: one fold per entry, so
-    `fold_in(k[:, None], torch.arange(n))` is `(B, n, 2)`."""
+    `fold_in(k[:, None], torch.arange(n))` is `(B, n, 2)`. An rbg key
+    folds each half: `(..., 4)`."""
+    if is_rbg(k):
+        if isinstance(data, torch.Tensor):
+            data = data[..., None]  # against the halves' axis
+        folded = fold_in(_halves(k), data)
+        return folded.reshape(folded.shape[:-2] + (4,))
     if isinstance(data, torch.Tensor):
         x1 = data.to(device=k.device, dtype=torch.int64) & MASK32
         o0, o1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(x1),
@@ -160,10 +261,22 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return torch.cat([o0, o1], dim=-1)
 
 
-def random_bits(k: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """`jax.random.bits(k, shape)` (uint32 in int64): `(..., *shape)`."""
+def random_bits(k: torch.Tensor, shape: Shape,
+                width: int = 32) -> torch.Tensor:
+    """`jax.random.bits(k, shape, uint<width>)` in int64: `(..., *shape)`.
+    Threefry keys draw 32 bits; rbg keys 8, 16 or 32 (the low bits of
+    their 32-bit outputs)."""
     shape = _shape(shape)
     n = math.prod(shape)
+    if is_rbg(k):
+        if width not in (8, 16, 32):
+            raise ValueError(f"rbg bits are 8, 16 or 32 wide, got {width}")
+        bits = _rbg_bits(k, n)
+        if width < 32:
+            bits = bits & ((1 << width) - 1)
+        return bits.reshape(k.shape[:-1] + shape)
+    if width != 32:
+        raise ValueError(f"threefry bits are 32 wide here, got {width}")
     return _counter_bits(k, n).reshape(k.shape[:-1] + shape)
 
 
@@ -263,11 +376,15 @@ def _bf16_normal(k: torch.Tensor, shape: tuple) -> torch.Tensor:
     times (1 - lo) and plus lo, all in bf16, gives u in [lo, 1) with lo =
     nextafter(-1, 0) in bf16 (-0.99609375; the span rounds to 2). XLA's
     erf_inv takes bf16 through f32 and rounds back, and the product with
-    sqrt(2) rounds again in bf16: 128 values in all."""
+    sqrt(2) rounds again in bf16: 128 values in all. An rbg key's 8-bit
+    draw is the low byte of one 32-bit output an element."""
     n = math.prod(shape)
-    words = _counter_bits(k, (n + 3) // 4)
-    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=k.device)
-    byte = ((words[..., None] >> shifts) & 0xFF).flatten(-2)[..., :n]
+    if is_rbg(k):
+        byte = random_bits(k, (n,), width=8)
+    else:
+        words = _counter_bits(k, (n + 3) // 4)
+        shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=k.device)
+        byte = ((words[..., None] >> shifts) & 0xFF).flatten(-2)[..., :n]
     fb = ((byte >> 1) | _BF16_ONE_BITS).to(torch.int16).view(torch.bfloat16)
     # each step exact in bf16, as JAX's bf16 ops round it
     u = ((fb - 1.0) * _BF16_NORMAL_SPAN + _BF16_NORMAL_LO).clamp_min(
@@ -285,7 +402,9 @@ def _normal_f32(k: torch.Tensor, shape: tuple) -> torch.Tensor:
     transport's edge noise of N·D elements) would need tens of GB at
     once; in passes it needs the output and one pass's scratch. A draw of
     one pass (every draw of the Monte Carlo engine) is the one chain of
-    `random_bits`, returned as it is."""
+    `random_bits`, returned as it is. rbg keys: `_normal_rbg`."""
+    if is_rbg(k):
+        return _normal_rbg(k, shape)
     n = math.prod(shape)
     m = (n + 1) // 2
     batch = k.shape[:-1]
@@ -308,6 +427,26 @@ def _normal_f32(k: torch.Tensor, shape: tuple) -> torch.Tensor:
                               device=k.device)
         out[..., c0:c1] = z[..., :c1 - c0]
         out[..., m + c0:hi] = z[..., c1 - c0:]
+    return out.reshape(batch + shape)
+
+
+def _normal_rbg(k: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """`jax.random.normal(k, shape)` in float32 for rbg keys `(..., 4)`:
+    the first key's stream of batch x n outputs (`_rbg_bits`), turned
+    into normals 2 * NORMAL_PASS outputs at a time, as `_normal_f32`
+    bounds its scratch."""
+    batch = k.shape[:-1]
+    total = math.prod(batch) * math.prod(shape)
+    first = k.reshape(-1, 4)[0]
+    step = 2 * NORMAL_PASS
+    if total <= step:
+        z = u01_to_normal(bits_to_u01(_philox_stream(first, 0, total)))
+        return z.reshape(batch + shape)
+    out = torch.empty((total,), dtype=torch.float32, device=k.device)
+    for c0 in range(0, total, step):
+        c1 = min(c0 + step, total)
+        out[c0:c1] = u01_to_normal(bits_to_u01(
+            _philox_stream(first, c0, c1 - c0)))
     return out.reshape(batch + shape)
 
 

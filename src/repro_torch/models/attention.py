@@ -11,12 +11,17 @@ the materializing oracle. The KV cache is a dict of tensors updated IN PLACE
 token would move the whole cache (1.1 GB for olmo-1b at B = 4 and 2080
 positions) once per token.
 
-Out of this slice, and refused by `transformer.check_slice`: sliding
-windows, softcaps and qk-norm (ROADMAP S2), the int8 cache and head
-padding (S3), the runtime `is_global` flag (hymba, S6) and the sharding
-calls (M8). The reference's blockwise jnp attention has no counterpart:
-serving takes K2 and training the flash backward, whatever
-`opt_flash_vjp` says.
+Sliding windows and the attention-logit softcap reach both routes: K2
+and its plain version in prefill (and the flash backward in training),
+`decode_attention` in decode, where a windowed layer's cache is a ring
+buffer of min(window, cache length) slots. qk-norm is a plain RMS norm of
+each head's q and k before RoPE.
+
+Out of this slice, and refused by `transformer.check_slice`: the int8
+cache and head padding (S3), the runtime `is_global` flag (hymba, S6)
+and the sharding calls (M8). The reference's blockwise jnp attention has
+no counterpart: serving takes K2 and training the flash backward,
+whatever `opt_flash_vjp` says.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention.ops import multi_head_attention
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.models.flash_vjp import flash_attention
-from repro_torch.models.layers import dense_init, dtype_of, rope
+from repro_torch.models.layers import dense_init, dtype_of, rms_norm, rope
 
 
 # --------------------------------------------------------------------------
@@ -37,7 +42,7 @@ from repro_torch.models.layers import dense_init, dtype_of, rope
 def attention_params(gen: torch.Generator, cfg: ModelConfig,
                      lead=()) -> dict:
     dt = dtype_of(cfg)
-    return {
+    p = {
         "wq": dense_init(gen, cfg.d_model, (*lead, cfg.d_model, cfg.q_dim),
                          dt),
         "wk": dense_init(gen, cfg.d_model, (*lead, cfg.d_model, cfg.kv_dim),
@@ -47,6 +52,11 @@ def attention_params(gen: torch.Generator, cfg: ModelConfig,
         "wo": dense_init(gen, cfg.q_dim, (*lead, cfg.q_dim, cfg.d_model),
                          dt),
     }
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones((*lead, cfg.head_dim), dtype=dt,
+                                 device=gen.device)
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -86,19 +96,23 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, sq, dv).to(q.dtype)
 
 
-def sdpa(q, k, v, cfg: ModelConfig, *, impl: str = "auto") -> torch.Tensor:
-    """Causal attention for prefill: the flash-attention kernel on CUDA
-    tensors, its plain version on CPU tensors (`impl` as in
-    `multi_head_attention`). Where grad is enabled and an input requires
-    it, `flash_attention` at the config's `attn_block_q` /
+def sdpa(q, k, v, cfg: ModelConfig, *, window: Optional[int] = None,
+         impl: str = "auto") -> torch.Tensor:
+    """Causal attention for prefill, over the sliding `window` when one is
+    given and with the config's `attn_softcap`: the flash-attention
+    kernel on CUDA tensors, its plain version on CPU tensors (`impl` as
+    in `multi_head_attention`). Where grad is enabled and an input
+    requires it, `flash_attention` at the config's `attn_block_q` /
     `attn_block_kv`: the same forward (K2 writing its log-sum-exp) and
     the flash backward, in f32 and bf16."""
     scale = cfg.head_dim ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return flash_attention(q, k, v, scale=scale, causal=True,
+                               window=window, softcap=cfg.attn_softcap,
                                block_q=cfg.attn_block_q,
                                block_kv=cfg.attn_block_kv, impl=impl)
     return multi_head_attention(q, k, v, scale=scale, causal=True,
+                                window=window, softcap=cfg.attn_softcap,
                                 impl=impl)
 
 
@@ -130,16 +144,23 @@ def cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, cache: dict, pos: int,
-                     cfg: ModelConfig) -> torch.Tensor:
-    """One query token (B, Hq, 1, d) against the cache, in f32."""
+                     cfg: ModelConfig, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One query token (B, Hq, 1, d) against the cache, in f32: the
+    config's softcap on the scaled logits, and only the keys less than
+    `window` positions back when a window is given."""
     b, hq, _, d = q.shape
     hkv = cache["k"].shape[1]
     g = hq // hkv
     qg = q.reshape(b, hkv, g, d).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, cache["k"].float()) \
         * cfg.head_dim ** -0.5
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
     pid = cache["pos_ids"]
     valid = (pid >= 0) & (pid <= pos)
+    if window is not None:
+        valid &= (pos - pid) < window
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p, cache["v"].float())
@@ -150,26 +171,32 @@ def decode_attention(q: torch.Tensor, cache: dict, pos: int,
 # attention sub-layer (projections + rope + sdpa / decode)
 # --------------------------------------------------------------------------
 def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
-               positions: torch.Tensor, cache: Optional[dict] = None,
+               positions: torch.Tensor, window: Optional[int] = None,
+               cache: Optional[dict] = None,
                decode_pos: Optional[int] = None,
                impl: str = "auto") -> tuple:
-    """x (B, S, D) -> (out (B, S, D), cache). With a cache and S == 1 this
-    is a decode step at `decode_pos`; otherwise a prefill, which writes
-    the last min(S, cache_len) keys and values into cache slots 0.. when a
-    cache is given. `impl` selects the prefill attention as in `sdpa`."""
+    """x (B, S, D) -> (out (B, S, D), cache), attending over the sliding
+    `window` when one is given. With a cache and S == 1 this is a decode
+    step at `decode_pos`; otherwise a prefill, which writes the last
+    min(S, cache_len) keys and values into cache slots 0.. when a cache
+    is given, as the reference does. `impl` selects the prefill attention
+    as in `sdpa`."""
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:  # a plain RMS norm of each head, before RoPE
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, d) views
 
     if cache is not None and s == 1:
         cache = cache_write(cache, k, v, decode_pos)
-        out = decode_attention(q, cache, decode_pos, cfg)
+        out = decode_attention(q, cache, decode_pos, cfg, window=window)
     else:
-        out = sdpa(q, k, v, cfg, impl=impl)
+        out = sdpa(q, k, v, cfg, window=window, impl=impl)
         if cache is not None:  # prefill into the cache
             cache_len = cache["k"].shape[-2]
             take = min(s, cache_len)

@@ -7,9 +7,12 @@
     losses, metrics = model.train_loss_per_example(params, batch)
 
 Two kinds are ported, both served and trained: "transformer" (the dense
-decoder) and "rwkv" (the RWKV6 model of `family == "ssm"`). The cache — the dense decoder's KV
-cache or RWKV's recurrent state — is updated in place: `decode_step`
-writes into the cache it is given and returns that same object.
+decoder, with gemma2's sliding windows, softcaps and sandwich norms,
+gemma's embedding scale and qk-norm) and "rwkv" (the RWKV6 model of
+`family == "ssm"`). The cache — the dense decoder's KV cache, one per
+sublayer, or RWKV's recurrent state — is updated in place:
+`decode_step` writes into the cache it is given and returns that same
+object.
 
 `impl` picks the route of the kind's own kernel (prefill attention for
 the dense decoder, the WKV recurrence for RWKV): 'auto' (the CUDA kernel
@@ -90,7 +93,8 @@ class Model:
         return losses + cfg.router_aux_weight * aux, metrics
 
     def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
-        """The KV cache of `cache_len` positions, or RWKV's O(1) state
+        """The KV cache of `cache_len` positions (min(window, cache_len)
+        on a windowed sublayer, a ring buffer), or RWKV's O(1) state
         (`cache_len` unused)."""
         if self.kind == "rwkv":
             return rwkv.init_state(batch, self.cfg, device=device)

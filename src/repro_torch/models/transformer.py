@@ -5,9 +5,13 @@ Parameters keep the reference's nested layout — `segments/seg0/sub0/...`
 with every per-layer leaf stacked on a leading layer dimension — so the
 names map one to one (`models.convert`). The reference scans over that
 dimension; the port loops over it in Python, slicing each layer's
-weights and KV cache as views.
+weights and KV cache as views. A segment's step runs its sublayers in
+order: gemma2's `alt_local_global` pattern is one segment of
+n_layers // 2 steps whose sub0 attends over the sliding window and sub1
+globally, each with its own stacked parameters and KV cache.
 
-The slice is one dense global segment: `check_slice` raises
+The slice is the dense decoder with its windows, softcaps, sandwich
+norms, embedding scale and qk-norm (S2): `check_slice` raises
 `NotImplementedError` naming the ROADMAP item of every other structure.
 
 Training (`decoder_forward` under autograd) keeps every layer's
@@ -20,6 +24,7 @@ training shape (B = 8, S = 256) the kept activations are a few GB.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -36,6 +41,7 @@ from repro_torch.models.layers import (apply_norm, dtype_of, embed_init,
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
     kind: str  # 'dense' (the reference also has 'moe', ROADMAP S4)
+    window: Optional[int]  # sliding window (None = global)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +51,7 @@ class Segment:
 
 
 def check_slice(cfg: ModelConfig) -> None:
-    """Raise for every structure outside the dense global decoder."""
+    """Raise for every structure outside the dense decoder of S2."""
     if cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.arch_id}: MoE layers are not ported yet (ROADMAP S4)")
@@ -57,13 +63,10 @@ def check_slice(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id}: encoder-decoder and VLM stacks are not ported "
             "yet (ROADMAP S7)")
-    if (cfg.layer_pattern != "global" or cfg.sliding_window is not None
-            or cfg.attn_softcap is not None or cfg.final_softcap is not None
-            or cfg.norm_style != "pre" or cfg.embed_scale or cfg.qk_norm):
+    if cfg.layer_pattern == "hymba_global_set":
         raise NotImplementedError(
-            f"{cfg.arch_id}: sliding-window layers, logit softcaps, "
-            "sandwich norms, embedding scale and qk-norm are not ported yet "
-            "(ROADMAP S2)")
+            f"{cfg.arch_id}: hymba's runtime global-layer set is not ported "
+            "yet (ROADMAP S6)")
     if cfg.opt_int8_cache or cfg.opt_pad_heads:
         raise NotImplementedError(
             f"{cfg.arch_id}: the int8 KV cache and head padding "
@@ -73,7 +76,14 @@ def check_slice(cfg: ModelConfig) -> None:
 
 def build_segments(cfg: ModelConfig) -> tuple:
     check_slice(cfg)
-    return (Segment(cfg.n_layers, (SubLayer("dense"),)),)
+    if cfg.layer_pattern == "alt_local_global":
+        # gemma2: local, global, local, ...
+        return (Segment(cfg.n_layers // 2,
+                        (SubLayer("dense", cfg.sliding_window),
+                         SubLayer("dense", None))),)
+    window = cfg.sliding_window if cfg.layer_pattern == "all_local" \
+        else None
+    return (Segment(cfg.n_layers, (SubLayer("dense", window),)),)
 
 
 # ---------------------------------------------------------------------------
@@ -81,10 +91,14 @@ def build_segments(cfg: ModelConfig) -> tuple:
 # ---------------------------------------------------------------------------
 def sublayer_params(gen: torch.Generator, cfg: ModelConfig,
                     lead=()) -> dict:
-    return {"ln1": norm_param(cfg, *lead, device=gen.device),
-            "ln2": norm_param(cfg, *lead, device=gen.device),
-            "attn": attn_mod.attention_params(gen, cfg, lead=lead),
-            "mlp": layers.mlp_params(gen, cfg, lead=lead)}
+    p = {"ln1": norm_param(cfg, *lead, device=gen.device),
+         "ln2": norm_param(cfg, *lead, device=gen.device),
+         "attn": attn_mod.attention_params(gen, cfg, lead=lead),
+         "mlp": layers.mlp_params(gen, cfg, lead=lead)}
+    if cfg.norm_style == "sandwich":
+        p["post_ln1"] = norm_param(cfg, *lead, device=gen.device)
+        p["post_ln2"] = norm_param(cfg, *lead, device=gen.device)
+    return p
 
 
 def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -110,13 +124,24 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(dtype_of(cfg))
+    """The embedding rows in the activation dtype; with `embed_scale`,
+    times sqrt(d_model) rounded to that dtype first, as the reference's
+    `jnp.asarray(sqrt(d), x.dtype)` (in bf16, sqrt(3584) = 59.87 becomes
+    59.75, and the product rounds once)."""
+    x = params["embed"][tokens].to(dtype_of(cfg))
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return x
 
 
 def logits_fn(params: dict, h: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits, capped by the config's `final_softcap` (in f32)."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (h @ w).float()
+    logits = (h @ w).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
 
 
 def chunked_xent(params: dict, h: torch.Tensor, labels: torch.Tensor,
@@ -151,19 +176,27 @@ def chunked_xent(params: dict, h: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 # sublayer / stack forward
 # ---------------------------------------------------------------------------
-def sublayer_apply(x: torch.Tensor, sp: dict, cfg: ModelConfig, *,
-                   positions: torch.Tensor, cache: Optional[dict] = None,
+def sublayer_apply(x: torch.Tensor, sp: dict, sub: SubLayer,
+                   cfg: ModelConfig, *, positions: torch.Tensor,
+                   cache: Optional[dict] = None,
                    decode_pos: Optional[int] = None,
                    impl: str = "auto") -> torch.Tensor:
-    """One decoder layer; its KV cache, when given, is updated in place."""
+    """One decoder layer (attention over `sub.window`, then the MLP, each
+    followed by its post norm under `norm_style == "sandwich"`); its KV
+    cache, when given, is updated in place."""
     h = apply_norm(x, sp["ln1"], cfg)
     a, _ = attn_mod.attn_apply(
-        h, sp["attn"], cfg, positions=positions,
+        h, sp["attn"], cfg, positions=positions, window=sub.window,
         cache=None if cache is None else cache["kv"],
         decode_pos=decode_pos, impl=impl)
+    if cfg.norm_style == "sandwich":
+        a = apply_norm(a, sp["post_ln1"], cfg)
     x = x + a
     h = apply_norm(x, sp["ln2"], cfg)
-    return x + layers.mlp_apply(h, sp["mlp"], cfg)
+    m = layers.mlp_apply(h, sp["mlp"], cfg)
+    if cfg.norm_style == "sandwich":
+        m = apply_norm(m, sp["post_ln2"], cfg)
+    return x + m
 
 
 def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -178,9 +211,9 @@ def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         seg_params = params["segments"][f"seg{i}"]
         seg_cache = None if cache is None else cache[f"seg{i}"]
         for step in range(seg.n_steps):
-            for j, _ in enumerate(seg.subs):
+            for j, sub in enumerate(seg.subs):
                 x = sublayer_apply(
-                    x, layer_slice(seg_params[f"sub{j}"], step), cfg,
+                    x, layer_slice(seg_params[f"sub{j}"], step), sub, cfg,
                     positions=positions,
                     cache=None if seg_cache is None
                     else layer_slice(seg_cache[f"sub{j}"], step),
@@ -194,8 +227,11 @@ def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def init_decoder_cache(batch: int, cache_len: int, cfg: ModelConfig,
                        device=None) -> dict:
     """Cache tree matching the parameter layout: per segment and sublayer
-    a KV cache stacked on the layer dimension."""
+    a KV cache stacked on the layer dimension. A windowed sublayer's cache
+    is a ring buffer of min(window, cache_len) slots."""
     return {f"seg{i}": {f"sub{j}": {"kv": attn_mod.init_kv_cache(
-        batch, cache_len, cfg, lead=(seg.n_steps,), device=device)}
-        for j, _ in enumerate(seg.subs)}
+        batch, cache_len if sub.window is None
+        else min(cache_len, sub.window), cfg, lead=(seg.n_steps,),
+        device=device)}
+        for j, sub in enumerate(seg.subs)}
         for i, seg in enumerate(build_segments(cfg))}

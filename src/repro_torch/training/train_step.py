@@ -27,9 +27,12 @@ one shared graph (`retain_graph`) would each walk the whole batch. So a
 transport step launches K2 N times per layer (N x n_layers), a fused
 step once per layer.
 
-Keys are the port's `core.rng` threefry keys in the original layout:
-`key(seed)`, then `fold_in(base, step)`, split into `(k_h, k_w)` on the
-fused route; `transport.step_key` on the transport route. The
+Keys are the port's `core.rng` keys of `TrainConfig.rng_impl`: threefry
+in the original layout, or JAX's rbg keys (their bits XLA's CPU
+`RngBitGenerator`'s). `key(seed, impl)`, then `fold_in(base, step)`,
+split into `(k_h, k_w)` on the fused route; `transport.step_key` on the
+transport route. Every split, fold and draw downstream takes either
+kind. The
 reference's `_constrain_like_params` is a sharding constraint, which
 means nothing on one device, and is left out.
 
@@ -65,7 +68,7 @@ PyTree = Any
 # aggregators whose MAC folds into the loss / reduced tree (no per-node
 # gradients); everything else goes through the transport
 _FUSED_AGGREGATORS = ("gbma", "fdm", "centralized")
-_RNG_IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
+_RNG_IMPLS = ("threefry2x32", "rbg")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +77,7 @@ class TrainConfig:
     gbma: GBMAConfig = dataclasses.field(default_factory=GBMAConfig)
     seed: int = 0
     clip_norm: Optional[float] = None
-    # 'threefry2x32' only: 'rbg' is ROADMAP T6
+    # 'threefry2x32' or 'rbg' (JAX's `jax.random.key(seed, impl=...)`)
     rng_impl: str = "threefry2x32"
     # gradient accumulation over microbatches (fused route only): each
     # node still transmits one analog gradient per slot
@@ -88,22 +91,23 @@ class TrainConfig:
 
 
 def _check_rng_impl(tcfg: TrainConfig) -> None:
+    if tcfg.rng_impl == "unsafe_rbg":
+        raise NotImplementedError(
+            "rng_impl='unsafe_rbg': its keys have rbg's width, so the kind "
+            "would have to travel with the key (ROADMAP T7)")
     if tcfg.rng_impl not in _RNG_IMPLS:
         raise ValueError(f"rng_impl must be one of {_RNG_IMPLS}, got "
                          f"{tcfg.rng_impl!r}")
-    if tcfg.rng_impl != "threefry2x32":
-        raise NotImplementedError(
-            f"rng_impl={tcfg.rng_impl!r}: only threefry2x32 keys are "
-            "ported (ROADMAP T6)")
 
 
-def _base_key_fn(seed: int) -> Callable[[torch.device], torch.Tensor]:
-    """key(seed) on a device, made once per device."""
+def _base_key_fn(seed: int,
+                 impl: str) -> Callable[[torch.device], torch.Tensor]:
+    """key(seed) of kind `impl` on a device, made once per device."""
     keys = {}
 
     def base_key(device: torch.device) -> torch.Tensor:
         if device not in keys:
-            keys[device] = rng.key(seed, device=device)
+            keys[device] = rng.key(seed, device=device, impl=impl)
         return keys[device]
 
     return base_key
@@ -228,7 +232,7 @@ def build_train_step(model, tcfg: TrainConfig, opt: Optimizer) -> Callable:
     _check_rng_impl(tcfg)
     gcfg = tcfg.gbma
     route = resolve_route(tcfg)
-    base_key = _base_key_fn(tcfg.seed)
+    base_key = _base_key_fn(tcfg.seed, tcfg.rng_impl)
 
     if route == "transport":
         return _build_transport_step(model, tcfg, opt, base_key)

@@ -21,8 +21,10 @@ hand-written backward against the plain backward, also at a transport
 node's shape, bit for bit across two launches and against the CPU
 emulation of its order of operations), the last two
 also at their serving slices' shapes; K3 also at lengths off its chunk,
-on views off 16 bytes and for repeatability. The port's threefry is
-checked to draw an odd count without a host-to-device copy, and a long
+on views off 16 bytes and for repeatability; K2's bf16 kernel also at
+the S2 models' shapes (head_dim 256, windows, softcaps, GQA groups of 2
+and 3). The rbg keys' bits and normals on the card equal the CPU's. The
+port's threefry is checked to draw an odd count without a host-to-device copy, and a long
 normal draw in passes to give the one-pass bits. The execution
 plans run through K1: hoisted draws give the per-step bits, chunked
 moments match unchunked ones, and a sweep resumed after an injected
@@ -914,6 +916,52 @@ def test_normal_in_passes_is_bit_exact_on_the_card(cuda, monkeypatch):
     assert torch.equal(rng.normal(keys, (3 * 4096 + 5,)), one)
     monkeypatch.setattr(rng, "NORMAL_PASS", 1024)
     assert torch.equal(rng.normal(keys, (3 * 4096 + 5,)), one)
+
+
+# ------------------------------------------------------------- rbg keys (T6)
+
+@pytest.mark.parametrize("width", [32, 16, 8])
+@pytest.mark.parametrize("n", [1, 5, 1023, 2**20 + 3])
+def test_rbg_bits_on_the_card_equal_the_cpus(cuda, n, width):
+    """The rbg keys' Philox stream (int64 arithmetic, 32 x 32 products
+    wrapping) gives the CPU's bits on the card, from a key whose halves
+    differ and whose counter carries across its words."""
+    from repro_torch.core import rng
+
+    k = torch.tensor([1, 0xFFFFFFFF, 0xFFFFFFF0, 0xFFFFFFFF])
+    for key in (k, rng.split(rng.fold_in(rng.key(0, impl="rbg"), 3))[1]):
+        card = rng.random_bits(key.to(cuda), (n,), width=width)
+        assert torch.equal(card.cpu(), rng.random_bits(key, (n,),
+                                                       width=width))
+
+
+def test_rbg_normals_on_the_card_match_the_cpus(cuda):
+    from repro_torch.core import rng
+
+    k = rng.split(rng.key(5, impl="rbg"))[1]
+    card = rng.normal(k.to(cuda), (3, 4099)).cpu()
+    torch.testing.assert_close(card, rng.normal(k, (3, 4099)), atol=1e-6,
+                               rtol=0)
+    card = rng.normal(k.to(cuda), (4099,), dtype=torch.bfloat16).cpu()
+    assert torch.equal(card, rng.normal(k, (4099,), dtype=torch.bfloat16))
+
+
+# ----------------------------------------------- K2 at the S2 serving shapes
+
+# (B, Hq, Hkv, S, d, window, softcap): gemma2-9b's local layers at 2048
+# and 8,192 tokens and its global layers at 8,192, gemma-7b, minitron-4b
+S2_ATTN_SHAPES = [(4, 16, 8, 2048, 256, 4096, 50.0),
+                  (1, 16, 8, 8192, 256, 4096, 50.0),
+                  (1, 16, 8, 8192, 256, None, 50.0),
+                  (4, 16, 16, 2048, 256, None, None),
+                  (4, 24, 8, 2048, 128, None, None)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,cap", S2_ATTN_SHAPES)
+def test_attention_kernel_at_s2_shapes(cuda, b, hq, hkv, s, d, window, cap):
+    q, k, v = _qkv(b, hq, hkv, s, d, torch.bfloat16, s + hq, cuda)
+    out, ref = _attn_pair(q, k, v, {"window": window, "softcap": cap})
+    torch.testing.assert_close(out, ref, atol=3e-2, rtol=0)
 
 
 # ----------------------------------------------------- execution plans (P8, P9)

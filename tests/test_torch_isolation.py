@@ -70,6 +70,10 @@ MODEL_TRAINING_MODULES = {"repro_torch.kernels.attention.kernel",
                           "repro_torch.kernels.wkv.ref",
                           "repro_torch.models.attention",
                           "repro_torch.models.rwkv"}
+# the window, softcap and qk-norm families (S2) and rbg keys (T6)
+S2_MODULES = {"repro_torch.configs.gemma2_9b", "repro_torch.configs.gemma_7b",
+              "repro_torch.configs.minitron_4b", "repro_torch.core.rng",
+              "repro_torch.models.transformer"}
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -108,6 +112,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert TRANSPORT_MODULES <= names, TRANSPORT_MODULES - names
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
     assert MODEL_TRAINING_MODULES <= names, MODEL_TRAINING_MODULES - names
+    assert S2_MODULES <= names, S2_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
@@ -295,13 +300,12 @@ def test_unported_architectures_raise(arch):
 
 
 OUT_OF_SLICE_CONFIG = [
-    ({"sliding_window": 16, "layer_pattern": "alt_local_global"}, "S2"),
-    ({"attn_softcap": 50.0}, "S2"),
-    ({"final_softcap": 30.0}, "S2"),
-    ({"norm_style": "sandwich"}, "S2"),
-    ({"embed_scale": True}, "S2"),
-    ({"qk_norm": True}, "S2"),
     ({"opt_int8_cache": True}, "S3"),
+    ({"opt_int8_cache": True, "sliding_window": 16,
+      "layer_pattern": "alt_local_global"}, "S3"),
+    ({"opt_pad_heads": True, "qk_norm": True}, "S3"),
+    ({"layer_pattern": "hymba_global_set", "sliding_window": 16,
+      "global_layer_ids": (0,)}, "S6"),
     ({"opt_pad_heads": True}, "S3"),
     ({"n_experts": 4}, "S4"),
     ({"use_mla": True}, "S5"),
@@ -323,7 +327,8 @@ def test_training_entry_points_raise():
     """Training is ported for the dense decoder (`opt_flash_vjp` builds:
     the port trains through its flash backward either way) and for RWKV
     (T5, done: its loss is differentiable on the CPU); rbg keys (T6)
-    raise naming their item; the launcher's case is the test below."""
+    build, unsafe_rbg keys raise naming their item; the launcher's case
+    is the test below."""
     from repro_torch.optim.gd import gd
     from repro_torch.training.train_step import TrainConfig, build_train_step
 
@@ -337,9 +342,11 @@ def test_training_entry_points_raise():
         params, {"tokens": torch.zeros((1, 5), dtype=torch.long)})
     losses.sum().backward()
     assert torch.isfinite(params["blocks"]["tm"]["wk"].grad).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP T6"):
-        build_train_step(build_model(cfg), TrainConfig(rng_impl="rbg"),
-                         gd(0.1))
+    assert callable(build_train_step(build_model(cfg),
+                                     TrainConfig(rng_impl="rbg"), gd(0.1)))
+    with pytest.raises(NotImplementedError, match="ROADMAP T7"):
+        build_train_step(build_model(cfg),
+                         TrainConfig(rng_impl="unsafe_rbg"), gd(0.1))
 
 
 def test_train_launcher_without_device_raises_where_cuda_is_absent(
