@@ -2471,15 +2471,25 @@ def f32_sass_summary(info) -> dict:
     return out
 
 
-def attention_bound(b, h, s, d, dtype_name) -> tuple:
-    """(least ms, what bounds it) for one causal self-attention call: q, k,
-    v read once and o written once, against 4·d flops (the QKᵀ and PV
-    products) for each of the s(s + 1)/2 live (query, key) pairs, at the
-    peak rate of the inputs' type (bf16: tensor cores; f32: the CUDA
-    cores, since TF32 cannot meet the kernel's bar)."""
+def live_pairs(s: int, window=None) -> int:
+    """(query, key) pairs a causal self-attention over `s` positions
+    computes, each query seeing at most `window` keys."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def attention_bound(b, h, s, d, dtype_name, hkv=None, window=None) -> tuple:
+    """(least ms, what bounds it) for one causal self-attention call: q
+    and o at `h` heads and k, v at `hkv` (default `h`) heads moved once,
+    against 4·d flops (the QKᵀ and PV products) for each live (query,
+    key) pair (`live_pairs`: s(s + 1)/2 without a window) and query head,
+    at the peak rate of the inputs' type (bf16: tensor cores; f32: the
+    CUDA cores, since TF32 cannot meet the kernel's bar). A softcap's
+    tanh is not counted."""
     elt = 2 if dtype_name == "bfloat16" else 4
-    nbytes = elt * b * h * d * 4 * s
-    flops = 4.0 * b * h * d * (s * (s + 1) // 2)
+    nbytes = elt * b * s * d * (2 * h + 2 * (hkv or h))
+    flops = 4.0 * b * h * d * live_pairs(s, window)
     peak = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -3146,6 +3156,9 @@ S2_ARCHS = ("gemma2-9b", "gemma-7b", "minitron-4b")
 # gemma2-9b's context length, served at B = 1: its local layers' window
 # (4,096) masks keys in prefill and decode
 S2_LONG_PROMPT = 8192
+# and at B = 1 a prompt past the window and not a multiple of it, whose
+# prefill must place each key in its ring slot for decode (c only)
+S2_UNALIGNED_PROMPT = 5000
 # K2's shapes on the S2 path (label, B, Hq, Hkv, S, d, window, softcap):
 # gemma2-9b's local layers at the 2048-token prompt (the window is passed
 # and does not bite), its local and global layers at 8,192 tokens,
@@ -3158,6 +3171,11 @@ S2_ATTN_CASES = (
     ("minitron-4b, prompt 2048", 4, 24, 8, 2048, 128, None, None),
 )
 S2_BF16_BAR = 3e-2  # atol, the bf16 kernel's bar
+# q's scale in (a)'s softcap cases: randn q and k give scaled logits of
+# spread 1, within about ±5, where 50·tanh(s/50) moves a logit by < 0.01
+# and a kernel without the softcap would meet the bar; at spread 10 the
+# largest logits sit well into the cap
+S2_SOFTCAP_Q_SCALE = 10.0
 # (e) the reduced models in f32 on the card (K2's f32 kernel) against the
 # CPU (its plain version): prefill past the reduced window of 16, then
 # decode; logits within this share of the largest
@@ -3165,82 +3183,128 @@ S2_CPU_BAR = 1e-4
 S2_CPU_PROMPT, S2_CPU_STEPS = 24, 3
 
 
-def live_pairs(s: int, window) -> int:
-    """(query, key) pairs a causal self-attention over `s` positions
-    computes, each query seeing at most `window` keys."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
+def flex_library(q, k, v, scale: float, window, cap) -> tuple:
+    """The one PyTorch call that computes K2's function under a softcap or
+    a window: `flex_attention` compiled by torch.compile, the softcap its
+    score_mod, causality and the window its block mask (built once, before
+    any timing), GQA by `enable_gqa`. Returns (the call, seconds its first
+    call took, compilation included)."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
 
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki
+        if window is not None:
+            keep = keep & (qi - ki < window)
+        return keep
 
-def s2_attention_bound(b, hq, hkv, s, d, window) -> tuple:
-    """(least ms, what bounds it) for one bf16 causal attention call with
-    GQA and a window: q and o at Hq heads and k, v at Hkv heads moved
-    once, against 4·d flops (QKᵀ and PV) per live pair and query head at
-    the tensor cores' bf16 peak. The softcap's tanh is not counted."""
-    nbytes = 2 * b * s * d * (2 * hq + 2 * hkv)
-    flops = 4.0 * b * hq * d * live_pairs(s, window)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    s = q.shape[-2]
+    block_mask = create_block_mask(mask_mod, None, None, s, s,
+                                   device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    kw = {"score_mod": softcap if cap is not None else None,
+          "block_mask": block_mask, "scale": scale,
+          "enable_gqa": q.shape[1] != k.shape[1]}
+
+    def call():
+        return flex(q, k, v, **kw)
+
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return call, time.perf_counter() - t0
 
 
 def check_s2_attention() -> list:
     """(a) K2's bf16 kernel at each S2 shape against its plain version
     (atol 3e-2), timed with CUDA events beside its bound, the plain
-    version and, where one call computes the same function (no softcap,
-    no window), `F.scaled_dot_product_attention` (`enable_gqa` for
-    minitron-4b's groups of 3)."""
+    version and the one PyTorch call that computes the same function:
+    `F.scaled_dot_product_attention` without a softcap or window
+    (`enable_gqa` for minitron-4b's groups of 3), compiled
+    `flex_attention` with them (`flex_library`), itself held to the plain
+    version first. Under a softcap q is scaled by S2_SOFTCAP_Q_SCALE so
+    the logits reach the cap; a control then holds the kernel against
+    the plain version without the softcap, and where the window bites
+    without the window, and requires each to miss the bar."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention.ops import multi_head_attention
 
+    def max_err(out, ref) -> float:
+        return (out.float() - ref.float()).abs().max().item()
+
     rows = []
     for label, b, hq, hkv, s, d, window, cap in S2_ATTN_CASES:
         q, k, v = attn_inputs(b, hq, hkv, s, d, torch.bfloat16, s + hq)
+        if cap is not None:
+            q = q * S2_SOFTCAP_Q_SCALE
         scale = d ** -0.5
         kw = {"scale": scale, "window": window, "softcap": cap}
         ker = multi_head_attention(q, k, v, impl="kernel", **kw)
         ref = multi_head_attention(q, k, v, impl="ref", **kw)
-        torch.cuda.synchronize()
-        err = (ker.float() - ref.float()).abs().max().item()
+        err = max_err(ker, ref)
         ok = bool(torch.isfinite(ker.float()).all()) and err <= S2_BF16_BAR
-        del ker, ref
+        controls = {}
+        if cap is not None:
+            controls["softcap"] = {**kw, "softcap": None}
+        if window is not None and window < s:
+            controls["window"] = {**kw, "window": None}
+        for name, ckw in controls.items():
+            controls[name] = max_err(ker, multi_head_attention(
+                q, k, v, impl="ref", **ckw))
+            ok = ok and controls[name] > S2_BF16_BAR
+        lib_ms, lib_note, lib_err = None, None, None
         reps = 5 if s > 4096 else 20
+        if cap is None and window is None:
+            gqa = {"enable_gqa": True} if hkv != hq else {}
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, scale=scale, **gqa)
+            lib_note = "SDPA" + (" (enable_gqa)" if gqa else "")
+        else:
+            lib, compile_s = flex_library(q, k, v, scale, window, cap)
+            lib_note = (f"flex_attention compiled ({compile_s:.1f} s to "
+                        "its first result)")
+        lib_err = max_err(lib(), ref)
+        ok = ok and lib_err <= S2_BF16_BAR
+        del ker, ref
         ker_ms = cuda_ms(lambda: multi_head_attention(q, k, v, impl="kernel",
                                                       **kw), reps)
         plain_ms = cuda_ms(lambda: multi_head_attention(q, k, v, impl="ref",
                                                         **kw), 2, warmup=1)
-        lib_ms, lib_note = None, "none: a softcap or window"
-        if cap is None and window is None:
-            gqa = {"enable_gqa": True} if hkv != hq else {}
-            try:
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, scale=scale, **gqa), reps)
-                lib_note = "SDPA" + (" (enable_gqa)" if gqa else "")
-            except TypeError as e:  # a torch without enable_gqa
-                lib_note = f"none: {e}"
-        bound, bound_by = s2_attention_bound(b, hq, hkv, s, d, window)
+        lib_ms = cuda_ms(lib, reps)
+        bound, bound_by = attention_bound(b, hq, s, d, "bfloat16", hkv=hkv,
+                                          window=window)
         flops = 4.0 * b * hq * d * live_pairs(s, window)
         row = {"case": label, "shape": [b, hq, s, d], "kv_heads": hkv,
                "window": window, "softcap": cap, "dtype": "bfloat16",
-               "max_abs_err": err, "ms": ker_ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "library": lib_note,
+               "q_scale": S2_SOFTCAP_Q_SCALE if cap is not None else 1.0,
+               "max_abs_err": err, "controls_max_abs_err": controls,
+               "ms": ker_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": lib_note, "library_max_abs_err": lib_err,
                "bound_ms": bound, "bound_by": bound_by, "gflop": flops / 1e9,
                "tflops": flops / (ker_ms * 1e-3) / 1e12}
+        ctl = "".join(f"; control: kernel vs plain without the {n} "
+                      f"{e:.3e} (must miss the bar)"
+                      for n, e in controls.items())
         log(f"serve S2 (a) K2 {label} q({b}, {hq}, {s}, {d}) kv heads {hkv} "
-            f"window {window} softcap {cap}: kernel vs plain max_abs_err "
-            f"{err:.3e} (atol {S2_BF16_BAR}) {'ok' if ok else 'FAIL'}; "
-            f"kernel {ker_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{lib_ms} ms ({lib_note}), bound {bound:.4f} ms ({bound_by}, "
+            f"window {window} softcap {cap} q scale {row['q_scale']}: "
+            f"kernel vs plain max_abs_err {err:.3e} (atol {S2_BF16_BAR})"
+            f"{ctl}; {lib_note} vs plain {lib_err:.3e}; "
+            f"{'ok' if ok else 'FAIL'}; kernel {ker_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+            f"({ker_ms / lib_ms:.2f}x), bound {bound:.4f} ms ({bound_by}, "
             f"{flops / 1e9:.1f} GFLOP), {bound / ker_ms:.1%} of the bound, "
             f"{row['tflops']:.1f} TFLOP/s")
         if not ok:
-            raise AssertionError(f"K2 disagrees with its plain version at "
-                                 f"{label}")
+            raise AssertionError(f"K2 at {label}: the kernel, a control or "
+                                 "the library call fails its check")
         rows.append(row)
-        del q, k, v
+        del q, k, v, lib
         torch.cuda.empty_cache()
     return rows
 
@@ -3249,7 +3313,10 @@ def check_s2_card_vs_cpu(attn_ops) -> dict:
     """(e) Each reduced S2 model (and gemma-7b with qk-norm) in f32, from
     one CPU initialization: prefill past the reduced window and decode
     steps on the card (K2's f32 kernel) against the CPU (the plain
-    version, which the CPU tests hold to the JAX reference)."""
+    version, which the CPU tests hold to the JAX reference), and on the
+    card the first decode against a prefill one token longer: the
+    prompt of 24 is past the window of 16 and not a multiple of it, so
+    this reads the ring buffer as prefill placed it."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -3284,17 +3351,25 @@ def check_s2_card_vs_cpu(attn_ops) -> dict:
             runs[dev] = seq
             if dev == "cuda":
                 launches = attn_ops.launch_count
+                longer, _ = model.prefill(
+                    params, {"tokens": t[:, :S2_CPU_PROMPT + 1]}, max_len)
+                ring = _rel_to_max(seq[1], longer.cpu())
         for a, b in zip(runs["cuda"], runs["cpu"]):
             worst = max(worst, _rel_to_max(a, b))
-        ok = worst <= S2_CPU_BAR and launches == cfg.n_layers
+        ok = (worst <= S2_CPU_BAR and ring <= S2_CPU_BAR
+              and launches == cfg.n_layers)
         log(f"serve S2 (e) reduced {name} f32: card vs CPU logits over the "
             f"prefill ({S2_CPU_PROMPT} tokens, window "
             f"{cfg.sliding_window}) and {S2_CPU_STEPS} decode steps "
-            f"{worst:.3e} of the largest (bar {S2_CPU_BAR}); K2 {launches} "
-            f"launches on the card {'ok' if ok else 'FAIL'}")
+            f"{worst:.3e} of the largest; on the card prefill("
+            f"{S2_CPU_PROMPT}) + decode vs prefill({S2_CPU_PROMPT + 1}) "
+            f"{ring:.3e} (the prompt past the window and not a multiple "
+            f"of it); bar {S2_CPU_BAR}; K2 {launches} launches on the card "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"serve S2 card vs CPU {name}")
-        out[name] = worst
+        out[name] = {"card_vs_cpu": worst,
+                     "decode_vs_longer_prefill": ring}
     return out
 
 
@@ -3305,7 +3380,8 @@ def serve_s2(attn_ops) -> tuple:
     32- and 2048-token prompts and 32 new tokens (gemma2-9b also at B = 1
     with its 8,192-token context), K2 n_layers launches a generate; (c)
     the kernel route against the plain route and prefill(S) + decode
-    against prefill(S + 1) at BF16_LOGIT_BAR; (d) prefill and decode ms,
+    against prefill(S + 1) at BF16_LOGIT_BAR, gemma2-9b also at B = 1
+    with S2_UNALIGNED_PROMPT tokens; (d) prefill and decode ms,
     launches, device busy time and idle share, K2's device ms inside the
     prefill; then (e) the reduced models on the card against the CPU.
     Returns (K2 launches by run, the record)."""
@@ -3345,6 +3421,10 @@ def serve_s2(attn_ops) -> tuple:
                     raise AssertionError(
                         f"{arch} {key}: {k2} K2 kernels in a profiled "
                         f"prefill, expected {model.cfg.n_layers}")
+        if model.cfg.sliding_window:
+            rows[f"B=1 prompt {S2_UNALIGNED_PROMPT} (c)"] = \
+                check_serve_routes(model, params, (S2_UNALIGNED_PROMPT,),
+                                   1)[S2_UNALIGNED_PROMPT]
         record["models"][arch] = {"init": init, **rows}
         del model, params
         torch.cuda.empty_cache()

@@ -178,9 +178,12 @@ def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     """x (B, S, D) -> (out (B, S, D), cache), attending over the sliding
     `window` when one is given. With a cache and S == 1 this is a decode
     step at `decode_pos`; otherwise a prefill, which writes the last
-    min(S, cache_len) keys and values into cache slots 0.. when a cache
-    is given, as the reference does. `impl` selects the prefill attention
-    as in `sdpa`."""
+    min(S, cache_len) keys and values into the cache when one is given,
+    position p in slot p mod cache_len, where decode's ring buffer
+    (`cache_write`) keeps it. (The reference writes them into slots 0..
+    in order, which places a windowed ring's keys where decode does not
+    expect them when S > window and S mod window != 0.) `impl` selects
+    the prefill attention as in `sdpa`."""
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -200,9 +203,16 @@ def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         if cache is not None:  # prefill into the cache
             cache_len = cache["k"].shape[-2]
             take = min(s, cache_len)
-            cache["k"][:, :, :take] = k[:, :, s - take:]
-            cache["v"][:, :, :take] = v[:, :, s - take:]
-            cache["pos_ids"][:take] = positions[s - take:]
+            # prefill's positions are 0..S-1: the first one kept,
+            # S - take, belongs in slot (S - take) mod cache_len
+            shift = (s - take) % cache_len
+
+            def ring(t: torch.Tensor, dim: int) -> torch.Tensor:
+                return torch.roll(t, shift, dim) if shift else t
+
+            cache["k"][:, :, :take] = ring(k[:, :, s - take:], 2)
+            cache["v"][:, :, :take] = ring(v[:, :, s - take:], 2)
+            cache["pos_ids"][:take] = ring(positions[s - take:], 0)
             cache["pos_ids"][take:] = -1
     out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return out @ p["wo"], cache

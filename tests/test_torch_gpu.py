@@ -330,19 +330,51 @@ def _attn_pair(q, k, v, kw):
 # the reference's bars (tests/test_kernels.py): (atol, rtol) per dtype
 ATTN_BARS = {torch.float32: (5e-5, 1e-4), torch.bfloat16: (3e-2, 0.0)}
 
+# K2 at the S2 serving shapes, bf16 (B, Hq, Hkv, S, d, kw): gemma2-9b's
+# local layers at 2048 and 8,192 tokens and its global layers at 8,192,
+# gemma-7b, minitron-4b
+S2_ATTN_SHAPES = [(4, 16, 8, 2048, 256, {"window": 4096, "softcap": 50.0}),
+                  (1, 16, 8, 8192, 256, {"window": 4096, "softcap": 50.0}),
+                  (1, 16, 8, 8192, 256, {"softcap": 50.0}),
+                  (4, 16, 16, 2048, 256, {}),
+                  (4, 24, 8, 2048, 128, {})]
+# q's scale at the S2 softcap shapes: with randn q and k the scaled logits
+# stay within about ±5, where the softcap of 50 moves them by < 0.01; at
+# 10 times that they reach the cap, and the controls below show it
+S2_SOFTCAP_Q_SCALE = 10.0
+ATTN_CASES = [(dtype, *shape, 1.0) for shape in ATTN_TEST_SHAPES
+              for dtype in (torch.float32, torch.bfloat16)] + [
+    (torch.bfloat16, *shape,
+     S2_SOFTCAP_Q_SCALE if "softcap" in shape[-1] else 1.0)
+    for shape in S2_ATTN_SHAPES]
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hq,hkv,s,d,kw", ATTN_TEST_SHAPES)
+
+@pytest.mark.parametrize("dtype,b,hq,hkv,s,d,kw,q_scale", ATTN_CASES)
 def test_attention_kernel_matches_plain_version(cuda, b, hq, hkv, s, d, kw,
-                                                dtype):
+                                                dtype, q_scale):
     """f32 runs on the CUDA-core kernel, bf16 on the Hopper kernel
-    (wgmma, TMA); both at every reference case."""
+    (wgmma, TMA); both at every reference case, and bf16 at the S2
+    serving shapes. Where q is scaled so the logits reach the softcap,
+    controls require the kernel to miss the bar against the plain
+    version without the softcap, and without the window where it
+    bites."""
     q, k, v = _qkv(b, hq, hkv, s, d, dtype, s + d, cuda)
+    q = q * q_scale
     out, ref = _attn_pair(q, k, v, kw)
-    print(f"{dtype} {(b, hq, hkv, s, d)} {kw}: max abs error "
+    print(f"{dtype} {(b, hq, hkv, s, d)} {kw} q x{q_scale}: max abs error "
           f"{(out - ref).abs().max().item():.3e}")
     atol, rtol = ATTN_BARS[dtype]
     torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+    if q_scale == 1.0:
+        return
+    del ref
+    for name in ("softcap", "window"):
+        if kw.get(name) is not None and (name == "softcap" or kw[name] < s):
+            ctl = multi_head_attention(q, k, v, scale=d ** -0.5, impl="ref",
+                                       **{**kw, name: None})
+            gap = (out - ctl.float()).abs().max().item()
+            print(f"  control without the {name}: {gap:.3e}")
+            assert gap > atol, name
 
 
 def test_attention_kernel_bf16(cuda):
@@ -944,24 +976,6 @@ def test_rbg_normals_on_the_card_match_the_cpus(cuda):
                                rtol=0)
     card = rng.normal(k.to(cuda), (4099,), dtype=torch.bfloat16).cpu()
     assert torch.equal(card, rng.normal(k, (4099,), dtype=torch.bfloat16))
-
-
-# ----------------------------------------------- K2 at the S2 serving shapes
-
-# (B, Hq, Hkv, S, d, window, softcap): gemma2-9b's local layers at 2048
-# and 8,192 tokens and its global layers at 8,192, gemma-7b, minitron-4b
-S2_ATTN_SHAPES = [(4, 16, 8, 2048, 256, 4096, 50.0),
-                  (1, 16, 8, 8192, 256, 4096, 50.0),
-                  (1, 16, 8, 8192, 256, None, 50.0),
-                  (4, 16, 16, 2048, 256, None, None),
-                  (4, 24, 8, 2048, 128, None, None)]
-
-
-@pytest.mark.parametrize("b,hq,hkv,s,d,window,cap", S2_ATTN_SHAPES)
-def test_attention_kernel_at_s2_shapes(cuda, b, hq, hkv, s, d, window, cap):
-    q, k, v = _qkv(b, hq, hkv, s, d, torch.bfloat16, s + hq, cuda)
-    out, ref = _attn_pair(q, k, v, {"window": window, "softcap": cap})
-    torch.testing.assert_close(out, ref, atol=3e-2, rtol=0)
 
 
 # ----------------------------------------------------- execution plans (P8, P9)

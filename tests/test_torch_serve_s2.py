@@ -12,8 +12,12 @@ blockwise jnp path.
 
 * Prefill at 24 tokens, longer than the window, so local and global
   layers differ; the whole cache (each sublayer's k, v and pos_ids, the
-  local ones a 16-slot ring buffer); then decode steps, each reading the
-  ring the step before wrote.
+  local ones a 16-slot ring buffer with position p in slot p mod 16,
+  held to the reference's cache moved into that layout, since the
+  reference's prefill keeps them in order: ROADMAP §3 F14); then decode
+  steps, each reading the ring the step before wrote.
+* prefill(s) + decode against prefill(s + 1), within, past and two
+  windows past the window.
 * A 12-token prompt decoded past position 16, so the window starts to
   mask the oldest keys in decode.
 * A cache exactly as long as the prompt, so the next decode wraps the
@@ -120,11 +124,32 @@ def _assert_cache(cache, jcache, bf16=False):
                                       np.asarray(jkv["pos_ids"]))
 
 
+def _ring_aligned(jcache, s: int):
+    """The reference's cache after a prefill of `s` positions with each
+    kept position p moved to slot p mod cache_len, where its decode step
+    reads and writes the ring, as the port's prefill places it. The
+    reference keeps them in slots 0.. in order, which differs when s
+    exceeds a windowed buffer and is not a multiple of it (ROADMAP §3
+    F14)."""
+    def align(kv):
+        n = kv["pos_ids"].shape[-1]
+        shift = (s - min(s, n)) % n
+        return {**kv, "k": jnp.roll(kv["k"], shift, axis=-2),
+                "v": jnp.roll(kv["v"], shift, axis=-2),
+                "pos_ids": jnp.roll(kv["pos_ids"], shift, axis=-1)}
+
+    return {seg: {sub: {**c, "kv": align(c["kv"])}
+                  for sub, c in subs.items()}
+            for seg, subs in jcache.items()}
+
+
 def _serve_both(jm, jparams, m, params, prompt, max_len, steps, bf16=False):
     """Prefill `prompt` and decode `steps` greedy tokens in both, holding
-    logits and the whole cache after each call."""
+    logits and the whole cache after each call; the reference decodes
+    from its prefill's cache in the ring's layout (`_ring_aligned`)."""
     jlogits, jcache = jm.prefill(jparams, {"tokens": jnp.asarray(prompt)},
                                  max_len=max_len)
+    jcache = _ring_aligned(jcache, prompt.shape[1])
     logits, cache = m.prefill(params, {"tokens": torch.from_numpy(prompt)},
                               max_len)
     _assert_close(logits, jlogits, bf16, "prefill logits")
@@ -174,27 +199,51 @@ def test_decode_wraps_a_full_cache_as_the_reference(pair):
 
 
 def test_prefill_past_an_unaligned_window_misplaces_the_ring():
-    """ROADMAP §3 F14, shared with the reference: a prefill of S > window
-    positions with S mod window != 0 writes its last `window` keys into
-    slots 0.. (position S - window in slot 0), where decode's ring expects
-    position p in slot p mod window. The next decode then overwrites a
-    live key, so prefill(S) + decode differs from prefill(S + 1) — in the
-    reference and in the port alike, by the same logits."""
+    """ROADMAP §3 F14, in the reference and repaired in the port: a
+    prefill of S > window positions with S mod window != 0. The
+    reference writes its last `window` keys into slots 0.. (position
+    S - window in slot 0), where its decode expects position p in slot
+    p mod window, so its next decode overwrites a live key and
+    prefill(S) + decode differs from prefill(S + 1). The port places
+    each key in its ring slot: its prefill(S) + decode equals its
+    prefill(S + 1) and the reference's decode from the aligned cache."""
     jm, jparams, m, params = _pair("gemma2-9b")
     toks = _tokens(m.cfg.vocab_size, (B, S + 1), seed=8)
     _, cache = m.prefill(params, {"tokens": torch.from_numpy(toks[:, :S])},
                          S + 1)
     local = cache["seg0"]["sub0"]["kv"]["pos_ids"][0]
-    assert local.tolist() == list(range(S - WINDOW, S))  # not p mod 16
+    assert [p % WINDOW for p in local.tolist()] == list(range(WINDOW))
+    assert sorted(local.tolist()) == list(range(S - WINDOW, S))
     inc, _ = m.decode_step(params, cache, torch.from_numpy(toks[:, S]), S)
     full, _ = m.prefill(params, {"tokens": torch.from_numpy(toks)}, S + 1)
+    np.testing.assert_allclose(inc.numpy(), full.numpy(), atol=ATOL,
+                               rtol=RTOL)
     _, jcache = jm.prefill(jparams, {"tokens": jnp.asarray(toks[:, :S])},
                            max_len=S + 1)
-    jinc, _ = jm.decode_step(jparams, jcache, jnp.asarray(toks[:, S]),
-                             jnp.asarray(S, jnp.int32))
-    gap = float((inc - full).abs().max() / full.abs().max())
-    assert gap > 1e-2, gap  # the fault shows
-    np.testing.assert_allclose(inc.numpy(), np.asarray(jinc), atol=ATOL,
+    jlocal = np.asarray(jcache["seg0"]["sub0"]["kv"]["pos_ids"][0])
+    assert jlocal.tolist() == list(range(S - WINDOW, S))  # not p mod 16
+    jtok, jpos = jnp.asarray(toks[:, S]), jnp.asarray(S, jnp.int32)
+    jinc, _ = jm.decode_step(jparams, jcache, jtok, jpos)
+    gap = float(np.max(np.abs(np.asarray(jinc) - full.numpy()))
+                / np.max(np.abs(full.numpy())))
+    assert gap > 1e-2, gap  # the reference's fault shows
+    jaligned, _ = jm.decode_step(jparams, _ring_aligned(jcache, S), jtok,
+                                 jpos)
+    np.testing.assert_allclose(inc.numpy(), np.asarray(jaligned), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("s", [20, 24, 33])
+def test_decode_after_a_prefill_equals_a_longer_prefill(pair, s):
+    """prefill(s) + decode of the token at s gives prefill(s + 1)'s
+    logits, whether s is within the window, past it unaligned, or past
+    two windows: every layer's ring holds the keys its decode reads."""
+    _, _, m, params = pair
+    toks = torch.from_numpy(_tokens(m.cfg.vocab_size, (B, s + 1), seed=9))
+    _, cache = m.prefill(params, {"tokens": toks[:, :s]}, s + 1)
+    inc, _ = m.decode_step(params, cache, toks[:, s], s)
+    full, _ = m.prefill(params, {"tokens": toks}, s + 1)
+    np.testing.assert_allclose(inc.numpy(), full.numpy(), atol=ATOL,
                                rtol=RTOL)
 
 
