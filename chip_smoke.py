@@ -68,7 +68,7 @@ drives the port's main paths:
   log-sum-exp against its plain version (and its output bits unchanged
   without it), `flash_attention`'s gradients against `full_attention`'s
   autograd, the training launcher at its defaults, and repro-100m at
-  full width and depth trained 4 steps on the fused gbma route and
+  full width and depth trained 3 steps on the fused gbma route and
   through the transport (gbma, receiver momentum): K2 in every forward,
   K1 in every slot, the kernel route held to the plain route, each
   step timed whole and by part with its peak memory, and the card held
@@ -82,7 +82,7 @@ drives the port's main paths:
   shape; the hand-written WKV backward against the plain backward and
   timed at rwkv6-7b's training shape and a transport node's; the launcher
   on olmo-1b; olmo-1b at full width and
-  depth and rwkv6-7b at full width with 4 of its 32 layers, in bf16, 4
+  depth and rwkv6-7b at full width with 4 of its 32 layers, in bf16, 3
   steps each on the fused gbma route and through the transport (gbma,
   receiver momentum): K2 in every olmo-1b forward, K3 and the backward in
   every rwkv6-7b layer, K1 in every slot, each step timed whole and by
@@ -100,7 +100,28 @@ drives the port's main paths:
   2048-token prompts; gemma2-9b also at B = 1 over its 8,192-token
   context), with the kernel route held to the plain route, decode held
   to prefill and each prefill and decode step timed and profiled; and
-  the reduced models on the card against the CPU.
+  the reduced models on the card against the CPU;
+* the int8 KV cache and head padding ("serve S3"): gemma-7b at full
+  width and depth in bf16 with `opt_int8_cache=True` (B = 4, a
+  2,048-token prompt, 32 new tokens) through `Engine.generate`; its
+  prefill and decode logits held, in the same weights upcast to f32, to
+  the f32 cache's at the reference's bars (0.05, 0.08), in bf16 to the
+  f32 model no farther than twice the bf16 cache's, with the first
+  greedy token equal; both caches' bytes, the decode step of each timed
+  and profiled, and `opt_pad_heads=True` bit for bit the unpadded
+  logits;
+* hymba-1.5b, whisper-small and pixtral-12b ("serve S6-S7"): K2 at their
+  shapes (groups of 5 at head_dim 64 under a 1,024-token window, a
+  non-causal f32 encoder over 1,500 frames, groups of 4 over 3,072
+  positions) against its plain version and timed beside its bound and
+  the library call; each model at full width and depth in bf16 (B = 4;
+  hymba at 32- and 2048-token prompts after its 128 meta tokens,
+  whisper over 1,500 frames at 32 and 448, pixtral after 1,024 patches
+  at 32 and 2048; 32 new tokens) through `Engine.generate`, the kernel
+  route held to the plain route, decode held to prefill, each prefill
+  and decode step timed and profiled, pixtral's initialization peak,
+  hymba's selective scan timed; and the reduced models on the card
+  against the CPU.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Any failed phase raises, so the script exits
@@ -1387,16 +1408,18 @@ def step_profile(cases: dict) -> dict:
     for name, (run, n, dim, trajectories) in cases.items():
         run(4)  # warm-up: kernel build, allocator, cuBLAS handles
         walls = {}
-        for steps in (10, 60, 10, 60):
+        # 10 and 40 steps (cut from 10 and 60 to keep the script inside
+        # its 1,200 s time limit)
+        for steps in (10, 40, 10, 40):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(steps)
             walls.setdefault(steps, []).append(time.perf_counter() - t0)
         # short profiled runs: the profiler adds ~0.5 ms a launch, and a
-        # step's launch count is the same at any length
-        lo, hi = (_profile_counts(lambda s=s: run(s)) for s in (2, 6))
-        per = {k: (hi[k] - lo[k]) / 4 for k in lo}
-        wall_ms = (min(walls[60]) - min(walls[10])) / 50 * 1e3
+        # step's launch count is the same at any length (1 and 2 steps)
+        lo, hi = (_profile_counts(lambda s=s: run(s)) for s in (1, 2))
+        per = {k: hi[k] - lo[k] for k in lo}
+        wall_ms = (min(walls[40]) - min(walls[10])) / 30 * 1e3
         busy_ms = per["device_us"] / 1e3
         out[name] = {
             "n": n, "dim": dim, "trajectories": trajectories,
@@ -2471,15 +2494,19 @@ def f32_sass_summary(info) -> dict:
     return out
 
 
-def live_pairs(s: int, window=None) -> int:
+def live_pairs(s: int, window=None, causal: bool = True) -> int:
     """(query, key) pairs a causal self-attention over `s` positions
-    computes, each query seeing at most `window` keys."""
+    computes, each query seeing at most `window` keys; s² without the
+    causal mask."""
+    if not causal:
+        return s * s
     if window is None or window >= s:
         return s * (s + 1) // 2
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def attention_bound(b, h, s, d, dtype_name, hkv=None, window=None) -> tuple:
+def attention_bound(b, h, s, d, dtype_name, hkv=None, window=None,
+                    causal: bool = True) -> tuple:
     """(least ms, what bounds it) for one causal self-attention call: q
     and o at `h` heads and k, v at `hkv` (default `h`) heads moved once,
     against 4·d flops (the QKᵀ and PV products) for each live (query,
@@ -2489,7 +2516,7 @@ def attention_bound(b, h, s, d, dtype_name, hkv=None, window=None) -> tuple:
     tanh is not counted."""
     elt = 2 if dtype_name == "bfloat16" else 4
     nbytes = elt * b * s * d * (2 * h + 2 * (hkv or h))
-    flops = 4.0 * b * h * d * live_pairs(s, window)
+    flops = 4.0 * b * h * d * live_pairs(s, window, causal)
     peak = BF16_FLOPS_PER_S if dtype_name == "bfloat16" else F32_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -2860,39 +2887,68 @@ def _prompt(vocab: int, s: int, seed: int = 1, batch: int = SERVE_BATCH):
                          device="cuda")
 
 
+def _serve_batch(cfg, s: int, seed: int = 1, batch: int = SERVE_BATCH,
+                 device: str = "cuda") -> dict:
+    """A prompt of `s` token ids (`_prompt` on the card) and, where the
+    model takes them, f32 standard-normal frames (B, enc_seq, D) or
+    patch embeddings (B, n_patches, D) from a generator seeded `seed` +
+    100, as the launcher draws them in f32."""
+    import torch
+
+    if device == "cuda":
+        out = {"tokens": _prompt(cfg.vocab_size, s, seed, batch)}
+    else:
+        gen = torch.Generator().manual_seed(seed)
+        out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, s),
+                                       generator=gen)}
+    gen = torch.Generator(device=device).manual_seed(seed + 100)
+    if cfg.n_patches:
+        out["patch_embed"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                         generator=gen, device=device)
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                    generator=gen, device=device)
+    return out
+
+
+def _prefix(cfg) -> int:
+    """Positions before the prompt: the VLM's patches, hymba's meta
+    tokens."""
+    return (cfg.n_patches or 0) + (cfg.meta_tokens or 0)
+
+
 def _rel_to_max(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
 def run_serve_main_path(ops, model, params, *, kernel: str,
                         per_generate: int, prompts: tuple = SERVE_PROMPTS,
-                        batch: int = SERVE_BATCH,
-                        profile: bool = True) -> dict:
+                        batch: int = SERVE_BATCH) -> dict:
     """`model` served by `Engine.generate` at each prompt length, after
-    one untimed warm-up run: the kernel's launch count (`ops`) is set to 0
-    before and read after the timed run and must be `per_generate`, and
-    the tokens are checked to lie in the vocabulary. With `profile`, a
-    further run under torch.profiler counts launches, syncs, copies and
-    device busy time (idle share against the timed run's wall); the S2
-    models skip it (~150,000 launches a gemma2-9b `generate`, over a
-    minute under the profiler), and `serve_timing` profiles their
-    prefill and one decode step instead."""
+    an untimed warm-up run of 2 new tokens: the kernel's launch count
+    (`ops`) is set to 0 before and read after the timed run and must be
+    `per_generate`, and the tokens are checked to lie in the vocabulary.
+    `serve_timing` profiles a prefill and one decode step (a whole
+    `generate` under torch.profiler took up to a minute, so none is
+    profiled whole)."""
     import torch
 
     from repro_torch.serving.engine import Engine, ServeConfig
 
     cfg = model.cfg
     eng = Engine(model, params, ServeConfig(max_new_tokens=SERVE_NEW_TOKENS))
+    warm = Engine(model, params, ServeConfig(max_new_tokens=2))
     out = {}
     for s in prompts:
-        tokens = _prompt(cfg.vocab_size, s, batch=batch)
-        # warm-up at this prompt length (cuBLAS plans, allocator growth),
-        # so the timed run below is the steady state
-        eng.generate({"tokens": tokens})
+        inputs = _serve_batch(cfg, s, batch=batch)
+        # warm-up at this prompt length (cuBLAS plans for the prefill and
+        # the decode step, the cache's allocation), so the timed run
+        # below is the steady state
+        warm.generate(inputs)
         torch.cuda.synchronize()
         ops.launch_count = 0
         t0 = time.perf_counter()
-        gen = eng.generate({"tokens": tokens})
+        gen = eng.generate(inputs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ops.launch_count
@@ -2910,54 +2966,48 @@ def run_serve_main_path(ops, model, params, *, kernel: str,
             raise AssertionError("generated ids out of shape or vocabulary")
         out[s] = {"wall_s": wall, "launches": launches,
                   "tok_per_s": batch * SERVE_NEW_TOKENS / wall}
-        if not profile:
-            continue
-        prof = _profile_counts(lambda: eng.generate({"tokens": tokens}),
-                               kernel=kernel)
-        busy = prof["device_us"] / 1e6
-        out[s]["generate_profile"] = {
-            "launches": prof["launches"], "syncs": prof["syncs"],
-            "memcpy": prof["memcpy"], "device_busy_s": busy,
-            "device_idle_share": 1.0 - busy / wall}
-        log(f"serve {cfg.arch_id} prompt={s} generate profile: "
-            f"{json.dumps(out[s]['generate_profile'])}")
     return out
 
 
 def check_serve_routes(model, params, prompts: tuple = SERVE_PROMPTS,
-                       batch: int = SERVE_BATCH) -> dict:
-    """A dense decoder in bf16 (olmo-1b; the S2 models) at each prompt
-    length: prefill logits finite and within the bar between the kernel
-    route and the plain route, and prefill(S) + one decode step against
-    prefill(S + 1)."""
+                       batch: int = SERVE_BATCH, plain: bool = True) -> dict:
+    """A model in bf16 (olmo-1b; the S2, S6 and S7 models) at each prompt
+    length: prefill logits finite and (with `plain`) within the bar
+    between the kernel route and the plain route, and prefill(S) + one
+    decode step (at S plus the patches and meta tokens before the
+    prompt) against prefill(S + 1)."""
     import torch
 
     cfg = model.cfg
-    plain, _ = _serve_model(cfg.arch_id, params, impl="ref")
+    ref_model = _serve_model(cfg.arch_id, params, impl="ref")[0] \
+        if plain else None
     out = {}
     for s in prompts:
-        tokens = _prompt(cfg.vocab_size, s + 1, seed=2, batch=batch)
-        ker_logits, cache = model.prefill(params, {"tokens": tokens[:, :s]},
-                                          s + 1)
-        ref_logits, _ = plain.prefill(params, {"tokens": tokens[:, :s]},
-                                      s + 1)
+        full_in = _serve_batch(cfg, s + 1, seed=2, batch=batch)
+        head = {**full_in, "tokens": full_in["tokens"][:, :s]}
+        ker_logits, cache = model.prefill(params, head, s + 1)
         finite = bool(torch.isfinite(ker_logits).all())
-        routes = _rel_to_max(ker_logits, ref_logits)
-        inc, _ = model.decode_step(params, cache, tokens[:, s], s)
-        full, _ = model.prefill(params, {"tokens": tokens}, s + 1)
-        decode = _rel_to_max(inc, full)
-        agree = (ker_logits.argmax(-1) == ref_logits.argmax(-1)).sum().item()
+        row, msg = {}, ""
+        if plain:
+            ref_logits, _ = ref_model.prefill(params, head, s + 1)
+            row["routes_rel"] = _rel_to_max(ker_logits, ref_logits)
+            agree = (ker_logits.argmax(-1)
+                     == ref_logits.argmax(-1)).sum().item()
+            msg = (f"kernel vs plain route max|diff|/max|logit| "
+                   f"{row['routes_rel']:.3e} (bar {BF16_LOGIT_BAR}), argmax "
+                   f"agree {agree}/{batch}; ")
+        inc, _ = model.decode_step(params, cache, full_in["tokens"][:, s],
+                                   s + _prefix(cfg))
+        full, _ = model.prefill(params, full_in, s + 1)
+        row["decode_rel"] = _rel_to_max(inc, full)
         log(f"serve {cfg.arch_id} prompt={s}: logits finite {finite}, "
-            f"max |logit| {ref_logits.abs().max().item():.4f}; kernel vs "
-            f"plain route max|diff|/max|logit| {routes:.3e} (bar "
-            f"{BF16_LOGIT_BAR}), argmax agree {agree}/{batch}; "
-            f"prefill({s})+decode vs prefill({s + 1}) {decode:.3e} (bar "
-            f"{BF16_LOGIT_BAR})")
-        if not (finite and routes <= BF16_LOGIT_BAR
-                and decode <= BF16_LOGIT_BAR):
+            f"max |logit| {full.abs().max().item():.4f}; {msg}"
+            f"prefill({s})+decode vs prefill({s + 1}) "
+            f"{row['decode_rel']:.3e} (bar {BF16_LOGIT_BAR})")
+        if not (finite and all(v <= BF16_LOGIT_BAR for v in row.values())):
             raise AssertionError(f"serve {cfg.arch_id} prompt={s}: route "
                                  "or decode consistency check failed")
-        out[s] = {"routes_rel": routes, "decode_rel": decode}
+        out[s] = row
     return out
 
 
@@ -3116,17 +3166,17 @@ def serve_timing(model, params, kernel: str,
 
     out = {}
     for s in prompts:
-        tokens = _prompt(model.cfg.vocab_size, s, batch=batch)
+        inputs = _serve_batch(model.cfg, s, batch=batch)
         max_len = s + SERVE_NEW_TOKENS
-        tok = tokens[:, -1]
+        tok = inputs["tokens"][:, -1]
 
         def prefill():
-            return model.prefill(params, {"tokens": tokens}, max_len)
+            return model.prefill(params, inputs, max_len)
 
         _, cache = prefill()
 
         def decode():
-            model.decode_step(params, cache, tok, s)
+            model.decode_step(params, cache, tok, s + _prefix(model.cfg))
 
         pre_ms, dec_ms = _best_ms(prefill), _best_ms(decode)
         prof = {name: _profile_counts(fn, kernel=kernel)
@@ -3159,18 +3209,24 @@ S2_LONG_PROMPT = 8192
 # and at B = 1 a prompt past the window and not a multiple of it, whose
 # prefill must place each key in its ring slot for decode (c only)
 S2_UNALIGNED_PROMPT = 5000
-# K2's shapes on the S2 path (label, B, Hq, Hkv, S, d, window, softcap):
-# gemma2-9b's local layers at the 2048-token prompt (the window is passed
-# and does not bite), its local and global layers at 8,192 tokens,
-# gemma-7b (MHA) and minitron-4b (groups of 3) at 2048
+# K2's shapes on the S2 path (label, dtype, B, Hq, Hkv, S, d, causal,
+# window, softcap): gemma2-9b's local layers at the 2048-token prompt (the
+# window is passed and does not bite), its local and global layers at
+# 8,192 tokens, gemma-7b (MHA) and minitron-4b (groups of 3) at 2048
 S2_ATTN_CASES = (
-    ("gemma2-9b local, prompt 2048", 4, 16, 8, 2048, 256, 4096, 50.0),
-    ("gemma2-9b local, prompt 8192", 1, 16, 8, 8192, 256, 4096, 50.0),
-    ("gemma2-9b global, prompt 8192", 1, 16, 8, 8192, 256, None, 50.0),
-    ("gemma-7b, prompt 2048", 4, 16, 16, 2048, 256, None, None),
-    ("minitron-4b, prompt 2048", 4, 24, 8, 2048, 128, None, None),
+    ("gemma2-9b local, prompt 2048", "bfloat16", 4, 16, 8, 2048, 256, True,
+     4096, 50.0),
+    ("gemma2-9b local, prompt 8192", "bfloat16", 1, 16, 8, 8192, 256, True,
+     4096, 50.0),
+    ("gemma2-9b global, prompt 8192", "bfloat16", 1, 16, 8, 8192, 256, True,
+     None, 50.0),
+    ("gemma-7b, prompt 2048", "bfloat16", 4, 16, 16, 2048, 256, True, None,
+     None),
+    ("minitron-4b, prompt 2048", "bfloat16", 4, 24, 8, 2048, 128, True,
+     None, None),
 )
-S2_BF16_BAR = 3e-2  # atol, the bf16 kernel's bar
+# K2's bars (atol, rtol) by dtype, the reference's (tests/test_kernels.py)
+ATTN_BARS = {"bfloat16": (3e-2, 0.0), "float32": (5e-5, 1e-4)}
 # q's scale in (a)'s softcap cases: randn q and k give scaled logits of
 # spread 1, within about ±5, where 50·tanh(s/50) moves a logit by < 0.01
 # and a kernel without the softcap would meet the bar; at spread 10 the
@@ -3219,69 +3275,78 @@ def flex_library(q, k, v, scale: float, window, cap) -> tuple:
     return call, time.perf_counter() - t0
 
 
-def check_s2_attention() -> list:
-    """(a) K2's bf16 kernel at each S2 shape against its plain version
-    (atol 3e-2), timed with CUDA events beside its bound, the plain
-    version and the one PyTorch call that computes the same function:
+def check_attention_cases(phase: str, cases: tuple) -> list:
+    """K2 at each case (label, dtype, B, Hq, Hkv, S, d, causal, window,
+    softcap) against its plain version (`ATTN_BARS`: bf16 atol 3e-2, f32
+    atol 5e-5 + rtol 1e-4 |ref|), timed with CUDA events beside its bound
+    (by operations over the live pairs), the plain version and the one
+    PyTorch call that computes the same function:
     `F.scaled_dot_product_attention` without a softcap or window
-    (`enable_gqa` for minitron-4b's groups of 3), compiled
-    `flex_attention` with them (`flex_library`), itself held to the plain
-    version first. Under a softcap q is scaled by S2_SOFTCAP_Q_SCALE so
-    the logits reach the cap; a control then holds the kernel against
-    the plain version without the softcap, and where the window bites
-    without the window, and requires each to miss the bar."""
+    (`enable_gqa` for groups), compiled `flex_attention` with them
+    (`flex_library`), itself held to the plain version first. Under a
+    softcap q is scaled by S2_SOFTCAP_Q_SCALE so the logits reach the
+    cap. Controls hold the kernel against the plain version without the
+    softcap, without the window where it bites, and with the causal mask
+    for a non-causal case; each must miss the bar."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention.ops import multi_head_attention
 
-    def max_err(out, ref) -> float:
-        return (out.float() - ref.float()).abs().max().item()
-
     rows = []
-    for label, b, hq, hkv, s, d, window, cap in S2_ATTN_CASES:
-        q, k, v = attn_inputs(b, hq, hkv, s, d, torch.bfloat16, s + hq)
+    for label, dt, b, hq, hkv, s, d, causal, window, cap in cases:
+        atol, rtol = ATTN_BARS[dt]
+        q, k, v = attn_inputs(b, hq, hkv, s, d, getattr(torch, dt), s + hq)
         if cap is not None:
             q = q * S2_SOFTCAP_Q_SCALE
         scale = d ** -0.5
-        kw = {"scale": scale, "window": window, "softcap": cap}
-        ker = multi_head_attention(q, k, v, impl="kernel", **kw)
-        ref = multi_head_attention(q, k, v, impl="ref", **kw)
-        err = max_err(ker, ref)
-        ok = bool(torch.isfinite(ker.float()).all()) and err <= S2_BF16_BAR
+        kw = {"scale": scale, "causal": causal, "window": window,
+              "softcap": cap}
+        ker = multi_head_attention(q, k, v, impl="kernel", **kw).float()
+        ref = multi_head_attention(q, k, v, impl="ref", **kw).float()
+
+        def excess(out) -> float:
+            return ((out.float() - ref).abs() - rtol * ref.abs()).max().item()
+
+        err = (ker - ref).abs().max().item()
+        ok = bool(torch.isfinite(ker).all()) and excess(ker) <= atol
         controls = {}
         if cap is not None:
             controls["softcap"] = {**kw, "softcap": None}
         if window is not None and window < s:
             controls["window"] = {**kw, "window": None}
+        if not causal:
+            controls["causal mask"] = {**kw, "causal": True}
         for name, ckw in controls.items():
-            controls[name] = max_err(ker, multi_head_attention(
-                q, k, v, impl="ref", **ckw))
-            ok = ok and controls[name] > S2_BF16_BAR
-        lib_ms, lib_note, lib_err = None, None, None
-        reps = 5 if s > 4096 else 20
+            ctl = multi_head_attention(q, k, v, impl="ref", **ckw).float()
+            controls[name] = (ker - ctl).abs().max().item()
+            ok = ok and controls[name] > atol
+            del ctl
         if cap is None and window is None:
             gqa = {"enable_gqa": True} if hkv != hq else {}
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, scale=scale, **gqa)
+                q, k, v, is_causal=causal, scale=scale, **gqa)
             lib_note = "SDPA" + (" (enable_gqa)" if gqa else "")
         else:
             lib, compile_s = flex_library(q, k, v, scale, window, cap)
             lib_note = (f"flex_attention compiled ({compile_s:.1f} s to "
                         "its first result)")
-        lib_err = max_err(lib(), ref)
-        ok = ok and lib_err <= S2_BF16_BAR
-        del ker, ref
+        lib_out = lib()
+        lib_err = (lib_out.float() - ref).abs().max().item()
+        ok = ok and excess(lib_out) <= atol
+        del ker, ref, lib_out
+        reps = 5 if s > 4096 or dt == "float32" else 20
         ker_ms = cuda_ms(lambda: multi_head_attention(q, k, v, impl="kernel",
                                                       **kw), reps)
         plain_ms = cuda_ms(lambda: multi_head_attention(q, k, v, impl="ref",
                                                         **kw), 2, warmup=1)
         lib_ms = cuda_ms(lib, reps)
-        bound, bound_by = attention_bound(b, hq, s, d, "bfloat16", hkv=hkv,
-                                          window=window)
-        flops = 4.0 * b * hq * d * live_pairs(s, window)
+        bound, bound_by = attention_bound(b, hq, s, d, dt, hkv=hkv,
+                                          window=window, causal=causal)
+        flops = 4.0 * b * hq * d * live_pairs(s, window, causal)
         row = {"case": label, "shape": [b, hq, s, d], "kv_heads": hkv,
-               "window": window, "softcap": cap, "dtype": "bfloat16",
+               "causal": causal, "window": window, "softcap": cap,
+               "dtype": dt,
                "q_scale": S2_SOFTCAP_Q_SCALE if cap is not None else 1.0,
                "max_abs_err": err, "controls_max_abs_err": controls,
                "ms": ker_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -3291,10 +3356,10 @@ def check_s2_attention() -> list:
         ctl = "".join(f"; control: kernel vs plain without the {n} "
                       f"{e:.3e} (must miss the bar)"
                       for n, e in controls.items())
-        log(f"serve S2 (a) K2 {label} q({b}, {hq}, {s}, {d}) kv heads {hkv} "
-            f"window {window} softcap {cap} q scale {row['q_scale']}: "
-            f"kernel vs plain max_abs_err {err:.3e} (atol {S2_BF16_BAR})"
-            f"{ctl}; {lib_note} vs plain {lib_err:.3e}; "
+        log(f"{phase} K2 {label} q({b}, {hq}, {s}, {d}) kv heads {hkv} {dt} "
+            f"causal {causal} window {window} softcap {cap} q scale "
+            f"{row['q_scale']}: kernel vs plain max_abs_err {err:.3e} (atol "
+            f"{atol} + rtol {rtol}){ctl}; {lib_note} vs plain {lib_err:.3e}; "
             f"{'ok' if ok else 'FAIL'}; kernel {ker_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms "
             f"({ker_ms / lib_ms:.2f}x), bound {bound:.4f} ms ({bound_by}, "
@@ -3309,56 +3374,59 @@ def check_s2_attention() -> list:
     return rows
 
 
-def check_s2_card_vs_cpu(attn_ops) -> dict:
-    """(e) Each reduced S2 model (and gemma-7b with qk-norm) in f32, from
-    one CPU initialization: prefill past the reduced window and decode
-    steps on the card (K2's f32 kernel) against the CPU (the plain
-    version, which the CPU tests hold to the JAX reference), and on the
-    card the first decode against a prefill one token longer: the
-    prompt of 24 is past the window of 16 and not a multiple of it, so
-    this reads the ring buffer as prefill placed it."""
-    import torch
-
+def check_s2_card_vs_cpu(attn_ops, cases=None,
+                         phase: str = "serve S2 (e)") -> dict:
+    """(e) Each reduced S2 model (and gemma-7b with qk-norm; or the
+    `cases` given, (arch, config overrides)) in f32, from one CPU
+    initialization: prefill past the reduced window and decode steps on
+    the card (K2's f32 kernel) against the CPU (the plain version, which
+    the CPU tests hold to the JAX reference), and on the card the first
+    decode against a prefill one token longer: the prompt of 24 is past
+    the window of 16 and not a multiple of it, so this reads the ring
+    buffer as prefill placed it. Frames and patch embeddings, where the
+    model takes them, are drawn on the CPU and copied; decode positions
+    count the patches and meta tokens before the prompt."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
 
     out = {}
-    cases = [(a, {}) for a in S2_ARCHS] + [("gemma-7b", {"qk_norm": True})]
+    if cases is None:
+        cases = [(a, {}) for a in S2_ARCHS] + [("gemma-7b",
+                                                {"qk_norm": True})]
     for arch, extra in cases:
-        name = arch + (" qk-norm" if extra else "")
+        name = arch + "".join(f" {k.replace('_', '-')}" for k in extra)
         cfg = get_config(arch).reduced().with_(**extra)
         model = build_model(cfg)
         cpu_params = model.init_params(device="cpu")
         cuda_params = _tree_map(lambda x: x.cuda(), cpu_params)
-        gen = torch.Generator().manual_seed(4)
-        tokens = torch.randint(0, cfg.vocab_size,
-                               (2, S2_CPU_PROMPT + S2_CPU_STEPS),
-                               generator=gen)
         max_len = S2_CPU_PROMPT + S2_CPU_STEPS
+        inputs = _serve_batch(cfg, max_len, seed=4, batch=2, device="cpu")
         worst = 0.0
         attn_ops.launch_count = 0
         runs = {}
         for dev, params in (("cuda", cuda_params), ("cpu", cpu_params)):
-            t = tokens.to(dev)
+            full = {k: v.to(dev) for k, v in inputs.items()}
+            t = full["tokens"]
             logits, cache = model.prefill(
-                params, {"tokens": t[:, :S2_CPU_PROMPT]}, max_len)
+                params, {**full, "tokens": t[:, :S2_CPU_PROMPT]}, max_len)
             seq = [logits.cpu()]
             for i in range(S2_CPU_STEPS):
                 pos = S2_CPU_PROMPT + i
                 logits, cache = model.decode_step(params, cache, t[:, pos],
-                                                  pos)
+                                                  pos + _prefix(cfg))
                 seq.append(logits.cpu())
             runs[dev] = seq
             if dev == "cuda":
                 launches = attn_ops.launch_count
                 longer, _ = model.prefill(
-                    params, {"tokens": t[:, :S2_CPU_PROMPT + 1]}, max_len)
+                    params, {**full, "tokens": t[:, :S2_CPU_PROMPT + 1]},
+                    max_len)
                 ring = _rel_to_max(seq[1], longer.cpu())
         for a, b in zip(runs["cuda"], runs["cpu"]):
             worst = max(worst, _rel_to_max(a, b))
         ok = (worst <= S2_CPU_BAR and ring <= S2_CPU_BAR
-              and launches == cfg.n_layers)
-        log(f"serve S2 (e) reduced {name} f32: card vs CPU logits over the "
+              and launches == cfg.n_layers + cfg.n_enc_layers)
+        log(f"{phase} reduced {name} f32: card vs CPU logits over the "
             f"prefill ({S2_CPU_PROMPT} tokens, window "
             f"{cfg.sliding_window}) and {S2_CPU_STEPS} decode steps "
             f"{worst:.3e} of the largest; on the card prefill("
@@ -3367,14 +3435,15 @@ def check_s2_card_vs_cpu(attn_ops) -> dict:
             f"of it); bar {S2_CPU_BAR}; K2 {launches} launches on the card "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"serve S2 card vs CPU {name}")
+            raise AssertionError(f"{phase} card vs CPU {name}")
         out[name] = {"card_vs_cpu": worst,
                      "decode_vs_longer_prefill": ring}
     return out
 
 
 def serve_s2(attn_ops) -> tuple:
-    """The "serve S2" phase: (a) K2 at the S2 shapes (`check_s2_attention`);
+    """The "serve S2" phase: (a) K2 at the S2 shapes
+    (`check_attention_cases`);
     then each S2 model at full width and depth in bf16 from seeded random
     weights, freed before the next: (b) `Engine.generate` at B = 4 with
     32- and 2048-token prompts and 32 new tokens (gemma2-9b also at B = 1
@@ -3394,7 +3463,9 @@ def serve_s2(attn_ops) -> tuple:
         torch.cuda.synchronize()
         seconds[part] = time.perf_counter() - t_phase - sum(seconds.values())
 
-    record = {"attention": check_s2_attention(), "models": {},
+    record = {"attention": check_attention_cases("serve S2 (a)",
+                                                 S2_ATTN_CASES),
+              "models": {},
               "seconds": seconds}
     mark("(a)")
     launches = {}
@@ -3408,7 +3479,7 @@ def serve_s2(attn_ops) -> tuple:
             served = run_serve_main_path(
                 attn_ops, model, params, kernel="flash_attention",
                 per_generate=model.cfg.n_layers, prompts=prompts,
-                batch=batch, profile=False)
+                batch=batch)
             routes = check_serve_routes(model, params, prompts, batch)
             times = serve_timing(model, params, "flash_attention", prompts,
                                  batch)
@@ -3436,6 +3507,283 @@ def serve_s2(attn_ops) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# the int8 KV cache and head padding (S3): gemma-7b at full width and
+# depth
+# --------------------------------------------------------------------------
+S3_ARCH = "gemma-7b"
+S3_PROMPT = 2048
+# the reference's int8-vs-fp bars (atol = rtol), tests/test_int8_cache.py,
+# held where its test holds them: an f32 model
+S3_BARS = {"prefill": 0.05, "decode": 0.08}
+# in bf16, the int8 cache's logits at most this many times as far from the
+# f32 model's as the bf16 cache's (relative to the largest logit): through
+# 28 bf16 layers any perturbation of the cache, however small, moves a
+# logit by a bf16 ulp of the hidden state times the embedding
+S3_BF16_RATIO = 2.0
+
+
+def _nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in _leaves(tree))
+
+
+def _decode_run(model, params, inputs, tokens=None) -> tuple:
+    """Prefill `inputs` into a cache of S3_PROMPT + SERVE_NEW_TOKENS and
+    decode SERVE_NEW_TOKENS steps: each step feeds `tokens[i]` when given,
+    else this run's greedy token. Returns (logits of the prefill and each
+    step, the tokens fed, the cache's bytes)."""
+    logits, cache = model.prefill(params, inputs,
+                                  S3_PROMPT + SERVE_NEW_TOKENS)
+    seq, fed = [logits], []
+    for i in range(SERVE_NEW_TOKENS):
+        tok = logits.argmax(-1) if tokens is None else tokens[i]
+        fed.append(tok)
+        logits, cache = model.decode_step(params, cache, tok, S3_PROMPT + i)
+        seq.append(logits)
+    return seq, fed, _nbytes(cache)
+
+
+def _share(ours, ref, bar: float) -> float:
+    """The largest |ours - ref| over the reference's allowance
+    bar * (1 + |ref|): at most 1 within atol = rtol = bar."""
+    return ((ours - ref).abs() / (bar * (1.0 + ref.abs()))).max().item()
+
+
+def serve_s3(attn_ops) -> tuple:
+    """The "serve S3" phase: gemma-7b at full width and depth, B = 4, a
+    2,048-token prompt and 32 new tokens, from seeded random weights.
+    (a) `Engine.generate` in bf16 with `opt_int8_cache=True` through K2
+    (28 launches a generate); (b) the prefill and 32 decode steps of the
+    int8 and the bf16 cache, both fed the bf16 cache's greedy tokens: the
+    first greedy token equal; then the same weights upcast to f32 (TF32
+    off), where the reference's own test holds the int8 cache, the int8
+    cache's logits within 0.05 (prefill) and 0.08 (decode) of the f32
+    cache's (atol = rtol); in bf16 the int8 cache's logits at most
+    S3_BF16_RATIO times as far from the f32 model's as the bf16 cache's,
+    and their gap to the bf16 cache's at the reference's bars reported;
+    (c) the caches' bytes; (d) the prefill and a decode step of each
+    cache timed and profiled; (e) `opt_pad_heads=True` gives the bf16
+    cache's prefill and decode logits bit for bit. Returns (K2 launches
+    by run, the record)."""
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    model, params, init = build_served(S3_ARCH)
+    cfg = model.cfg
+    q8 = build_model(cfg.with_(opt_int8_cache=True))
+    served = run_serve_main_path(attn_ops, q8, params,
+                                 kernel="flash_attention",
+                                 per_generate=cfg.n_layers,
+                                 prompts=(S3_PROMPT,))
+    times = {"bf16": serve_timing(model, params, "flash_attention",
+                                  prompts=(S3_PROMPT,))[S3_PROMPT],
+             "int8": serve_timing(q8, params, "flash_attention",
+                                  prompts=(S3_PROMPT,))[S3_PROMPT]}
+    log(f"serve S3 (d) decode step: int8 cache "
+        f"{times['int8']['decode_ms_per_step']:.3f} ms "
+        f"({times['int8']['decode']['launches']} launches) vs bf16 "
+        f"{times['bf16']['decode_ms_per_step']:.3f} ms "
+        f"({times['bf16']['decode']['launches']} launches)")
+    pad = build_model(cfg.with_(opt_pad_heads=True))
+    short = _serve_batch(cfg, SERVE_PROMPTS[0], seed=6)
+    lp, cp = pad.prefill(params, short, SERVE_PROMPTS[0] + 1)
+    lf, cf = model.prefill(params, short, SERVE_PROMPTS[0] + 1)
+    same = bool(torch.equal(lp, lf))
+    tok = lf.argmax(-1)
+    lp, _ = pad.decode_step(params, cp, tok, SERVE_PROMPTS[0])
+    lf, _ = model.decode_step(params, cf, tok, SERVE_PROMPTS[0])
+    same = same and bool(torch.equal(lp, lf))
+    log(f"serve S3 (e) opt_pad_heads=True prefill({SERVE_PROMPTS[0]}) and "
+        f"a decode step == without it, bit for bit: {same}")
+    del cf, cp
+    inputs = _serve_batch(cfg, S3_PROMPT, seed=5)
+    runs = {}
+    runs["bf16"], tokens, bytes_fp = _decode_run(model, params, inputs)
+    runs["bf16 int8"], _, bytes_q8 = _decode_run(q8, params, inputs, tokens)
+    params32 = _tree_map(lambda x: x.float(), params)
+    del model, q8, pad, params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.with_(dtype="float32")
+    runs["f32"], _, _ = _decode_run(build_model(cfg32), params32, inputs,
+                                    tokens)
+    runs["f32 int8"], _, _ = _decode_run(
+        build_model(cfg32.with_(opt_int8_cache=True)), params32, inputs,
+        tokens)
+    del params32
+    torch.cuda.empty_cache()
+
+    def worst(ours, ref, kind) -> float:
+        steps = runs[ours][:1] if kind == "prefill" else runs[ours][1:]
+        refs = runs[ref][:1] if kind == "prefill" else runs[ref][1:]
+        return max(_share(a, b, S3_BARS[kind]) for a, b in zip(steps, refs))
+
+    def rel(ours, ref) -> float:
+        return max(_rel_to_max(a, b) for a, b in zip(runs[ours], runs[ref]))
+
+    shares = {f"{pair} {kind}": worst(*pair.split(" vs "), kind)
+              for pair in ("f32 int8 vs f32", "bf16 int8 vs bf16")
+              for kind in ("prefill", "decode")}
+    dist = {"bf16 int8 vs f32": rel("bf16 int8", "f32"),
+            "bf16 vs f32": rel("bf16", "f32")}
+    first_equal = bool(torch.equal(runs["bf16 int8"][0].argmax(-1),
+                                   runs["bf16"][0].argmax(-1)))
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(runs["bf16 int8"][1:], runs["bf16"][1:]))
+    finite = all(bool(torch.isfinite(x).all()) for r in runs.values()
+                 for x in r)
+    ok = (same and first_equal and finite
+          and shares["f32 int8 vs f32 prefill"] <= 1.0
+          and shares["f32 int8 vs f32 decode"] <= 1.0
+          and dist["bf16 int8 vs f32"] <= S3_BF16_RATIO * dist["bf16 vs f32"])
+    log(f"serve S3 (b) {S3_ARCH} B={SERVE_BATCH} prompt={S3_PROMPT}, "
+        f"{SERVE_NEW_TOKENS} decode steps on the bf16 cache's greedy "
+        f"tokens: int8 vs fp cache, the largest |diff| over the reference's "
+        f"allowance bar * (1 + |ref|) (bars {S3_BARS}; within at most 1): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+        + f"; bf16 int8 vs f32 {dist['bf16 int8 vs f32']:.3e}, bf16 vs "
+        f"f32 {dist['bf16 vs f32']:.3e} of the largest logit (bar: at most "
+        f"{S3_BF16_RATIO}x); first greedy token equal {first_equal}; decode "
+        f"argmax agree {agree}/{SERVE_BATCH * SERVE_NEW_TOKENS}; (c) cache "
+        f"bytes int8 {bytes_q8} vs bf16 {bytes_fp}: "
+        f"{bytes_q8 / bytes_fp:.4f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("serve S3: the int8 cache misses its bars, the "
+                             "first greedy token or opt_pad_heads' bits")
+    del runs
+    torch.cuda.empty_cache()
+    record = {"init": init, "generate": served[S3_PROMPT],
+              "int8_vs_fp_share": shares, "dist_to_f32": dist,
+              "first_token_equal": first_equal, "decode_argmax_agree": agree,
+              "cache_bytes": {"bf16": bytes_fp, "int8": bytes_q8,
+                              "ratio": bytes_q8 / bytes_fp},
+              "timing": times, "pad_heads_bitwise": same,
+              "seconds": time.perf_counter() - t_phase}
+    log(f"serve S3: {record['seconds']:.1f} s")
+    return {f"{S3_ARCH} int8 prompt {S3_PROMPT}":
+            served[S3_PROMPT]["launches"]}, record
+
+
+# --------------------------------------------------------------------------
+# hymba-1.5b (S6), whisper-small and pixtral-12b (S7) at full width and
+# depth, through K2 at shapes it had not had
+# --------------------------------------------------------------------------
+S67_PROMPTS = {"hymba-1.5b": (32, 2048), "whisper-small": (32, 448),
+               "pixtral-12b": (32, 2048)}
+# K2's shapes on the S6-S7 path (as S2_ATTN_CASES): hymba's local and
+# global layers over 2,048 tokens + 128 meta tokens (groups of 5),
+# whisper's encoder (non-causal over 1,500 frames, f32 by the promotion of
+# its f32 frames) and decoder, pixtral over 1,024 patches + 2,048 tokens
+# (groups of 4)
+S67_ATTN_CASES = (
+    ("hymba-1.5b local, prompt 2048 + 128 meta", "bfloat16", 4, 25, 5,
+     2176, 64, True, 1024, None),
+    ("hymba-1.5b global, prompt 2048 + 128 meta", "bfloat16", 4, 25, 5,
+     2176, 64, True, None, None),
+    ("whisper-small encoder, 1500 frames", "float32", 4, 12, 12, 1500, 64,
+     False, None, None),
+    ("whisper-small decoder, prompt 32", "bfloat16", 4, 12, 12, 32, 64,
+     True, None, None),
+    ("whisper-small decoder, prompt 448", "bfloat16", 4, 12, 12, 448, 64,
+     True, None, None),
+    ("pixtral-12b, 1024 patches + prompt 2048", "bfloat16", 4, 32, 8, 3072,
+     128, True, None, None),
+)
+# hymba's selective scan and mamba branch at its prefill shape (B, S, D, N)
+HYMBA_SCAN_SHAPE = (4, 2176, 1600, 16)
+
+
+def time_hymba_scan(model, params) -> dict:
+    """hymba's selective scan (plain PyTorch, as the reference's
+    associative scan) and its whole mamba branch at the prefill's shape,
+    on CUDA events: one layer's, and times n_layers for a prefill."""
+    import torch
+
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import layer_slice
+
+    b, s, d, n = HYMBA_SCAN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a = torch.rand((b, s, d, n), generator=gen, device="cuda")
+    bx = torch.randn((b, s, d, n), generator=gen, device="cuda")
+    h0 = torch.zeros((b, d, n), device="cuda")
+    scan_ms = cuda_ms(lambda: ssm.selective_scan(a, bx, h0), 3, warmup=1)
+    del a, bx
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    p = layer_slice(params["blocks"]["mamba"], 0)
+    mamba_ms = cuda_ms(lambda: ssm.mamba_apply(x, p, model.cfg), 3,
+                       warmup=1)
+    layers = model.cfg.n_layers
+    row = {"shape": list(HYMBA_SCAN_SHAPE), "scan_ms": scan_ms,
+           "mamba_ms": mamba_ms, "scan_ms_per_prefill": scan_ms * layers,
+           "mamba_ms_per_prefill": mamba_ms * layers}
+    log(f"serve S6-S7 hymba selective scan at {HYMBA_SCAN_SHAPE}: "
+        f"{scan_ms:.3f} ms a layer, {scan_ms * layers:.1f} ms a prefill; "
+        f"the mamba branch {mamba_ms:.3f} ms a layer, "
+        f"{mamba_ms * layers:.1f} ms a prefill")
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_s6_s7(attn_ops) -> tuple:
+    """The "serve S6-S7" phase: (a) K2 at the new shapes
+    (`check_attention_cases`); then hymba-1.5b, whisper-small and
+    pixtral-12b at full width and depth in bf16 from seeded random
+    weights, each freed before the next (init peak recorded): (b)
+    `Engine.generate` at B = 4 with `S67_PROMPTS` (whisper with 1,500
+    frames, pixtral with 1,024 patches) and 32 new tokens, K2 n_layers
+    (+ n_enc_layers) launches a generate; (c) the kernel route against
+    the plain route at the short prompt, prefill(S) + decode against
+    prefill(S + 1) at both, at BF16_LOGIT_BAR; (d) prefill and decode ms,
+    launches, device busy time and idle share, K2's device ms inside the
+    prefill; hymba's scan timed; then (e) the reduced models on the card
+    against the CPU. Returns (K2 launches by run, the record)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def mark(part: str) -> None:
+        torch.cuda.synchronize()
+        seconds[part] = time.perf_counter() - t_phase - sum(seconds.values())
+
+    record = {"attention": check_attention_cases("serve S6-S7 (a)",
+                                                 S67_ATTN_CASES),
+              "models": {},
+              "seconds": seconds}
+    mark("(a)")
+    launches = {}
+    for arch, prompts in S67_PROMPTS.items():
+        model, params, init = build_served(arch)
+        cfg = model.cfg
+        per = cfg.n_layers + cfg.n_enc_layers
+        served = run_serve_main_path(
+            attn_ops, model, params, kernel="flash_attention",
+            per_generate=per, prompts=prompts)
+        routes = {**check_serve_routes(model, params, prompts[:1]),
+                  **check_serve_routes(model, params, prompts[1:],
+                                       plain=False)}
+        times = serve_timing(model, params, "flash_attention", prompts)
+        rows = {"init": init}
+        for s in prompts:
+            key = f"B={SERVE_BATCH} prompt {s}"
+            rows[key] = {**served[s], **routes[s], **times[s]}
+            launches[f"{arch} {key}"] = served[s]["launches"]
+        if model.kind == "hymba":
+            rows["scan"] = time_hymba_scan(model, params)
+        record["models"][arch] = rows
+        del model, params
+        torch.cuda.empty_cache()
+        mark(f"(b)-(d) {arch}")
+    record["card_vs_cpu"] = check_s2_card_vs_cpu(
+        attn_ops, [(a, {}) for a in S67_PROMPTS], phase="serve S6-S7 (e)")
+    mark("(e)")
+    log(f"serve S6-S7: seconds by part {json.dumps(seconds)}")
+    return launches, record
+
+
+# --------------------------------------------------------------------------
 # training over the MAC (T1-T3): K2 with its log-sum-exp, the flash
 # backward, and repro-100m trained at full width and depth
 # --------------------------------------------------------------------------
@@ -3443,7 +3791,10 @@ TRAIN_ARCH = "repro-100m"
 # the training launcher's defaults (src/repro/launch/train.py:37-48)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_NODES = 8, 256, 8
 TRAIN_NOISE_STD, TRAIN_LR, TRAIN_GAMMA = 0.01, 0.05, 0.9
-TRAIN_STEPS = 4
+# 3 steps a route (cut from 4 to keep the script inside its 1,200 s time
+# limit as the serving phases grew; the timing takes the best of the last
+# 2)
+TRAIN_STEPS = 3
 # (aggregator, route): the fused gbma route, gbma through the transport,
 # and receiver momentum through the transport
 TRAIN_ROUTES = (("gbma", "auto"), ("gbma", "transport"),
@@ -3868,19 +4219,19 @@ def run_train(attn_ops, ota_ops) -> tuple:
     (b) `flash_attention`'s gradients against `full_attention`'s
         autograd (`check_flash_vjp`);
     (c) the launcher at its defaults (`python -m repro_torch.launch.train
-        --arch repro-100m --steps 4`), then repro-100m at full width and
-        depth (112,248,960 parameters, f32), 4 steps at the launcher's
+        --arch repro-100m --steps 3`), then repro-100m at full width and
+        depth (112,248,960 parameters, f32), 3 steps at the launcher's
         defaults through `build_train_step` + `run_training` on three
         routes (fused gbma; gbma through the transport; receiver
         momentum through the transport): finite losses, `tx_energy` on
         the transport routes, K2 14 launches a forward (N forwards a
         step on the transport route), K1 11 a slot (one a leaf); the
         kernel route against the plain route (`impl='ref'`: plain
-        attention and plain OTA) after the 4 steps;
+        attention and plain OTA) after the 3 steps;
     (d) each route's step timed whole (best of 2) and by part, its peak
         memory and a profile (`train_step_split`), and K2 at the
         training shape (`time_train_attention`);
-    (e) the card against the CPU on the reduced repro-100m: 4 steps of
+    (e) the card against the CPU on the reduced repro-100m: 3 steps of
         each route in (c);
     (f) rbg keys (`train_rbg`).
 
@@ -4687,6 +5038,17 @@ def main() -> int:
     # head_dim 256 with windows and softcaps, n_layers launches a prefill
     s2_launches, s2_record = serve_s2(attn_ops)
     elapsed('serve S2')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the int8 cache and head padding (S3) on gemma-7b; hymba-1.5b,
+    # whisper-small and pixtral-12b (S6, S7) through K2 at new shapes
+    s3_launches, s3_record = serve_s3(attn_ops)
+    elapsed('serve S3')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    s67_launches, s67_record = serve_s6_s7(attn_ops)
+    elapsed('serve S6-S7')
 
     primary = timings[0]  # the LARGE shape
     ota_entry = {
@@ -4718,7 +5080,8 @@ def main() -> int:
         "sass": sass,
         "launches": sum(r["launches"] for r in served.values())
         + sum(train_launches.values()) + model_launches["k2"]
-        + sum(s2_launches.values()),
+        + sum(s2_launches.values()) + sum(s3_launches.values())
+        + sum(s67_launches.values()),
         "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
         "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes; "
         "lse atol 1e-05 + rtol 1e-06",
@@ -4732,9 +5095,12 @@ def main() -> int:
         | {"repro-100m prompt 2048 (route check)": repro_launches}
         | {f"train {name}": n for name, n in train_launches.items()}
         | {"train olmo-1b (bf16, with lse)": model_launches["k2"]}
-        | {f"serve S2 {run}": n for run, n in s2_launches.items()},
-        "shapes": attn_timings + s2_record["attention"],
-        "s2": s2_record, "lse": train_record["attention"],
+        | {f"serve S2 {run}": n for run, n in s2_launches.items()}
+        | {f"serve S3 {run}": n for run, n in s3_launches.items()}
+        | {f"serve S6-S7 {run}": n for run, n in s67_launches.items()},
+        "shapes": attn_timings + s2_record["attention"]
+        + s67_record["attention"],
+        "s2": s2_record, "s3": s3_record, "s6_s7": s67_record, "lse": train_record["attention"],
         "bf16_lse": model_record["lse_timing"],
         "bf16_lse_errors": model_record["lse_errors"],
         "train": train_record, "train_models": model_record,

@@ -2,8 +2,9 @@
 `repro.configs.registry`).
 
 The port knows the models it serves: the dense decoders olmo-1b,
-repro-100m, gemma2-9b, gemma-7b and minitron-4b, and the RWKV6 model
-rwkv6-7b.
+repro-100m, gemma2-9b, gemma-7b and minitron-4b, the RWKV6 model
+rwkv6-7b, the hybrid hymba-1.5b, the encoder-decoder whisper-small and
+the VLM backbone pixtral-12b.
 Every other architecture of the reference raises `NotImplementedError`
 naming the ROADMAP item that ports it; an unknown id raises `KeyError`,
 as in the reference.
@@ -17,19 +18,19 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "gemma-7b": "gemma_7b",
     "gemma2-9b": "gemma2_9b",
+    "hymba-1.5b": "hymba_1p5b",
     "minitron-4b": "minitron_4b",
     "olmo-1b": "olmo_1b",
+    "pixtral-12b": "pixtral_12b",
     "repro-100m": "repro_100m",
     "rwkv6-7b": "rwkv6_7b",
+    "whisper-small": "whisper_small",
 }
 
 # the reference's other architectures -> the ROADMAP item that ports them
 PENDING = {
     "llama4-maverick-400b-a17b": "S4",
     "deepseek-v3-671b": "S5",
-    "hymba-1.5b": "S6",
-    "whisper-small": "S7",
-    "pixtral-12b": "S7",
 }
 
 

@@ -5,8 +5,10 @@
 Runs on the CUDA card unless `--device cpu` is given. Weights are random,
 drawn from a torch generator seeded 0 on the device
 (`Model.init_params`); the prompt is
-uniform random token ids from a generator seeded 1. Prints the
-reference's summary line.
+uniform random token ids from a generator seeded 1, which then draws
+whisper's f32 frame embeddings (B, enc_seq, D) and the VLM's f32 patch
+embeddings (B, n_patches, D) from a standard normal, as the reference
+draws them. Prints the reference's summary line.
 """
 from __future__ import annotations
 
@@ -46,6 +48,13 @@ def main(argv=None) -> None:
     batch = {"tokens": torch.randint(0, cfg.vocab_size,
                                      (args.batch, args.prompt_len),
                                      generator=gen, device=device)}
+    if cfg.n_patches:
+        batch["patch_embed"] = torch.randn(
+            (args.batch, cfg.n_patches, cfg.d_model), generator=gen,
+            device=device)
+    if model.kind == "encdec":
+        batch["frames"] = torch.randn((args.batch, cfg.enc_seq, cfg.d_model),
+                                      generator=gen, device=device)
     t0 = time.time()
     out = eng.generate(batch)
     if device.type == "cuda":

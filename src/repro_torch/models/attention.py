@@ -17,11 +17,22 @@ and its plain version in prefill (and the flash backward in training),
 buffer of min(window, cache length) slots. qk-norm is a plain RMS norm of
 each head's q and k before RoPE.
 
-Out of this slice, and refused by `transformer.check_slice`: the int8
-cache and head padding (S3), the runtime `is_global` flag (hymba, S6)
-and the sharding calls (M8). The reference's blockwise jnp attention has
-no counterpart: serving takes K2 and training the flash backward,
-whatever `opt_flash_vjp` says.
+The int8 cache (`opt_int8_cache`, S3) keeps k and v as int8 with an f32
+scale per (token, head), quantized on write as the reference does, bit
+for bit, and dequantized to f32 on read (`cache_kv`). `opt_pad_heads`
+changes nothing on one card: without a mesh the reference's pad is 0,
+and its other effect, k and v repeated to q's width, is what K2's GQA
+does by reading kv head h // group.
+
+The reference feeds hymba's few global layers a traced `is_global` flag,
+which sends its prefill past the Pallas kernel. The port loops over
+layers in Python, so a layer's flag is known on the host: a global
+layer passes `window=None` (to K2 and to `decode_attention`), which is
+the function the flag computes.
+
+Out of this slice: the sharding calls (M8). The reference's blockwise
+jnp attention has no counterpart: serving takes K2 and training the
+flash backward, whatever `opt_flash_vjp` says.
 """
 from __future__ import annotations
 
@@ -33,7 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention.ops import multi_head_attention
 from repro_torch.kernels.attention.ref import NEG_INF
 from repro_torch.models.flash_vjp import flash_attention
-from repro_torch.models.layers import dense_init, dtype_of, rms_norm, rope
+from repro_torch.models.layers import (dense_init, dtype_of, matmul,
+                                       rms_norm, rope)
 
 
 # --------------------------------------------------------------------------
@@ -96,22 +108,23 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, hq, sq, dv).to(q.dtype)
 
 
-def sdpa(q, k, v, cfg: ModelConfig, *, window: Optional[int] = None,
-         impl: str = "auto") -> torch.Tensor:
-    """Causal attention for prefill, over the sliding `window` when one is
-    given and with the config's `attn_softcap`: the flash-attention
-    kernel on CUDA tensors, its plain version on CPU tensors (`impl` as
-    in `multi_head_attention`). Where grad is enabled and an input
-    requires it, `flash_attention` at the config's `attn_block_q` /
+def sdpa(q, k, v, cfg: ModelConfig, *, causal: bool = True,
+         window: Optional[int] = None, impl: str = "auto") -> torch.Tensor:
+    """Attention for prefill (causal unless `causal=False`, as the whisper
+    encoder), over the sliding `window` when one is given and with the
+    config's `attn_softcap`: the flash-attention kernel on CUDA tensors,
+    its plain version on CPU tensors (`impl` as in
+    `multi_head_attention`). Where grad is enabled and an input requires
+    it, `flash_attention` at the config's `attn_block_q` /
     `attn_block_kv`: the same forward (K2 writing its log-sum-exp) and
     the flash backward, in f32 and bf16."""
     scale = cfg.head_dim ** -0.5
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return flash_attention(q, k, v, scale=scale, causal=True,
+        return flash_attention(q, k, v, scale=scale, causal=causal,
                                window=window, softcap=cfg.attn_softcap,
                                block_q=cfg.attn_block_q,
                                block_kv=cfg.attn_block_kv, impl=impl)
-    return multi_head_attention(q, k, v, scale=scale, causal=True,
+    return multi_head_attention(q, k, v, scale=scale, causal=causal,
                                 window=window, softcap=cfg.attn_softcap,
                                 impl=impl)
 
@@ -121,13 +134,48 @@ def sdpa(q, k, v, cfg: ModelConfig, *, window: Optional[int] = None,
 # --------------------------------------------------------------------------
 def init_kv_cache(batch: int, cache_len: int, cfg: ModelConfig, lead=(),
                   device=None) -> dict:
+    """Zero k, v in the model's dtype, or int8 with f32 scales of shape
+    (..., B, Hkv, L, 1) under `opt_int8_cache`; `pos_ids` -1 (empty)."""
     shape = (*lead, batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
-    return {
-        "pos_ids": torch.full((*lead, cache_len), -1, dtype=torch.int32,
-                              device=device),
-        "k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
-        "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
-    }
+    cache = {"pos_ids": torch.full((*lead, cache_len), -1, dtype=torch.int32,
+                                   device=device)}
+    dt = torch.int8 if cfg.opt_int8_cache else dtype_of(cfg)
+    for name in ("k", "v"):
+        cache[name] = torch.zeros(shape, dtype=dt, device=device)
+        if cfg.opt_int8_cache:
+            cache[f"{name}_scale"] = torch.zeros((*shape[:-1], 1),
+                                                 dtype=torch.float32,
+                                                 device=device)
+    return cache
+
+
+def quantize(x: torch.Tensor) -> tuple:
+    """Per-(token, head) symmetric int8 quantization over head_dim: the
+    scale max|x| / 127 (at least 1e-8), the values rounded half to even
+    and clipped to ±127, as the reference's `_quantize` (both round half
+    to even), so both are its bits."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                            1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def cache_kv(cache: dict, which: str) -> torch.Tensor:
+    """The cached K or V in f32, dequantized when the cache is int8."""
+    x = cache[which].float()
+    if f"{which}_scale" in cache:
+        x = x * cache[f"{which}_scale"]
+    return x
+
+
+def _store(cache: dict, name: str, new: torch.Tensor, slots) -> None:
+    """Write `new` (B, Hkv, n, d) into `cache[name]` at `slots` of the
+    position axis, quantized first when the cache is int8."""
+    if f"{name}_scale" in cache:
+        new, scale = quantize(new)
+        cache[f"{name}_scale"][:, :, slots] = scale
+    cache[name][:, :, slots] = new
 
 
 def cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -135,8 +183,8 @@ def cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     """Write one token (B, Hkv, 1, d) at absolute position `pos` into its
     ring-buffer slot, in place."""
     slot = pos % cache["k"].shape[-2]
-    cache["k"][:, :, slot] = k_new[:, :, 0]
-    cache["v"][:, :, slot] = v_new[:, :, 0]
+    _store(cache, "k", k_new, slice(slot, slot + 1))
+    _store(cache, "v", v_new, slice(slot, slot + 1))
     # a fill on a one-element slice: `pos_ids[slot] = pos` would copy a
     # host scalar to the card and synchronize, once per layer and token
     cache["pos_ids"][slot:slot + 1].fill_(pos)
@@ -146,14 +194,15 @@ def cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 def decode_attention(q: torch.Tensor, cache: dict, pos: int,
                      cfg: ModelConfig, *,
                      window: Optional[int] = None) -> torch.Tensor:
-    """One query token (B, Hq, 1, d) against the cache, in f32: the
-    config's softcap on the scaled logits, and only the keys less than
-    `window` positions back when a window is given."""
+    """One query token (B, Hq, 1, d) against the cache, in f32 (an int8
+    cache dequantized): the config's softcap on the scaled logits, and
+    only the keys less than `window` positions back when a window is
+    given."""
     b, hq, _, d = q.shape
     hkv = cache["k"].shape[1]
     g = hq // hkv
     qg = q.reshape(b, hkv, g, d).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, cache["k"].float()) \
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, cache_kv(cache, "k")) \
         * cfg.head_dim ** -0.5
     if cfg.attn_softcap is not None:
         s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
@@ -163,7 +212,7 @@ def decode_attention(q: torch.Tensor, cache: dict, pos: int,
         valid &= (pos - pid) < window
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgs,bhsd->bhgd", p, cache["v"].float())
+    out = torch.einsum("bhgs,bhsd->bhgd", p, cache_kv(cache, "v"))
     return out.reshape(b, hq, 1, d).to(q.dtype)
 
 
@@ -171,35 +220,40 @@ def decode_attention(q: torch.Tensor, cache: dict, pos: int,
 # attention sub-layer (projections + rope + sdpa / decode)
 # --------------------------------------------------------------------------
 def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
-               positions: torch.Tensor, window: Optional[int] = None,
+               positions: torch.Tensor, causal: bool = True,
+               window: Optional[int] = None,
                cache: Optional[dict] = None,
                decode_pos: Optional[int] = None,
                impl: str = "auto") -> tuple:
     """x (B, S, D) -> (out (B, S, D), cache), attending over the sliding
-    `window` when one is given. With a cache and S == 1 this is a decode
-    step at `decode_pos`; otherwise a prefill, which writes the last
+    `window` when one is given (causal unless `causal=False`; RoPE under
+    `cfg.use_rope`). With a cache and S == 1 this is a decode step at
+    `decode_pos`; otherwise a prefill, which writes the last
     min(S, cache_len) keys and values into the cache when one is given,
     position p in slot p mod cache_len, where decode's ring buffer
-    (`cache_write`) keeps it. (The reference writes them into slots 0..
+    (`cache_write`) keeps it; an int8 cache takes each key quantized,
+    then rolled into its slot. (The reference writes them into slots 0..
     in order, which places a windowed ring's keys where decode does not
-    expect them when S > window and S mod window != 0.) `impl` selects
-    the prefill attention as in `sdpa`."""
+    expect them when S > window and S mod window != 0.) An f32 `x`
+    against bf16 weights computes in f32 (`layers.matmul`). `impl`
+    selects the prefill attention as in `sdpa`."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = matmul(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = matmul(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:  # a plain RMS norm of each head, before RoPE
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, d) views
 
     if cache is not None and s == 1:
         cache = cache_write(cache, k, v, decode_pos)
         out = decode_attention(q, cache, decode_pos, cfg, window=window)
     else:
-        out = sdpa(q, k, v, cfg, window=window, impl=impl)
+        out = sdpa(q, k, v, cfg, causal=causal, window=window, impl=impl)
         if cache is not None:  # prefill into the cache
             cache_len = cache["k"].shape[-2]
             take = min(s, cache_len)
@@ -210,9 +264,9 @@ def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
             def ring(t: torch.Tensor, dim: int) -> torch.Tensor:
                 return torch.roll(t, shift, dim) if shift else t
 
-            cache["k"][:, :, :take] = ring(k[:, :, s - take:], 2)
-            cache["v"][:, :, :take] = ring(v[:, :, s - take:], 2)
+            _store(cache, "k", ring(k[:, :, s - take:], 2), slice(0, take))
+            _store(cache, "v", ring(v[:, :, s - take:], 2), slice(0, take))
             cache["pos_ids"][:take] = ring(positions[s - take:], 0)
             cache["pos_ids"][take:] = -1
     out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    return out @ p["wo"], cache
+    return matmul(out, p["wo"]), cache

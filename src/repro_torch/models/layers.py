@@ -31,20 +31,21 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 def truncated_normal(gen: torch.Generator, shape) -> torch.Tensor:
     """Standard normal truncated to [-2, 2] in f32 on `gen`'s device, by
     the inverse CDF of a uniform in [Φ(-2), Φ(2)] (as `jax.random`
-    draws it)."""
+    draws it). Every step is in place: the draw holds one f32 buffer
+    (pixtral-12b's stacked MLP leaf is 2.94 G values, 11.7 GB in f32)."""
     u = torch.rand(tuple(shape), generator=gen, device=gen.device)
-    u = _TRUNC_LO + (_TRUNC_HI - _TRUNC_LO) * u
-    return (math.sqrt(2.0) * torch.erfinv(u)).clamp_(-2.0, 2.0)
+    u.mul_(_TRUNC_HI - _TRUNC_LO).add_(_TRUNC_LO)
+    return u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
 
 
 def dense_init(gen: torch.Generator, fan_in: int, shape,
                dtype: torch.dtype) -> torch.Tensor:
-    return (truncated_normal(gen, shape) / math.sqrt(fan_in)).to(dtype)
+    return truncated_normal(gen, shape).div_(math.sqrt(fan_in)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape,
                dtype: torch.dtype) -> torch.Tensor:
-    return (0.02 * truncated_normal(gen, shape)).to(dtype)
+    return truncated_normal(gen, shape).mul_(0.02).to(dtype)
 
 
 def layer_slice(tree, i: int):
@@ -116,6 +117,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings, (len(positions), dim) f32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# mixed dtypes
+# --------------------------------------------------------------------------
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`x @ w` with JAX's promotion of mixed float dtypes: an f32
+    activation against bf16 weights is an f32 product (`jnp.einsum`
+    promotes where `torch.matmul` refuses). The whisper encoder computes
+    so from f32 frames."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 # --------------------------------------------------------------------------
 # mlp
 # --------------------------------------------------------------------------
@@ -144,9 +170,9 @@ def mlp_params(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
 
 
 def mlp_apply(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    h = x @ p["wi"]
+    h = matmul(x, p["wi"])
     if cfg.glu:
-        h = activation(x @ p["wg"], cfg.act) * h
+        h = activation(matmul(x, p["wg"]), cfg.act) * h
     else:
         h = activation(h, cfg.act)
-    return h @ p["wo"]
+    return matmul(h, p["wo"])

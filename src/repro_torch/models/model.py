@@ -6,18 +6,27 @@
     logits, cache = model.decode_step(params, cache, token, pos)
     losses, metrics = model.train_loss_per_example(params, batch)
 
-Two kinds are ported, both served and trained: "transformer" (the dense
-decoder, with gemma2's sliding windows, softcaps and sandwich norms,
-gemma's embedding scale and qk-norm) and "rwkv" (the RWKV6 model of
-`family == "ssm"`). The cache — the dense decoder's KV cache, one per
-sublayer, or RWKV's recurrent state — is updated in place:
-`decode_step` writes into the cache it is given and returns that same
-object.
+Four kinds are ported: "transformer" (the dense decoder, with gemma2's
+sliding windows, softcaps and sandwich norms, gemma's embedding scale and
+qk-norm, the int8 cache, and the VLM backbone, whose patch embeddings
+`batch["patch_embed"]` are prepended to the prompt), "rwkv" (the RWKV6
+model of `family == "ssm"`), "hymba" (`family == "hybrid"`: attention and
+SSM heads in parallel, meta tokens prepended at prefill) and "encdec"
+(whisper: the encoder over `batch["frames"]`, the decoder with its
+cross-attention). The cache — the KV caches, one per sublayer, with the
+SSM states (hymba) or the cross-attention K and V (encdec), or RWKV's
+recurrent state — is updated in place: `decode_step` writes into the
+cache it is given and returns that same object.
 
-`impl` picks the route of the kind's own kernel (prefill attention for
-the dense decoder, the WKV recurrence for RWKV): 'auto' (the CUDA kernel
-on the card, its plain version on the CPU), 'kernel' or 'ref' (the plain
-version, on any device) — the last lets the card compare the two routes.
+`impl` picks the route of the kind's own kernel (prefill attention, the
+WKV recurrence for RWKV): 'auto' (the CUDA kernel on the card, its plain
+version on the CPU), 'kernel' or 'ref' (the plain version, on any
+device) — the last lets the card compare the two routes.
+
+The VLM prefill sizes its cache at n_patches + max(max_len, S): the
+reference's max(max_len, n_patches + S) is too short by n_patches when
+max_len counts the new tokens, so its first decode overwrites patch 0's
+key (ROADMAP §3 F15).
 """
 from __future__ import annotations
 
@@ -27,31 +36,24 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv
+from repro_torch.models import encdec, rwkv
+from repro_torch.models import ssm as hymba
 from repro_torch.models import transformer as tfm
 
 _IMPLS = ("auto", "kernel", "ref")
 
 
 class Model:
-    """The dense decoder and RWKV6 behind the reference's
-    family-dispatching façade; the other families raise naming their
-    ROADMAP item."""
+    """The reference's family-dispatching façade; MoE and MLA stacks
+    raise naming their ROADMAP item (`transformer.check_slice`)."""
 
     def __init__(self, cfg: ModelConfig, impl: str = "auto"):
-        if cfg.family == "hybrid":
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the hymba hybrid model is not ported yet "
-                "(ROADMAP S6)")
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                f"{cfg.arch_id}: encoder-decoder models are not ported yet "
-                "(ROADMAP S7)")
         if impl not in _IMPLS:
             raise ValueError(
                 f"impl must be 'auto', 'kernel' or 'ref', got {impl!r}")
-        self.kind = "rwkv" if cfg.family == "ssm" else "transformer"
-        if self.kind == "transformer":
+        self.kind = {"ssm": "rwkv", "hybrid": "hymba",
+                     "encdec": "encdec"}.get(cfg.family, "transformer")
+        if self.kind in ("transformer", "encdec"):
             tfm.check_slice(cfg)
         self.cfg = cfg
         self.impl = impl
@@ -66,26 +68,45 @@ class Model:
                 device=resolve_device(device)).manual_seed(0)
         if self.kind == "rwkv":
             return rwkv.init_params(generator, self.cfg)
+        if self.kind == "hymba":
+            return hymba.init_params(generator, self.cfg)
+        if self.kind == "encdec":
+            p = tfm.init_decoder(generator, self.cfg, cross_attn=True)
+            p["encoder"] = encdec.encoder_params(generator, self.cfg)
+            return p
         return tfm.init_decoder(generator, self.cfg)
 
     def train_loss_per_example(self, params, batch) -> tuple:
         """Per-example losses (B,) of next-token prediction on
         `batch["tokens"]` (B, S+1), plus metrics {"loss", "aux_loss"}
-        (neither kind has a router: aux is 0). Differentiable in
-        `params`; the attention's backward is the flash backward, the
-        WKV's the hand-written backward (its plain version on the CPU)."""
+        (no ported kind has a router: aux is 0). Hymba prepends its meta
+        tokens, the VLM `batch["patch_embed"]`, and neither is predicted;
+        whisper's decoder attends over the encoder's states of
+        `batch["frames"]`. Differentiable in `params`; the attention's
+        backward is the flash backward, the WKV's the hand-written
+        backward (its plain version on the CPU)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        s = inputs.shape[1]
         if self.kind == "rwkv":
             h, _ = rwkv.forward(params, inputs, cfg, impl=self.impl)
+        elif self.kind == "hymba":
+            h, _ = hymba.forward(params, inputs, cfg, prepend_meta=True,
+                                 impl=self.impl)
+            h = h[:, cfg.meta_tokens:]
         else:
+            enc = None
+            if self.kind == "encdec":
+                enc = encdec.encoder_forward(params["encoder"],
+                                             batch["frames"], cfg, self.impl)
             x = tfm.embed_tokens(params, inputs, cfg)
+            if cfg.n_patches:  # VLM: patches prepended, not predicted
+                x = torch.cat([batch["patch_embed"].to(x.dtype), x], dim=1)
             h, _ = tfm.decoder_forward(
                 params, x, cfg,
-                positions=torch.arange(s, device=tokens.device),
-                impl=self.impl)
+                positions=torch.arange(x.shape[1], device=tokens.device),
+                enc_out=enc, impl=self.impl)
+            h = h[:, cfg.n_patches:]
         losses = tfm.chunked_xent(params, h, labels,
                                   torch.ones_like(labels), cfg)
         aux = torch.zeros((), dtype=torch.float32, device=losses.device)
@@ -94,46 +115,75 @@ class Model:
 
     def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
         """The KV cache of `cache_len` positions (min(window, cache_len)
-        on a windowed sublayer, a ring buffer), or RWKV's O(1) state
-        (`cache_len` unused)."""
+        on a windowed sublayer, a ring buffer; every hymba layer at the
+        full length, with its SSM states; whisper's with the
+        cross-attention K and V), or RWKV's O(1) state (`cache_len`
+        unused)."""
         if self.kind == "rwkv":
             return rwkv.init_state(batch, self.cfg, device=device)
+        if self.kind == "hymba":
+            return hymba.init_cache(batch, cache_len, self.cfg,
+                                    device=device)
         return tfm.init_decoder_cache(batch, cache_len, self.cfg,
-                                      device=device)
+                                      device=device,
+                                      cross_attn=self.kind == "encdec")
 
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict,
                 max_len: Optional[int] = None) -> tuple:
-        """Processes the prompt `batch["tokens"]` (B, S); returns
-        (last-position logits (B, V) f32, cache). `max_len` sizes the KV
-        cache beyond the prompt for later decode steps (RWKV's state has
-        no length)."""
+        """Processes the prompt `batch["tokens"]` (B, S) (with
+        `batch["frames"]` for whisper, `batch["patch_embed"]` for the
+        VLM); returns (last-position logits (B, V) f32, cache). `max_len`
+        sizes the KV cache beyond the prompt for later decode steps;
+        hymba's meta tokens and the VLM's patches come on top (RWKV's
+        state has no length)."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
+        dev = tokens.device
+        clen = max(max_len or 0, s)
         if self.kind == "rwkv":
             h, state = rwkv.forward(
-                params, tokens, self.cfg,
-                rwkv.init_state(b, self.cfg, device=tokens.device),
+                params, tokens, cfg, rwkv.init_state(b, cfg, device=dev),
                 impl=self.impl)
-            return tfm.logits_fn(params, h[:, -1:], self.cfg)[:, 0], state
-        cache = self.init_cache(b, max(max_len or 0, s),
-                                device=tokens.device)
-        x = tfm.embed_tokens(params, tokens, self.cfg)
+            return tfm.logits_fn(params, h[:, -1:], cfg)[:, 0], state
+        if self.kind == "hymba":
+            cache = hymba.init_cache(b, clen + cfg.meta_tokens, cfg,
+                                     device=dev)
+            h, cache = hymba.forward(params, tokens, cfg, cache=cache,
+                                     prepend_meta=True, impl=self.impl)
+            return tfm.logits_fn(params, h[:, -1:], cfg)[:, 0], cache
+        enc = None
+        if self.kind == "encdec":
+            enc = encdec.encoder_forward(params["encoder"], batch["frames"],
+                                         cfg, self.impl)
+        x = tfm.embed_tokens(params, tokens, cfg)
+        if cfg.n_patches and "patch_embed" in batch:
+            x = torch.cat([batch["patch_embed"].to(x.dtype), x], dim=1)
+            clen += cfg.n_patches
+        cache = tfm.init_decoder_cache(
+            b, clen, cfg, device=dev, cross_attn=enc is not None,
+            cross_dtype=None if enc is None else enc.dtype)
         h, cache = tfm.decoder_forward(
-            params, x, self.cfg,
-            positions=torch.arange(s, device=tokens.device), cache=cache,
-            impl=self.impl)
-        return tfm.logits_fn(params, h[:, -1:], self.cfg)[:, 0], cache
+            params, x, cfg, positions=torch.arange(x.shape[1], device=dev),
+            cache=cache, enc_out=enc, impl=self.impl)
+        return tfm.logits_fn(params, h[:, -1:], cfg)[:, 0], cache
 
     @torch.no_grad()
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
                     pos: int) -> tuple:
         """One-token decode: token (B,), `pos` the absolute position (an
-        int; RWKV reads none). Returns (logits (B, V) f32, the cache,
-        updated in place)."""
+        int, counting hymba's meta tokens and the VLM's patches; RWKV
+        reads none). Returns (logits (B, V) f32, the cache, updated in
+        place)."""
         if self.kind == "rwkv":
             h, cache = rwkv.forward(params, token[:, None], self.cfg, cache,
                                     impl=self.impl)
+            return tfm.logits_fn(params, h, self.cfg)[:, 0], cache
+        if self.kind == "hymba":
+            h, cache = hymba.forward(params, token[:, None], self.cfg,
+                                     cache=cache, decode_pos=int(pos),
+                                     impl=self.impl)
             return tfm.logits_fn(params, h, self.cfg)[:, 0], cache
         x = tfm.embed_tokens(params, token[:, None], self.cfg)
         h, cache = tfm.decoder_forward(

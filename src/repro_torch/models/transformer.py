@@ -11,8 +11,11 @@ n_layers // 2 steps whose sub0 attends over the sliding window and sub1
 globally, each with its own stacked parameters and KV cache.
 
 The slice is the dense decoder with its windows, softcaps, sandwich
-norms, embedding scale and qk-norm (S2): `check_slice` raises
-`NotImplementedError` naming the ROADMAP item of every other structure.
+norms, embedding scale and qk-norm (S2), the int8 cache (S3), the VLM
+backbone (patch embeddings prepended by `models.model`) and whisper's
+decoder with its cross-attention over the encoder states (S7):
+`check_slice` raises `NotImplementedError` naming the ROADMAP item of
+MoE and MLA (S4, S5).
 
 Training (`decoder_forward` under autograd) keeps every layer's
 activations for the backward: the reference's `remat=True` (recompute
@@ -51,7 +54,7 @@ class Segment:
 
 
 def check_slice(cfg: ModelConfig) -> None:
-    """Raise for every structure outside the dense decoder of S2."""
+    """Raise for MoE and MLA stacks, which are not ported yet."""
     if cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.arch_id}: MoE layers are not ported yet (ROADMAP S4)")
@@ -59,19 +62,6 @@ def check_slice(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id}: MLA attention and the MTP head are not ported "
             "yet (ROADMAP S5)")
-    if cfg.n_patches or cfg.n_enc_layers or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder and VLM stacks are not ported "
-            "yet (ROADMAP S7)")
-    if cfg.layer_pattern == "hymba_global_set":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: hymba's runtime global-layer set is not ported "
-            "yet (ROADMAP S6)")
-    if cfg.opt_int8_cache or cfg.opt_pad_heads:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the int8 KV cache and head padding "
-            "(opt_int8_cache, opt_pad_heads) are not ported yet "
-            "(ROADMAP S3)")
 
 
 def build_segments(cfg: ModelConfig) -> tuple:
@@ -89,8 +79,8 @@ def build_segments(cfg: ModelConfig) -> tuple:
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
-def sublayer_params(gen: torch.Generator, cfg: ModelConfig,
-                    lead=()) -> dict:
+def sublayer_params(gen: torch.Generator, cfg: ModelConfig, lead=(),
+                    cross_attn: bool = False) -> dict:
     p = {"ln1": norm_param(cfg, *lead, device=gen.device),
          "ln2": norm_param(cfg, *lead, device=gen.device),
          "attn": attn_mod.attention_params(gen, cfg, lead=lead),
@@ -98,11 +88,18 @@ def sublayer_params(gen: torch.Generator, cfg: ModelConfig,
     if cfg.norm_style == "sandwich":
         p["post_ln1"] = norm_param(cfg, *lead, device=gen.device)
         p["post_ln2"] = norm_param(cfg, *lead, device=gen.device)
+    if cross_attn:  # whisper's decoder attends over the encoder states
+        p["xattn"] = attn_mod.attention_params(gen, cfg, lead=lead)
+        p["ln_x"] = norm_param(cfg, *lead, device=gen.device)
+        if cfg.norm_style == "sandwich":
+            p["post_ln_x"] = norm_param(cfg, *lead, device=gen.device)
     return p
 
 
-def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Random parameters on `gen`'s device, in the reference's layout."""
+def init_decoder(gen: torch.Generator, cfg: ModelConfig,
+                 cross_attn: bool = False) -> dict:
+    """Random parameters on `gen`'s device, in the reference's layout;
+    with `cross_attn`, each sublayer also has its cross-attention."""
     segs = build_segments(cfg)
     dt = dtype_of(cfg)
     params: dict = {
@@ -113,7 +110,8 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
         params["lm_head"] = layers.dense_init(
             gen, cfg.d_model, (cfg.d_model, cfg.vocab_size), dt)
     params["segments"] = {
-        f"seg{i}": {f"sub{j}": sublayer_params(gen, cfg, lead=(seg.n_steps,))
+        f"seg{i}": {f"sub{j}": sublayer_params(gen, cfg, lead=(seg.n_steps,),
+                                               cross_attn=cross_attn)
                     for j, _ in enumerate(seg.subs)}
         for i, seg in enumerate(segs)}
     return params
@@ -138,7 +136,7 @@ def logits_fn(params: dict, h: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """f32 logits, capped by the config's `final_softcap` (in f32)."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (h @ w).float()
+    logits = layers.matmul(h, w).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -180,10 +178,12 @@ def sublayer_apply(x: torch.Tensor, sp: dict, sub: SubLayer,
                    cfg: ModelConfig, *, positions: torch.Tensor,
                    cache: Optional[dict] = None,
                    decode_pos: Optional[int] = None,
+                   enc_out: Optional[torch.Tensor] = None,
                    impl: str = "auto") -> torch.Tensor:
-    """One decoder layer (attention over `sub.window`, then the MLP, each
-    followed by its post norm under `norm_style == "sandwich"`); its KV
-    cache, when given, is updated in place."""
+    """One decoder layer (attention over `sub.window`; whisper's
+    cross-attention when the layer has one; then the MLP, each followed
+    by its post norm under `norm_style == "sandwich"`); its KV cache,
+    when given, is updated in place."""
     h = apply_norm(x, sp["ln1"], cfg)
     a, _ = attn_mod.attn_apply(
         h, sp["attn"], cfg, positions=positions, window=sub.window,
@@ -192,6 +192,12 @@ def sublayer_apply(x: torch.Tensor, sp: dict, sub: SubLayer,
     if cfg.norm_style == "sandwich":
         a = apply_norm(a, sp["post_ln1"], cfg)
     x = x + a
+    if "xattn" in sp:
+        h = apply_norm(x, sp["ln_x"], cfg)
+        xa = cross_attn(h, sp["xattn"], cfg, enc_out=enc_out, cache=cache)
+        if cfg.norm_style == "sandwich":
+            xa = apply_norm(xa, sp["post_ln_x"], cfg)
+        x = x + xa
     h = apply_norm(x, sp["ln2"], cfg)
     m = layers.mlp_apply(h, sp["mlp"], cfg)
     if cfg.norm_style == "sandwich":
@@ -199,14 +205,44 @@ def sublayer_apply(x: torch.Tensor, sp: dict, sub: SubLayer,
     return x + m
 
 
+def cross_attn(h: torch.Tensor, p: dict, cfg: ModelConfig, *,
+               enc_out: Optional[torch.Tensor] = None,
+               cache: Optional[dict] = None) -> torch.Tensor:
+    """Non-causal attention of h (B, S, D) over the encoder states, by
+    the plain `full_attention` as in the reference. With `enc_out` (a
+    prefill or a training forward) K and V are projected from it, and
+    written into the cache's `xk` / `xv` (B, Hkv, S_enc, hd) when one is
+    given; in decode (`enc_out` None) they are read from there. K and V
+    are f32 when the encoder ran in f32 (`encdec.encoder_forward`)."""
+    b, s, _ = h.shape
+    q = layers.matmul(h, p["wq"]).reshape(b, s, cfg.n_heads,
+                                          cfg.head_dim).transpose(1, 2)
+    if enc_out is None:  # decode: encoder K/V precomputed at prefill
+        k, v = cache["xk"], cache["xv"]
+    else:
+        k, v = (layers.matmul(enc_out, p[w]).reshape(
+            b, -1, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+            for w in ("wk", "wv"))
+        if cache is not None:
+            cache["xk"].copy_(k)
+            cache["xv"].copy_(v)
+    o = attn_mod.full_attention(q, k, v, scale=cfg.head_dim ** -0.5,
+                                causal=False)
+    o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    return layers.matmul(o, p["wo"])
+
+
 def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, cache: Optional[dict] = None,
                     decode_pos: Optional[int] = None,
+                    enc_out: Optional[torch.Tensor] = None,
                     impl: str = "auto") -> tuple:
     """x (B, S, D) embedded inputs -> (final-normed hidden, cache). The
     cache, when given, is updated in place and returned. Without a cache
     the forward is differentiable: each layer reads views of the stacked
-    leaves (`layer_slice`), so gradients reach the stacked tensors."""
+    leaves (`layer_slice`), so gradients reach the stacked tensors.
+    `enc_out` (B, S_enc, D), the encoder states of an encoder-decoder
+    model, feeds each layer's cross-attention (not needed in decode)."""
     for i, seg in enumerate(build_segments(cfg)):
         seg_params = params["segments"][f"seg{i}"]
         seg_cache = None if cache is None else cache[f"seg{i}"]
@@ -217,7 +253,7 @@ def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions=positions,
                     cache=None if seg_cache is None
                     else layer_slice(seg_cache[f"sub{j}"], step),
-                    decode_pos=decode_pos, impl=impl)
+                    decode_pos=decode_pos, enc_out=enc_out, impl=impl)
     return apply_norm(x, params.get("final_norm"), cfg), cache
 
 
@@ -225,13 +261,30 @@ def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 # cache init
 # ---------------------------------------------------------------------------
 def init_decoder_cache(batch: int, cache_len: int, cfg: ModelConfig,
-                       device=None) -> dict:
+                       device=None, cross_attn: bool = False,
+                       cross_dtype: Optional[torch.dtype] = None) -> dict:
     """Cache tree matching the parameter layout: per segment and sublayer
     a KV cache stacked on the layer dimension. A windowed sublayer's cache
-    is a ring buffer of min(window, cache_len) slots."""
-    return {f"seg{i}": {f"sub{j}": {"kv": attn_mod.init_kv_cache(
-        batch, cache_len if sub.window is None
-        else min(cache_len, sub.window), cfg, lead=(seg.n_steps,),
-        device=device)}
-        for j, sub in enumerate(seg.subs)}
-        for i, seg in enumerate(build_segments(cfg))}
+    is a ring buffer of min(window, cache_len) slots. With `cross_attn`,
+    each sublayer also holds its cross-attention K and V over the
+    `enc_seq` encoder states (`xk`, `xv`), in `cross_dtype` (default the
+    model's dtype; the encoder's output dtype when a prefill fills it)."""
+    cache: dict = {}
+    for i, seg in enumerate(build_segments(cfg)):
+        subs: dict = {}
+        for j, sub in enumerate(seg.subs):
+            clen = cache_len if sub.window is None \
+                else min(cache_len, sub.window)
+            sc = {"kv": attn_mod.init_kv_cache(batch, clen, cfg,
+                                               lead=(seg.n_steps,),
+                                               device=device)}
+            if cross_attn:
+                shape = (seg.n_steps, batch, cfg.n_kv_heads, cfg.enc_seq,
+                         cfg.head_dim)
+                for name in ("xk", "xv"):
+                    sc[name] = torch.zeros(shape,
+                                           dtype=cross_dtype or dtype_of(cfg),
+                                           device=device)
+            subs[f"sub{j}"] = sc
+        cache[f"seg{i}"] = subs
+    return cache

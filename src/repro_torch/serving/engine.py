@@ -2,8 +2,9 @@
 `repro.serving.engine`).
 
 `Engine.generate` runs one prefill over the prompt, then
-`max_new_tokens` decode steps at positions prompt_len, prompt_len + 1, …,
-exactly as the reference does (its last step's token is drawn and
+`max_new_tokens` decode steps at positions p0, p0 + 1, …, p0 =
+prompt_len + n_patches + meta_tokens (the VLM's patches and hymba's meta
+tokens precede the prompt), exactly as the reference does (its last step's token is drawn and
 dropped, so the key schedule matches). Greedy decoding is `argmax`. With
 `temperature > 0` a token is `jax.random.categorical(key, logits / T)`
 reproduced on the port's threefry (`core.rng`): JAX's default "low"
@@ -40,11 +41,13 @@ class Engine:
         self.cfg = serve_cfg
 
     def generate(self, batch: dict) -> torch.Tensor:
-        """batch: {"tokens": (B, S) prompt ids}. Returns (B, max_new_tokens)
+        """batch: {"tokens": (B, S) prompt ids} (with "frames" for
+        whisper, "patch_embed" for the VLM). Returns (B, max_new_tokens)
         generated ids (int64, on the prompt's device)."""
         cfg, m = self.cfg, self.model
         tokens = batch["tokens"]
         prompt_len = tokens.shape[1]
+        pos0 = prompt_len + (m.cfg.n_patches or 0) + (m.cfg.meta_tokens or 0)
         logits, cache = m.prefill(self.params, batch,
                                   prompt_len + cfg.max_new_tokens)
         key = rng.key(cfg.seed, device=tokens.device)
@@ -52,8 +55,7 @@ class Engine:
         tok = self._sample(logits, key)
         for i in range(cfg.max_new_tokens):
             out.append(tok)
-            logits, cache = m.decode_step(self.params, cache, tok,
-                                          prompt_len + i)
+            logits, cache = m.decode_step(self.params, cache, tok, pos0 + i)
             if cfg.temperature > 0.0:  # greedy decoding reads no key
                 key = rng.fold_in(key, i)
             tok = self._sample(logits, key)

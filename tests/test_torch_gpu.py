@@ -377,6 +377,44 @@ def test_attention_kernel_matches_plain_version(cuda, b, hq, hkv, s, d, kw,
             assert gap > atol, name
 
 
+# K2 at the S6 and S7 serving shapes (dtype, B, Hq, Hkv, S, d, kw):
+# hymba's local and global layers (groups of 5 at head_dim 64) over its
+# 32- and 2,048-token prompts with 128 meta tokens, whisper's encoder
+# (non-causal over 1,500 frames, f32 by JAX's promotion of its f32 frames)
+# and decoder (bf16 at 32 and 448 tokens), pixtral (groups of 4 over
+# 1,024 patches and 2,048 tokens)
+S6_S7_ATTN_SHAPES = [
+    (torch.bfloat16, 4, 25, 5, 160, 64, {"window": 1024}),
+    (torch.bfloat16, 4, 25, 5, 2176, 64, {"window": 1024}),
+    (torch.bfloat16, 4, 25, 5, 2176, 64, {}),
+    (torch.float32, 4, 12, 12, 1500, 64, {"causal": False}),
+    (torch.bfloat16, 4, 12, 12, 32, 64, {}),
+    (torch.bfloat16, 4, 12, 12, 448, 64, {}),
+    (torch.bfloat16, 4, 32, 8, 3072, 128, {}),
+]
+
+
+@pytest.mark.parametrize("dtype,b,hq,hkv,s,d,kw", S6_S7_ATTN_SHAPES)
+def test_attention_kernel_at_s6_s7_shapes(cuda, dtype, b, hq, hkv, s, d, kw):
+    """Where hymba's window bites (2,176 positions over 1,024), a control
+    requires the kernel to miss the bar against the plain version
+    without the window; the non-causal encoder likewise against the
+    causal one."""
+    q, k, v = _qkv(b, hq, hkv, s, d, dtype, s + hq, cuda)
+    out, ref = _attn_pair(q, k, v, kw)
+    atol, rtol = ATTN_BARS[dtype]
+    torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+    controls = []
+    if kw.get("window", s) < s:
+        controls.append({**kw, "window": None})
+    if kw.get("causal") is False:
+        controls.append({**kw, "causal": True})
+    for ctl_kw in controls:
+        ctl = multi_head_attention(q, k, v, scale=d ** -0.5, impl="ref",
+                                   **ctl_kw).float()
+        assert (out - ctl).abs().max().item() > atol, ctl_kw
+
+
 def test_attention_kernel_bf16(cuda):
     q, k, v = _qkv(1, 4, 4, 256, 64, torch.bfloat16, 9, cuda)
     out, ref = _attn_pair(q, k, v, {})

@@ -74,6 +74,12 @@ MODEL_TRAINING_MODULES = {"repro_torch.kernels.attention.kernel",
 S2_MODULES = {"repro_torch.configs.gemma2_9b", "repro_torch.configs.gemma_7b",
               "repro_torch.configs.minitron_4b", "repro_torch.core.rng",
               "repro_torch.models.transformer"}
+# the int8 cache (S3), hymba (S6), whisper and pixtral (S7)
+S3_S7_MODULES = {"repro_torch.configs.hymba_1p5b",
+                 "repro_torch.configs.whisper_small",
+                 "repro_torch.configs.pixtral_12b", "repro_torch.models.ssm",
+                 "repro_torch.models.encdec", "repro_torch.models.attention",
+                 "repro_torch.serving.engine", "repro_torch.launch.serve"}
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -113,6 +119,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
     assert MODEL_TRAINING_MODULES <= names, MODEL_TRAINING_MODULES - names
     assert S2_MODULES <= names, S2_MODULES - names
+    assert S3_S7_MODULES <= names, S3_S7_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
@@ -300,19 +307,11 @@ def test_unported_architectures_raise(arch):
 
 
 OUT_OF_SLICE_CONFIG = [
-    ({"opt_int8_cache": True}, "S3"),
-    ({"opt_int8_cache": True, "sliding_window": 16,
-      "layer_pattern": "alt_local_global"}, "S3"),
-    ({"opt_pad_heads": True, "qk_norm": True}, "S3"),
-    ({"layer_pattern": "hymba_global_set", "sliding_window": 16,
-      "global_layer_ids": (0,)}, "S6"),
-    ({"opt_pad_heads": True}, "S3"),
     ({"n_experts": 4}, "S4"),
+    ({"n_experts": 4, "opt_int8_cache": True}, "S4"),
     ({"use_mla": True}, "S5"),
-    ({"family": "hybrid"}, "S6"),
-    ({"family": "encdec"}, "S7"),
-    ({"n_patches": 8}, "S7"),
-    ({"use_rope": False}, "S7"),
+    ({"mtp": True}, "S5"),
+    ({"family": "encdec", "use_mla": True}, "S5"),
 ]
 
 
@@ -321,6 +320,24 @@ def test_out_of_slice_config_raises(overrides, item):
     cfg = get_config("olmo-1b").reduced().with_(**overrides)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         build_model(cfg)
+
+
+# the structures S3, S6 and S7 ported, which the slices before refused
+@pytest.mark.parametrize("arch,kind", [("hymba-1.5b", "hymba"),
+                                       ("whisper-small", "encdec"),
+                                       ("pixtral-12b", "transformer")])
+@pytest.mark.parametrize("opts", [{}, {"opt_int8_cache": True},
+                                  {"opt_pad_heads": True},
+                                  {"opt_int8_cache": True,
+                                   "opt_pad_heads": True}])
+def test_ported_config_builds(arch, kind, opts):
+    cfg = get_config(arch).with_(**opts)
+    assert build_model(cfg).kind == kind
+    cache = build_model(cfg.reduced().with_(**opts)).init_cache(
+        1, 4, device="cpu")
+    leaves = cache["kv"] if kind == "hymba" else cache["seg0"]["sub0"]["kv"]
+    assert leaves["k"].dtype == (torch.int8 if opts.get("opt_int8_cache")
+                                 else torch.float32)
 
 
 def test_training_entry_points_raise():
