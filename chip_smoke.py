@@ -86,7 +86,8 @@ drives the port's main paths:
   steps each on the fused gbma route and through the transport (gbma,
   receiver momentum): K2 in every olmo-1b forward, K3 and the backward in
   every rwkv6-7b layer, K1 in every slot, each step timed whole and by
-  part with its profile and peak memory; the kernel route held to the
+  part with its peak memory (the fused route's also profiled); the
+  kernel route held to the
   plain route on the first batch, and the card to the CPU on the reduced
   models;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
@@ -121,7 +122,22 @@ drives the port's main paths:
   route held to the plain route, decode held to prefill, each prefill
   and decode step timed and profiled, pixtral's initialization peak,
   hymba's selective scan timed; and the reduced models on the card
-  against the CPU.
+  against the CPU;
+* MoE and MLA ("serve S4-S5"): K2 at llama4-maverick's shapes (groups
+  of 5 at head_dim 128; its 8,192-token window at 16,384 tokens) against
+  its plain version and timed beside its bound and the library call;
+  llama4-maverick-400b-a17b (2 of its 48 layers: one local dense and one
+  global MoE layer) and deepseek-v3-671b (4 of its 61: three dense and
+  one MoE layer, MLA attention in plain PyTorch, its MTP head's weights)
+  at full width in bf16 (B = 4 at 32- and 2048-token prompts; maverick
+  also at B = 1 over 16,384) through `Engine.generate`, each prefill and
+  decode step timed and profiled, the sublayers timed alone, capacity's
+  dropped share of each MoE prefill's token-slots, the kernel route
+  held to the plain route over the batch rows where no token's experts
+  differ between them (maverick; deepseek-v3's path runs no kernel), the
+  initialization peaks; and the reduced models
+  on the card against the CPU, with decode after a dropless prefill
+  against a longer prefill.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Any failed phase raises, so the script exits
@@ -2836,17 +2852,18 @@ def time_wkv(errs: dict) -> list:
     return rows
 
 
-def build_served(arch: str = "rwkv6-7b") -> tuple:
-    """`arch` at full width and depth with seeded random weights on the
-    card, and the peak device memory of their initialization (each leaf
-    is drawn in f32 before its cast to bf16)."""
+def build_served(arch: str = "rwkv6-7b", **overrides) -> tuple:
+    """`arch` at full width and depth (or the config `overrides`, such as
+    a depth cut) with seeded random weights on the card, and the peak
+    device memory of their initialization (each leaf is drawn in f32
+    before its cast to bf16; MoE experts one expert at a time)."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    model, params = _serve_model(arch)
+    model, params = _serve_model(arch, **overrides)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     weights = torch.cuda.memory_allocated() - base
@@ -2867,14 +2884,14 @@ def _leaves(tree):
         yield tree
 
 
-def _serve_model(arch: str, params=None, impl: str = "auto"):
-    """(model, params) at full width and depth; weights from a generator
-    seeded 0 on the card unless `params` is given. `impl` picks the
-    route of the model's kernel."""
+def _serve_model(arch: str, params=None, impl: str = "auto", **overrides):
+    """(model, params) at full width and depth (or the config
+    `overrides`); weights from a generator seeded 0 on the card unless
+    `params` is given. `impl` picks the route of the model's kernel."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
 
-    model = build_model(get_config(arch), impl)
+    model = build_model(get_config(arch).with_(**overrides), impl)
     return model, params if params is not None else model.init_params(
         device="cuda")
 
@@ -2953,7 +2970,7 @@ def run_serve_main_path(ops, model, params, *, kernel: str,
         wall = time.perf_counter() - t0
         launches = ops.launch_count
         ok_vocab = bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
-        log(f"serve {cfg.arch_id} (full: {cfg.n_layers} layers, d_model "
+        log(f"serve {cfg.arch_id} ({cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, {cfg.dtype}) B={batch} prompt={s} "
             f"new={SERVE_NEW_TOKENS}: wall {wall:.4f} s, "
             f"{batch * SERVE_NEW_TOKENS / wall:.1f} tok/s, "
@@ -2978,9 +2995,10 @@ def check_serve_routes(model, params, prompts: tuple = SERVE_PROMPTS,
     prompt) against prefill(S + 1)."""
     import torch
 
+    from repro_torch.models.model import build_model
+
     cfg = model.cfg
-    ref_model = _serve_model(cfg.arch_id, params, impl="ref")[0] \
-        if plain else None
+    ref_model = build_model(cfg, impl="ref") if plain else None
     out = {}
     for s in prompts:
         full_in = _serve_batch(cfg, s + 1, seed=2, batch=batch)
@@ -3278,12 +3296,13 @@ def flex_library(q, k, v, scale: float, window, cap) -> tuple:
 def check_attention_cases(phase: str, cases: tuple) -> list:
     """K2 at each case (label, dtype, B, Hq, Hkv, S, d, causal, window,
     softcap) against its plain version (`ATTN_BARS`: bf16 atol 3e-2, f32
-    atol 5e-5 + rtol 1e-4 |ref|), timed with CUDA events beside its bound
-    (by operations over the live pairs), the plain version and the one
-    PyTorch call that computes the same function:
-    `F.scaled_dot_product_attention` without a softcap or window
-    (`enable_gqa` for groups), compiled `flex_attention` with them
-    (`flex_library`), itself held to the plain version first. Under a
+    atol 5e-5 + rtol 1e-4 |ref|; `plain_attention`), timed with CUDA
+    events beside its bound (by operations over the live pairs), the
+    plain version and the one PyTorch call that computes the same
+    function: `F.scaled_dot_product_attention` without a softcap or a
+    window that masks keys (`enable_gqa` for groups), compiled
+    `flex_attention` with them (`flex_library`), itself held to the plain
+    version first. Under a
     softcap q is scaled by S2_SOFTCAP_Q_SCALE so the logits reach the
     cap. Controls hold the kernel against the plain version without the
     softcap, without the window where it bites, and with the causal mask
@@ -3291,7 +3310,8 @@ def check_attention_cases(phase: str, cases: tuple) -> list:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.attention.ops import multi_head_attention
+    from repro_torch.kernels.attention.ops import (multi_head_attention,
+                                                   plain_attention)
 
     rows = []
     for label, dt, b, hq, hkv, s, d, causal, window, cap in cases:
@@ -3303,7 +3323,7 @@ def check_attention_cases(phase: str, cases: tuple) -> list:
         kw = {"scale": scale, "causal": causal, "window": window,
               "softcap": cap}
         ker = multi_head_attention(q, k, v, impl="kernel", **kw).float()
-        ref = multi_head_attention(q, k, v, impl="ref", **kw).float()
+        ref = plain_attention(q, k, v, **kw).float()
 
         def excess(out) -> float:
             return ((out.float() - ref).abs() - rtol * ref.abs()).max().item()
@@ -3318,11 +3338,11 @@ def check_attention_cases(phase: str, cases: tuple) -> list:
         if not causal:
             controls["causal mask"] = {**kw, "causal": True}
         for name, ckw in controls.items():
-            ctl = multi_head_attention(q, k, v, impl="ref", **ckw).float()
+            ctl = plain_attention(q, k, v, **ckw).float()
             controls[name] = (ker - ctl).abs().max().item()
             ok = ok and controls[name] > atol
             del ctl
-        if cap is None and window is None:
+        if cap is None and (window is None or window >= s):
             gqa = {"enable_gqa": True} if hkv != hq else {}
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, is_causal=causal, scale=scale, **gqa)
@@ -3338,8 +3358,8 @@ def check_attention_cases(phase: str, cases: tuple) -> list:
         reps = 5 if s > 4096 or dt == "float32" else 20
         ker_ms = cuda_ms(lambda: multi_head_attention(q, k, v, impl="kernel",
                                                       **kw), reps)
-        plain_ms = cuda_ms(lambda: multi_head_attention(q, k, v, impl="ref",
-                                                        **kw), 2, warmup=1)
+        plain_ms = cuda_ms(lambda: plain_attention(q, k, v, **kw), 2,
+                           warmup=1)
         lib_ms = cuda_ms(lib, reps)
         bound, bound_by = attention_bound(b, hq, s, d, dt, hkv=hkv,
                                           window=window, causal=causal)
@@ -3780,6 +3800,322 @@ def serve_s6_s7(attn_ops) -> tuple:
         attn_ops, [(a, {}) for a in S67_PROMPTS], phase="serve S6-S7 (e)")
     mark("(e)")
     log(f"serve S6-S7: seconds by part {json.dumps(seconds)}")
+    return launches, record
+
+
+# --------------------------------------------------------------------------
+# MoE and MLA (S4, S5): llama4-maverick-400b-a17b and deepseek-v3-671b at
+# full width with their depth cut, maverick's attention through K2
+# --------------------------------------------------------------------------
+# the layers kept of each: maverick's first (local dense, global MoE)
+# pair of 48 layers (18.55 B parameters, 37.1 GB in bf16: two pairs would
+# take 70.1 GB), deepseek-v3's three dense layers and one MoE layer of 61
+# (14.39 B with its MTP head, 28.8 GB)
+S45_LAYERS = {"llama4-maverick-400b-a17b": 2, "deepseek-v3-671b": 4}
+# maverick also at B = 1 over 16,384 tokens, where its dense layers'
+# 8,192 window masks keys in prefill and decode
+S45_LONG_PROMPT = {"llama4-maverick-400b-a17b": 16384}
+# K2's shapes on maverick's path (as S2_ATTN_CASES): 40 query heads over 8
+# kv heads at head_dim 128; its dense layers pass the window, which bites
+# only past 8,192 positions
+S45_ATTN_CASES = (
+    ("maverick dense (window 8192), prompt 2048", "bfloat16", 4, 40, 8,
+     2048, 128, True, 8192, None),
+    ("maverick MoE layer (global), prompt 2048", "bfloat16", 4, 40, 8,
+     2048, 128, True, None, None),
+    ("maverick dense (window 8192), B=1 prompt 16384", "bfloat16", 1, 40,
+     8, 16384, 128, True, 8192, None),
+)
+# (e) the reference's decode-vs-prefill bars (atol, with rtol 1e-2;
+# tests/test_decode_consistency.py), dropless: a grouped prefill and a
+# one-token decode drop tokens differently by design
+S45_DECODE_BARS = {"llama4-maverick-400b-a17b": 5e-3,
+                   "deepseek-v3-671b": 2e-2}
+S45_DROPLESS = 100.0
+# (d) reduced f32 models, the card against the CPU, of the largest logit
+S45_CPU_BAR = 1e-5
+
+
+@contextlib.contextmanager
+def recorded_routing(replay=None):
+    """Records every MoE layer's routing (`models.moe.route`, which
+    `moe_apply` looks up at each call) while the block runs: a list of
+    ((dispatch (G, Tg, E, C) bool, combine, aux), top_k). With `replay`,
+    such a list recorded before, each call returns the recorded routing
+    of its turn instead of routing its own tokens."""
+    from repro_torch.models import moe
+
+    real, seen = moe.route, []
+
+    def route(xg, p, cfg):
+        out = real(xg, p, cfg) if replay is None else replay[len(seen)][0]
+        seen.append((out, cfg.top_k))
+        return out
+
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def _drop_shares(seen) -> list:
+    """Each MoE layer's share of token-slots (tokens × top_k) that
+    capacity dropped."""
+    return [1.0 - d.sum().item() / (d.shape[0] * d.shape[1] * k)
+            for (d, _, _), k in seen]
+
+
+def check_s45_routes(model, params, prompts: tuple, batch: int,
+                     plain: bool = True) -> dict:
+    """(c) At each prompt length the bf16 prefill's logits are finite and
+    each MoE layer's dropped share of token-slots is printed; with
+    `plain`, the kernel route against the plain route (`impl="ref"`): a
+    token whose chosen experts differ between the two routes in any MoE
+    layer (a near-tie that the routes' bf16 roundings tip apart, or a
+    slot that a flip upstream in its group took or freed) is counted as
+    flipped, and the logits are held at BF16_LOGIT_BAR over the batch
+    rows where no token flipped; and over every row, against the plain
+    route given the kernel route's routing (its dispatch, combine weights
+    and aux replayed), so the two differ by their attention alone."""
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import build_segments
+
+    cfg = model.cfg
+    ref_model = build_model(cfg, impl="ref") if plain else None
+    n_moe = sum(seg.n_steps * sum(sub.kind == "moe" for sub in seg.subs)
+                for seg in build_segments(cfg))
+
+    def recorded_all(name, seen):
+        # the patched `moe.route` saw each MoE layer once, or the shares,
+        # flips and replay below would stand on nothing
+        if len(seen) != n_moe:
+            raise AssertionError(
+                f"serve S4-S5 (c) {cfg.arch_id}: {name} recorded "
+                f"{len(seen)} MoE routings, the model has {n_moe} MoE "
+                "layers")
+
+    out = {}
+    for s in prompts:
+        inputs = _serve_batch(cfg, s, seed=2, batch=batch)
+        with recorded_routing() as seen:
+            ker, _ = model.prefill(params, inputs, s + 1)
+        recorded_all("the kernel route", seen)
+        row = {"drop_share": _drop_shares(seen),
+               "finite": bool(torch.isfinite(ker).all())}
+        ok, msg = row["finite"], ""
+        if plain:
+            with recorded_routing() as seen_ref:
+                ref, _ = ref_model.prefill(params, inputs, s + 1)
+            recorded_all("the plain route", seen_ref)
+            with recorded_routing(replay=seen) as seen_pinned:
+                pinned, _ = ref_model.prefill(params, inputs, s + 1)
+            recorded_all("the replayed plain route", seen_pinned)
+            flipped = torch.zeros((batch, s), dtype=torch.bool,
+                                  device=ker.device)
+            for ((a, _, _), _), ((b, _, _), _) in zip(seen, seen_ref):
+                flipped |= (a.any(-1) != b.any(-1)).any(-1).reshape(batch, s)
+            rows = ~flipped.any(-1)
+            row["flipped_tokens"] = int(flipped.sum())
+            row["rows_held"] = int(rows.sum())
+            row["routes_rel"] = _rel_to_max(ker[rows], ref[rows]) \
+                if rows.any() else None
+            row["routes_pinned_rel"] = _rel_to_max(ker, pinned)
+            ok = ok and row["routes_pinned_rel"] <= BF16_LOGIT_BAR and (
+                row["routes_rel"] is None
+                or row["routes_rel"] <= BF16_LOGIT_BAR)
+            rel = "none held" if row["routes_rel"] is None \
+                else f"{row['routes_rel']:.3e}"
+            msg = (f"; kernel vs plain route: {row['flipped_tokens']} of "
+                   f"{batch * s} tokens routed differently, logits over the "
+                   f"{row['rows_held']} rows without one max|diff|/max|logit|"
+                   f" {rel}, over all rows with the kernel route's routing "
+                   f"replayed {row['routes_pinned_rel']:.3e} (bar "
+                   f"{BF16_LOGIT_BAR})")
+        log(f"serve S4-S5 (c) {cfg.arch_id} B={batch} prompt={s}: logits "
+            f"finite {row['finite']}; capacity dropped "
+            + ", ".join(f"{x:.4f}" for x in row["drop_share"])
+            + f" of each MoE layer's token-slots{msg} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"serve S4-S5 (c) {cfg.arch_id} prompt={s}")
+        out[s] = row
+    return out
+
+
+def time_s45_layers(model, params, s: int = 2048) -> dict:
+    """The prefill's sublayers alone at (B = 4, `s`) on bf16 standard-
+    normal inputs, CUDA events: each kind of attention (K2 with and
+    without the window, or MLA's plain prefill) and feed-forward (the
+    dense MLP, the MoE layer with its routing), ms a call and a prefill's
+    worth (times the layers that run it)."""
+    import torch
+
+    from repro_torch.models import attention, mla, moe
+    from repro_torch.models.layers import layer_slice, mlp_apply
+    from repro_torch.models.transformer import build_segments
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((SERVE_BATCH, s, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    pos = torch.arange(s, device="cuda")
+    rows = {}
+    for i, seg in enumerate(build_segments(cfg)):
+        for j, sub in enumerate(seg.subs):
+            sp = layer_slice(params["segments"][f"seg{i}"][f"sub{j}"], 0)
+            if cfg.use_mla:
+                name = "attention: MLA prefill (plain)"
+                attn = lambda: mla.mla_apply(  # noqa: E731
+                    x, sp["attn"], cfg, positions=pos)
+            else:
+                name = f"attention: K2, window {sub.window}"
+                attn = lambda: attention.attn_apply(  # noqa: E731
+                    x, sp["attn"], cfg, positions=pos, window=sub.window)
+            if sub.kind == "moe":
+                ffn_name = "MoE layer (routing, dispatch, experts, combine)"
+                ffn = lambda: moe.moe_apply(x, sp["moe"], cfg)  # noqa: E731
+            else:
+                ffn_name = "dense MLP"
+                ffn = lambda: mlp_apply(x, sp["mlp"], cfg)  # noqa: E731
+            for key, fn in ((name, attn), (ffn_name, ffn)):
+                if key not in rows:
+                    rows[key] = {"ms": cuda_ms(fn, 3, warmup=1), "layers": 0}
+                rows[key]["layers"] += seg.n_steps
+    for row in rows.values():
+        row["ms_per_prefill"] = row["ms"] * row["layers"]
+    log(f"serve S4-S5 (b) {cfg.arch_id} sublayers at B={SERVE_BATCH}, "
+        f"S={s}: " + "; ".join(f"{k} {r['ms']:.3f} ms x {r['layers']}"
+                                for k, r in rows.items()))
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_s45_card_vs_cpu(attn_ops) -> dict:
+    """(d) Each reduced model in f32 from one CPU initialization: prefill
+    past maverick's reduced window of 16 (S2_CPU_PROMPT tokens) and
+    S2_CPU_STEPS decode steps on the card (K2's f32 kernel for maverick;
+    MLA is plain PyTorch on both) against the CPU, logits within
+    S45_CPU_BAR of the largest, with the configs' own capacity; (e) on
+    the card, dropless (S45_DROPLESS), prefill(S) + decode against
+    prefill(S + 1) at the reference's bars (`S45_DECODE_BARS`, rtol 1e-2)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for arch in S45_LAYERS:
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        cpu_params = model.init_params(device="cpu")
+        cuda_params = _tree_map(lambda x: x.cuda(), cpu_params)
+        max_len = S2_CPU_PROMPT + S2_CPU_STEPS
+        t = _serve_batch(cfg, max_len, seed=4, batch=2,
+                         device="cpu")["tokens"]
+        runs = {}
+        attn_ops.launch_count = 0
+        for dev, params in (("cuda", cuda_params), ("cpu", cpu_params)):
+            td = t.to(dev)
+            logits, cache = model.prefill(
+                params, {"tokens": td[:, :S2_CPU_PROMPT]}, max_len)
+            seq = [logits.cpu()]
+            for i in range(S2_CPU_STEPS):
+                pos = S2_CPU_PROMPT + i
+                logits, cache = model.decode_step(params, cache, td[:, pos],
+                                                  pos)
+                seq.append(logits.cpu())
+            runs[dev] = seq
+            if dev == "cuda":
+                launches = attn_ops.launch_count
+        worst = max(_rel_to_max(a, b) for a, b in zip(runs["cuda"],
+                                                      runs["cpu"]))
+        dropless = build_model(cfg.with_(capacity_factor=S45_DROPLESS))
+        td = t.cuda()
+        _, cache = dropless.prefill(
+            cuda_params, {"tokens": td[:, :S2_CPU_PROMPT]}, max_len)
+        inc, _ = dropless.decode_step(cuda_params, cache,
+                                      td[:, S2_CPU_PROMPT], S2_CPU_PROMPT)
+        full, _ = dropless.prefill(
+            cuda_params, {"tokens": td[:, :S2_CPU_PROMPT + 1]}, max_len)
+        bar = S45_DECODE_BARS[arch]
+        excess = ((inc - full).abs() - 1e-2 * full.abs()).max().item()
+        expected = 0 if cfg.use_mla else cfg.n_layers
+        ok = (worst <= S45_CPU_BAR and excess <= bar
+              and launches == expected)
+        log(f"serve S4-S5 (d)-(e) reduced {arch} f32: card vs CPU logits "
+            f"over the prefill ({S2_CPU_PROMPT} tokens) and {S2_CPU_STEPS} "
+            f"decode steps {worst:.3e} of the largest (bar {S45_CPU_BAR}); "
+            f"K2 {launches} launches on the card (expected {expected}); "
+            f"dropless prefill({S2_CPU_PROMPT}) + decode vs prefill("
+            f"{S2_CPU_PROMPT + 1}): max(|diff| - 1e-2|ref|) {excess:.3e} "
+            f"(bar {bar}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"serve S4-S5 (d)-(e) {arch}")
+        out[arch] = {"card_vs_cpu": worst, "decode_excess": excess,
+                     "launches": launches}
+    return out
+
+
+def serve_s4_s5(attn_ops) -> tuple:
+    """The "serve S4-S5" phase: (a) K2 at maverick's shapes
+    (`check_attention_cases`); then llama4-maverick-400b-a17b (2 of 48
+    layers) and deepseek-v3-671b (4 of 61) at full width in bf16 from
+    seeded random weights, each freed before the next (init peak
+    recorded): (b) `Engine.generate` at B = 4 with 32- and 2048-token
+    prompts and 32 new tokens (maverick also at B = 1 with 16,384), K2
+    launches a generate: one a layer of maverick's prefill, none of
+    deepseek-v3's (MLA is plain PyTorch); prefill and decode ms, launches,
+    device busy time and idle share, K2's device ms; the sublayers alone
+    (`time_s45_layers`); (c) `check_s45_routes` (maverick's kernel route
+    against its plain route at B = 4); then (d)-(e)
+    `check_s45_card_vs_cpu`.
+    Returns (K2 launches by run, the record)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def mark(part: str) -> None:
+        torch.cuda.synchronize()
+        seconds[part] = time.perf_counter() - t_phase - sum(seconds.values())
+
+    record = {"attention": check_attention_cases("serve S4-S5 (a)",
+                                                 S45_ATTN_CASES),
+              "models": {}, "seconds": seconds}
+    mark("(a)")
+    launches = {}
+    for arch, n_layers in S45_LAYERS.items():
+        model, params, init = build_served(arch, n_layers=n_layers)
+        cfg = model.cfg
+        per = 0 if cfg.use_mla else cfg.n_layers
+        runs = [(SERVE_PROMPTS, SERVE_BATCH)]
+        if arch in S45_LONG_PROMPT:
+            runs.append(((S45_LONG_PROMPT[arch],), 1))
+        rows = {"init": init, "layers_kept": n_layers}
+        for prompts, batch in runs:
+            served = run_serve_main_path(
+                attn_ops, model, params, kernel="flash_attention",
+                per_generate=per, prompts=prompts, batch=batch)
+            # deepseek-v3's path runs no kernel: its two routes are one
+            routes = check_s45_routes(
+                model, params, prompts, batch,
+                plain=batch == SERVE_BATCH and not cfg.use_mla)
+            times = serve_timing(model, params, "flash_attention", prompts,
+                                 batch)
+            for s in prompts:
+                key = f"B={batch} prompt {s}"
+                rows[key] = {**served[s], **routes[s], **times[s]}
+                launches[f"{arch} {key}"] = served[s]["launches"]
+        rows["sublayers"] = time_s45_layers(model, params)
+        record["models"][arch] = rows
+        del model, params
+        torch.cuda.empty_cache()
+        mark(f"(b)-(c) {arch}")
+    record["card_vs_cpu"] = check_s45_card_vs_cpu(attn_ops)
+    mark("(d)-(e)")
+    log(f"serve S4-S5: seconds by part {json.dumps(seconds)}")
     return launches, record
 
 
@@ -4383,10 +4719,11 @@ MODEL_TRAIN_ARCHS = ("olmo-1b", "rwkv6-7b")
 # the largest leaf's f32 noise draw do not fit one 80 GB card beside the
 # activations (the reference shards it, fsdp=True)
 RWKV_TRAIN_LAYERS = 4
-# the routes whose step (g) profiles (a profile of a transport step costs
-# ~10 s of profiler overhead; gbma through the transport issues what
-# momentum's does but the carry)
-MODEL_TRAIN_PROFILED = ("gbma fused", "momentum transport")
+# the routes whose step (g) profiles: the fused route only. A profile of
+# a transport step costs 14-24 s of profiler overhead a model on an H100;
+# "train" (d) profiles repro-100m's transport step, and PERF.md keeps
+# the two models' transport profiles from earlier runs
+MODEL_TRAIN_PROFILED = ("gbma fused",)
 # the WKV backward at rwkv6-7b's training shape (B, H, T, D) and at a
 # transport node's (one example a node), then the reference tests' shapes
 # and a length off the chunks
@@ -5049,6 +5386,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     s67_launches, s67_record = serve_s6_s7(attn_ops)
     elapsed('serve S6-S7')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # MoE and MLA (S4, S5): llama4-maverick (K2 in every layer's prefill)
+    # and deepseek-v3 (MLA in plain PyTorch) at full width, depth cut
+    s45_launches, s45_record = serve_s4_s5(attn_ops)
+    elapsed('serve S4-S5')
 
     primary = timings[0]  # the LARGE shape
     ota_entry = {
@@ -5081,7 +5425,7 @@ def main() -> int:
         "launches": sum(r["launches"] for r in served.values())
         + sum(train_launches.values()) + model_launches["k2"]
         + sum(s2_launches.values()) + sum(s3_launches.values())
-        + sum(s67_launches.values()),
+        + sum(s67_launches.values()) + sum(s45_launches.values()),
         "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
         "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes; "
         "lse atol 1e-05 + rtol 1e-06",
@@ -5097,10 +5441,12 @@ def main() -> int:
         | {"train olmo-1b (bf16, with lse)": model_launches["k2"]}
         | {f"serve S2 {run}": n for run, n in s2_launches.items()}
         | {f"serve S3 {run}": n for run, n in s3_launches.items()}
-        | {f"serve S6-S7 {run}": n for run, n in s67_launches.items()},
+        | {f"serve S6-S7 {run}": n for run, n in s67_launches.items()}
+        | {f"serve S4-S5 {run}": n for run, n in s45_launches.items()},
         "shapes": attn_timings + s2_record["attention"]
-        + s67_record["attention"],
-        "s2": s2_record, "s3": s3_record, "s6_s7": s67_record, "lse": train_record["attention"],
+        + s67_record["attention"] + s45_record["attention"],
+        "s2": s2_record, "s3": s3_record, "s6_s7": s67_record,
+        "s4_s5": s45_record, "lse": train_record["attention"],
         "bf16_lse": model_record["lse_timing"],
         "bf16_lse_errors": model_record["lse_errors"],
         "train": train_record, "train_models": model_record,

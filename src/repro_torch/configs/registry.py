@@ -1,13 +1,13 @@
 """Architecture registry: `--arch <id>` resolution (port of
 `repro.configs.registry`).
 
-The port knows the models it serves: the dense decoders olmo-1b,
-repro-100m, gemma2-9b, gemma-7b and minitron-4b, the RWKV6 model
-rwkv6-7b, the hybrid hymba-1.5b, the encoder-decoder whisper-small and
-the VLM backbone pixtral-12b.
-Every other architecture of the reference raises `NotImplementedError`
-naming the ROADMAP item that ports it; an unknown id raises `KeyError`,
-as in the reference.
+The port knows every architecture of the reference: the dense decoders
+olmo-1b, repro-100m, gemma2-9b, gemma-7b and minitron-4b, the RWKV6
+model rwkv6-7b, the hybrid hymba-1.5b, the encoder-decoder
+whisper-small, the VLM backbone pixtral-12b and the MoE models
+llama4-maverick-400b-a17b and deepseek-v3-671b (with MLA). An id in
+`PENDING` (none now) raises `NotImplementedError` naming the ROADMAP item
+that ports it; an unknown id raises `KeyError`, as in the reference.
 """
 from __future__ import annotations
 
@@ -16,9 +16,11 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "gemma-7b": "gemma_7b",
     "gemma2-9b": "gemma2_9b",
     "hymba-1.5b": "hymba_1p5b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "minitron-4b": "minitron_4b",
     "olmo-1b": "olmo_1b",
     "pixtral-12b": "pixtral_12b",
@@ -27,11 +29,9 @@ _MODULES = {
     "whisper-small": "whisper_small",
 }
 
-# the reference's other architectures -> the ROADMAP item that ports them
-PENDING = {
-    "llama4-maverick-400b-a17b": "S4",
-    "deepseek-v3-671b": "S5",
-}
+# architectures of the reference not ported yet -> the ROADMAP item that
+# ports them (none: S4 and S5 were the last)
+PENDING: dict = {}
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -146,3 +146,26 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"impl={impl!r}: the attention kernel runs on CUDA "
                      f"tensors, got a {device} tensor (use impl='ref' for "
                      "the plain version)")
+
+
+# past this many bytes of f32 scores the plain version runs one kv head at
+# a time: at (1, 40, 16384, 128) the scores are 43 GB, the softmax's as
+# many again
+PLAIN_SCORE_BYTES = 8 * 2**30
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    **kw) -> torch.Tensor:
+    """`multi_head_attention(impl="ref")`, one kv head (and its group of
+    query heads) at a time where the (B, Hq, Sq, Skv) f32 scores would pass
+    PLAIN_SCORE_BYTES: the same function over slices of the heads. Below
+    that the heads run together, so that smaller shapes keep the plain
+    time they were measured at."""
+    b, hq, sq, _ = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if b * hq * sq * skv * 4 <= PLAIN_SCORE_BYTES:
+        return multi_head_attention(q, k, v, impl="ref", **kw)
+    g = hq // hkv
+    return torch.cat([multi_head_attention(
+        q[:, h * g:(h + 1) * g], k[:, h:h + 1], v[:, h:h + 1], impl="ref",
+        **kw) for h in range(hkv)], dim=1)

@@ -30,9 +30,11 @@ layers in Python, so a layer's flag is known on the host: a global
 layer passes `window=None` (to K2 and to `decode_attention`), which is
 the function the flag computes.
 
-Out of this slice: the sharding calls (M8). The reference's blockwise
-jnp attention has no counterpart: serving takes K2 and training the
-flash backward, whatever `opt_flash_vjp` says.
+Out of this slice: the sharding calls (M8). `blockwise_attention`, the
+reference's blockwise attention, serves MLA's prefill past 1,024
+positions (`models.mla`) as in the reference; this module's own
+attention takes K2 in serving and the flash backward in training,
+whatever `opt_flash_vjp` says.
 """
 from __future__ import annotations
 
@@ -106,6 +108,61 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, causal: bool = True,
+                        block_q: int = 512,
+                        block_kv: int = 1024) -> torch.Tensor:
+    """The reference's blockwise (flash-style) attention, in plain
+    PyTorch: q (B, Hq, Sq, d), k (B, Hkv, Skv, d), v (B, Hkv, Skv, dv)
+    -> (B, Hq, Sq, dv) in q's dtype. Each block of `block_q` queries
+    walks the key blocks of `block_kv` in order with f32 online-softmax
+    accumulators, so at most one (block_q, block_kv) score tile a head is
+    held (MLA's prefill at 2,048 tokens and 128 heads would hold 8.6 GB of
+    f32 scores a layer in `full_attention`). A key block wholly after the
+    query block is skipped under the causal mask: in the reference it adds
+    p = 0 and rescales by exp(0) = 1, so skipping it changes no value. A
+    ragged last block is cut short where the reference pads and masks the
+    padding. (The reference's window, softcap and query offset have no
+    caller here and are left out.) Under autograd every key block's f32
+    scores and probabilities are kept for the backward: the reference
+    rematerializes each block (`jax.checkpoint`), this twin does not yet,
+    so training MLA past 1,024 positions holds them all."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    bq, bk = min(block_q, sq), min(block_kv, skv)
+    qg = q.reshape(b, hkv, g, sq, d)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, hkv, g, sq, dv), dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, bq):
+        q1 = min(q0 + bq, sq)
+        q_idx = torch.arange(q0, q1, device=q.device)
+        q_blk = qg[:, :, :, q0:q1].float()
+        m = torch.full((b, hkv, g, q1 - q0, 1), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, q1 - q0, dv), device=q.device)
+        for k0 in range(0, skv, bk):
+            if causal and k0 > q1 - 1:
+                break  # this and every later key block lie after the queries
+            k1 = min(k0 + bk, skv)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk,
+                             kf[:, :, k0:k1]) * scale
+            mask = _mask(q_idx, torch.arange(k0, k1, device=q.device),
+                         causal=causal, window=None)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                             vf[:, :, k0:k1])
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)
+        out[:, :, :, q0:q1] = (acc / l).to(q.dtype)
+    return out.reshape(b, hq, sq, dv)
 
 
 def sdpa(q, k, v, cfg: ModelConfig, *, causal: bool = True,

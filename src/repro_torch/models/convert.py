@@ -4,7 +4,10 @@
 numpy leaves (e.g. `jax.tree.map(np.asarray, params)`), into the port's:
 the same nested dicts and names, the same stacked leading layer
 dimension, torch tensors on `device`. `None` leaves (the non-parametric
-norms) stay `None`.
+norms) stay `None`. Every leaf keeps its shape and dtype: the MoE
+layers' f32 router and `router_bias` and stacked (layers, experts, ·, ·)
+expert weights, MLA's `kv_b_k` and `kv_b_v` as (layers, H, rank, ·), and
+deepseek-v3's unstacked `mtp` head.
 
 bf16 arrays come out of JAX as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses; their bits go through a 16-bit integer view

@@ -6,10 +6,12 @@
     logits, cache = model.decode_step(params, cache, token, pos)
     losses, metrics = model.train_loss_per_example(params, batch)
 
-Four kinds are ported: "transformer" (the dense decoder, with gemma2's
+Four kinds are ported: "transformer" (the decoder, with gemma2's
 sliding windows, softcaps and sandwich norms, gemma's embedding scale and
-qk-norm, the int8 cache, and the VLM backbone, whose patch embeddings
-`batch["patch_embed"]` are prepended to the prompt), "rwkv" (the RWKV6
+qk-norm, the int8 cache, the VLM backbone, whose patch embeddings
+`batch["patch_embed"]` are prepended to the prompt, and the MoE stacks of
+llama4-maverick and deepseek-v3, the latter with MLA attention and an MTP
+head that only the training loss reads), "rwkv" (the RWKV6
 model of `family == "ssm"`), "hymba" (`family == "hybrid"`: attention and
 SSM heads in parallel, meta tokens prepended at prefill) and "encdec"
 (whisper: the encoder over `batch["frames"]`, the decoder with its
@@ -39,13 +41,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, rwkv
 from repro_torch.models import ssm as hymba
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import apply_norm, matmul
 
 _IMPLS = ("auto", "kernel", "ref")
+# the weight of deepseek-v3's multi-token-prediction loss, the reference's
+MTP_WEIGHT = 0.3
 
 
 class Model:
-    """The reference's family-dispatching façade; MoE and MLA stacks
-    raise naming their ROADMAP item (`transformer.check_slice`)."""
+    """The reference's family-dispatching façade."""
 
     def __init__(self, cfg: ModelConfig, impl: str = "auto"):
         if impl not in _IMPLS:
@@ -53,8 +57,6 @@ class Model:
                 f"impl must be 'auto', 'kernel' or 'ref', got {impl!r}")
         self.kind = {"ssm": "rwkv", "hybrid": "hymba",
                      "encdec": "encdec"}.get(cfg.family, "transformer")
-        if self.kind in ("transformer", "encdec"):
-            tfm.check_slice(cfg)
         self.cfg = cfg
         self.impl = impl
 
@@ -78,8 +80,11 @@ class Model:
 
     def train_loss_per_example(self, params, batch) -> tuple:
         """Per-example losses (B,) of next-token prediction on
-        `batch["tokens"]` (B, S+1), plus metrics {"loss", "aux_loss"}
-        (no ported kind has a router: aux is 0). Hymba prepends its meta
+        `batch["tokens"]` (B, S+1) plus `router_aux_weight` times the MoE
+        layers' summed aux loss, and metrics {"loss": the mean loss before
+        the aux term, "aux_loss"}; with `cfg.mtp`, deepseek-v3's
+        multi-token prediction loss times MTP_WEIGHT is added to each
+        example's (`_mtp_loss`). Hymba prepends its meta
         tokens, the VLM `batch["patch_embed"]`, and neither is predicted;
         whisper's decoder attends over the encoder's states of
         `batch["frames"]`. Differentiable in `params`; the attention's
@@ -88,6 +93,7 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         if self.kind == "rwkv":
             h, _ = rwkv.forward(params, inputs, cfg, impl=self.impl)
         elif self.kind == "hymba":
@@ -102,16 +108,39 @@ class Model:
             x = tfm.embed_tokens(params, inputs, cfg)
             if cfg.n_patches:  # VLM: patches prepended, not predicted
                 x = torch.cat([batch["patch_embed"].to(x.dtype), x], dim=1)
-            h, _ = tfm.decoder_forward(
+            h, _, aux = tfm.decoder_forward(
                 params, x, cfg,
                 positions=torch.arange(x.shape[1], device=tokens.device),
                 enc_out=enc, impl=self.impl)
             h = h[:, cfg.n_patches:]
         losses = tfm.chunked_xent(params, h, labels,
                                   torch.ones_like(labels), cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=losses.device)
-        metrics = {"loss": torch.mean(losses.detach()), "aux_loss": aux}
+        if cfg.mtp:  # deepseek-v3 multi-token prediction (k = 1)
+            losses = losses + MTP_WEIGHT * self._mtp_loss(params, h, inputs,
+                                                          labels)
+        metrics = {"loss": torch.mean(losses.detach()),
+                   "aux_loss": aux.detach()}
         return losses + cfg.router_aux_weight * aux, metrics
+
+    def _mtp_loss(self, params, h, inputs, labels) -> torch.Tensor:
+        """Per-example loss of predicting token t + 2 with the MTP head
+        from (h_t, the embedding of token t + 1): both normed, joined,
+        projected to d_model, through one dense sublayer, then the shared
+        unembedding. The reference recomputes the block in its backward
+        (`jax.checkpoint`), a memory choice with no effect on the values;
+        the port keeps its activations."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        h_in = apply_norm(h[:, :-1], mp["norm_h"], cfg)
+        e_in = apply_norm(tfm.embed_tokens(params, inputs[:, 1:], cfg),
+                          mp["norm_e"], cfg)
+        z = matmul(torch.cat([h_in, e_in], dim=-1), mp["proj"])
+        z, _ = tfm.sublayer_apply(
+            z, mp["block"], tfm.SubLayer("dense", None), cfg,
+            positions=torch.arange(z.shape[1], device=z.device),
+            impl=self.impl)
+        return tfm.chunked_xent(params, z, labels[:, 1:],
+                                torch.ones_like(labels[:, 1:]), cfg)
 
     def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
         """The KV cache of `cache_len` positions (min(window, cache_len)
@@ -164,7 +193,7 @@ class Model:
         cache = tfm.init_decoder_cache(
             b, clen, cfg, device=dev, cross_attn=enc is not None,
             cross_dtype=None if enc is None else enc.dtype)
-        h, cache = tfm.decoder_forward(
+        h, cache, _ = tfm.decoder_forward(
             params, x, cfg, positions=torch.arange(x.shape[1], device=dev),
             cache=cache, enc_out=enc, impl=self.impl)
         return tfm.logits_fn(params, h[:, -1:], cfg)[:, 0], cache
@@ -186,7 +215,7 @@ class Model:
                                      impl=self.impl)
             return tfm.logits_fn(params, h, self.cfg)[:, 0], cache
         x = tfm.embed_tokens(params, token[:, None], self.cfg)
-        h, cache = tfm.decoder_forward(
+        h, cache, _ = tfm.decoder_forward(
             params, x, self.cfg,
             positions=torch.full((1,), pos, device=token.device),
             cache=cache,

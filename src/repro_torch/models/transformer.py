@@ -12,10 +12,14 @@ globally, each with its own stacked parameters and KV cache.
 
 The slice is the dense decoder with its windows, softcaps, sandwich
 norms, embedding scale and qk-norm (S2), the int8 cache (S3), the VLM
-backbone (patch embeddings prepended by `models.model`) and whisper's
-decoder with its cross-attention over the encoder states (S7):
-`check_slice` raises `NotImplementedError` naming the ROADMAP item of
-MoE and MLA (S4, S5).
+backbone (patch embeddings prepended by `models.model`), whisper's
+decoder with its cross-attention over the encoder states (S7), MoE
+sublayers (S4: `models.moe`) and MLA attention with deepseek-v3's MTP
+block (S5: `models.mla`). The MoE stacks take the reference's three
+layouts: deepseek-v3's leading dense segment then an MoE segment,
+llama4's (local dense, global MoE) pairs, and all-MoE stacks. An MoE
+sublayer returns its router's aux loss, which `decoder_forward` sums
+over the stack (0 without MoE layers).
 
 Training (`decoder_forward` under autograd) keeps every layer's
 activations for the backward: the reference's `remat=True` (recompute
@@ -36,14 +40,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers
+from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
 from repro_torch.models.layers import (apply_norm, dtype_of, embed_init,
                                        layer_slice, norm_param)
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
-    kind: str  # 'dense' (the reference also has 'moe', ROADMAP S4)
+    kind: str  # 'dense' | 'moe'
     window: Optional[int]  # sliding window (None = global)
 
 
@@ -53,19 +57,19 @@ class Segment:
     subs: tuple
 
 
-def check_slice(cfg: ModelConfig) -> None:
-    """Raise for MoE and MLA stacks, which are not ported yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE layers are not ported yet (ROADMAP S4)")
-    if cfg.use_mla or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MLA attention and the MTP head are not ported "
-            "yet (ROADMAP S5)")
-
-
 def build_segments(cfg: ModelConfig) -> tuple:
-    check_slice(cfg)
+    if cfg.n_experts and cfg.first_dense_layers:
+        # deepseek-v3: leading dense layers, then a homogeneous MoE stack
+        return (Segment(cfg.first_dense_layers, (SubLayer("dense", None),)),
+                Segment(cfg.n_layers - cfg.first_dense_layers,
+                        (SubLayer("moe", None),)))
+    if cfg.n_experts and cfg.moe_layer_step == 2:
+        # llama4: alternating (local dense, global MoE) pairs
+        return (Segment(cfg.n_layers // 2,
+                        (SubLayer("dense", cfg.sliding_window),
+                         SubLayer("moe", None))),)
+    if cfg.n_experts:
+        return (Segment(cfg.n_layers, (SubLayer("moe", None),)),)
     if cfg.layer_pattern == "alt_local_global":
         # gemma2: local, global, local, ...
         return (Segment(cfg.n_layers // 2,
@@ -80,11 +84,15 @@ def build_segments(cfg: ModelConfig) -> tuple:
 # params
 # ---------------------------------------------------------------------------
 def sublayer_params(gen: torch.Generator, cfg: ModelConfig, lead=(),
-                    cross_attn: bool = False) -> dict:
+                    cross_attn: bool = False, kind: str = "dense") -> dict:
     p = {"ln1": norm_param(cfg, *lead, device=gen.device),
          "ln2": norm_param(cfg, *lead, device=gen.device),
-         "attn": attn_mod.attention_params(gen, cfg, lead=lead),
-         "mlp": layers.mlp_params(gen, cfg, lead=lead)}
+         "attn": (mla_mod.mla_params if cfg.use_mla
+                  else attn_mod.attention_params)(gen, cfg, lead=lead)}
+    if kind == "moe":
+        p["moe"] = moe_mod.moe_params(gen, cfg, lead=lead)
+    else:
+        p["mlp"] = layers.mlp_params(gen, cfg, lead=lead)
     if cfg.norm_style == "sandwich":
         p["post_ln1"] = norm_param(cfg, *lead, device=gen.device)
         p["post_ln2"] = norm_param(cfg, *lead, device=gen.device)
@@ -99,7 +107,9 @@ def sublayer_params(gen: torch.Generator, cfg: ModelConfig, lead=(),
 def init_decoder(gen: torch.Generator, cfg: ModelConfig,
                  cross_attn: bool = False) -> dict:
     """Random parameters on `gen`'s device, in the reference's layout;
-    with `cross_attn`, each sublayer also has its cross-attention."""
+    with `cross_attn`, each sublayer also has its cross-attention; with
+    `cfg.mtp`, deepseek-v3's MTP head (`mtp`: the projection of [h, e],
+    one dense sublayer, two norms), which only the training loss reads."""
     segs = build_segments(cfg)
     dt = dtype_of(cfg)
     params: dict = {
@@ -111,9 +121,18 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig,
             gen, cfg.d_model, (cfg.d_model, cfg.vocab_size), dt)
     params["segments"] = {
         f"seg{i}": {f"sub{j}": sublayer_params(gen, cfg, lead=(seg.n_steps,),
-                                               cross_attn=cross_attn)
-                    for j, _ in enumerate(seg.subs)}
+                                               cross_attn=cross_attn,
+                                               kind=sub.kind)
+                    for j, sub in enumerate(seg.subs)}
         for i, seg in enumerate(segs)}
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": layers.dense_init(gen, 2 * cfg.d_model,
+                                      (2 * cfg.d_model, cfg.d_model), dt),
+            "block": sublayer_params(gen, cfg),
+            "norm_h": norm_param(cfg, device=gen.device),
+            "norm_e": norm_param(cfg, device=gen.device),
+        }
     return params
 
 
@@ -179,16 +198,22 @@ def sublayer_apply(x: torch.Tensor, sp: dict, sub: SubLayer,
                    cache: Optional[dict] = None,
                    decode_pos: Optional[int] = None,
                    enc_out: Optional[torch.Tensor] = None,
-                   impl: str = "auto") -> torch.Tensor:
-    """One decoder layer (attention over `sub.window`; whisper's
-    cross-attention when the layer has one; then the MLP, each followed
-    by its post norm under `norm_style == "sandwich"`); its KV cache,
-    when given, is updated in place."""
+                   impl: str = "auto") -> tuple:
+    """One decoder layer -> (x, aux): attention over `sub.window` (MLA
+    under `cfg.use_mla`); whisper's cross-attention when the layer has
+    one; then the MLP, or the MoE layer whose router's aux loss it
+    returns (None for a dense layer), each followed by its post norm
+    under `norm_style == "sandwich"`. Its KV cache, when given, is
+    updated in place."""
     h = apply_norm(x, sp["ln1"], cfg)
-    a, _ = attn_mod.attn_apply(
-        h, sp["attn"], cfg, positions=positions, window=sub.window,
-        cache=None if cache is None else cache["kv"],
-        decode_pos=decode_pos, impl=impl)
+    kv = None if cache is None else cache["kv"]
+    if cfg.use_mla:
+        a, _ = mla_mod.mla_apply(h, sp["attn"], cfg, positions=positions,
+                                 cache=kv, decode_pos=decode_pos)
+    else:
+        a, _ = attn_mod.attn_apply(
+            h, sp["attn"], cfg, positions=positions, window=sub.window,
+            cache=kv, decode_pos=decode_pos, impl=impl)
     if cfg.norm_style == "sandwich":
         a = apply_norm(a, sp["post_ln1"], cfg)
     x = x + a
@@ -199,10 +224,13 @@ def sublayer_apply(x: torch.Tensor, sp: dict, sub: SubLayer,
             xa = apply_norm(xa, sp["post_ln_x"], cfg)
         x = x + xa
     h = apply_norm(x, sp["ln2"], cfg)
-    m = layers.mlp_apply(h, sp["mlp"], cfg)
+    if sub.kind == "moe":
+        m, aux = moe_mod.moe_apply(h, sp["moe"], cfg)
+    else:
+        m, aux = layers.mlp_apply(h, sp["mlp"], cfg), None
     if cfg.norm_style == "sandwich":
         m = apply_norm(m, sp["post_ln2"], cfg)
-    return x + m
+    return x + m, aux
 
 
 def cross_attn(h: torch.Tensor, p: dict, cfg: ModelConfig, *,
@@ -237,24 +265,30 @@ def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     decode_pos: Optional[int] = None,
                     enc_out: Optional[torch.Tensor] = None,
                     impl: str = "auto") -> tuple:
-    """x (B, S, D) embedded inputs -> (final-normed hidden, cache). The
-    cache, when given, is updated in place and returned. Without a cache
+    """x (B, S, D) embedded inputs -> (final-normed hidden, cache, aux:
+    the sum of the MoE layers' aux losses, f32). The cache, when given,
+    is updated in place and returned. Without a cache
     the forward is differentiable: each layer reads views of the stacked
     leaves (`layer_slice`), so gradients reach the stacked tensors.
     `enc_out` (B, S_enc, D), the encoder states of an encoder-decoder
     model, feeds each layer's cross-attention (not needed in decode)."""
+    aux_total = None
     for i, seg in enumerate(build_segments(cfg)):
         seg_params = params["segments"][f"seg{i}"]
         seg_cache = None if cache is None else cache[f"seg{i}"]
         for step in range(seg.n_steps):
             for j, sub in enumerate(seg.subs):
-                x = sublayer_apply(
+                x, aux = sublayer_apply(
                     x, layer_slice(seg_params[f"sub{j}"], step), sub, cfg,
                     positions=positions,
                     cache=None if seg_cache is None
                     else layer_slice(seg_cache[f"sub{j}"], step),
                     decode_pos=decode_pos, enc_out=enc_out, impl=impl)
-    return apply_norm(x, params.get("final_norm"), cfg), cache
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
+    if aux_total is None:  # no MoE layer
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return apply_norm(x, params.get("final_norm"), cfg), cache, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +299,8 @@ def init_decoder_cache(batch: int, cache_len: int, cfg: ModelConfig,
                        cross_dtype: Optional[torch.dtype] = None) -> dict:
     """Cache tree matching the parameter layout: per segment and sublayer
     a KV cache stacked on the layer dimension. A windowed sublayer's cache
-    is a ring buffer of min(window, cache_len) slots. With `cross_attn`,
+    is a ring buffer of min(window, cache_len) slots; under `cfg.use_mla`
+    each holds the latent cache (`mla.init_mla_cache`). With `cross_attn`,
     each sublayer also holds its cross-attention K and V over the
     `enc_seq` encoder states (`xk`, `xv`), in `cross_dtype` (default the
     model's dtype; the encoder's output dtype when a prefill fills it)."""
@@ -275,9 +310,10 @@ def init_decoder_cache(batch: int, cache_len: int, cfg: ModelConfig,
         for j, sub in enumerate(seg.subs):
             clen = cache_len if sub.window is None \
                 else min(cache_len, sub.window)
-            sc = {"kv": attn_mod.init_kv_cache(batch, clen, cfg,
-                                               lead=(seg.n_steps,),
-                                               device=device)}
+            init = mla_mod.init_mla_cache if cfg.use_mla \
+                else attn_mod.init_kv_cache
+            sc = {"kv": init(batch, clen, cfg, lead=(seg.n_steps,),
+                             device=device)}
             if cross_attn:
                 shape = (seg.n_steps, batch, cfg.n_kv_heads, cfg.enc_seq,
                          cfg.head_dim)

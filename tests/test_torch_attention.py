@@ -78,6 +78,25 @@ def test_plain_version_matches_pallas_kernel_bf16():
                                np.asarray(ker, np.float32), atol=3e-2)
 
 
+@pytest.mark.parametrize("hq,hkv,kw", [(8, 2, {}), (8, 2, {"window": 100}),
+                                       (4, 4, {"softcap": 30.0})])
+@pytest.mark.parametrize("score_bytes", [0, ops.PLAIN_SCORE_BYTES])
+def test_plain_attention_by_kv_head_matches_pallas_kernel(
+        monkeypatch, hq, hkv, kw, score_bytes):
+    """`plain_attention` one kv head at a time (no score budget) and all
+    heads together, against the Pallas kernel at the f32 bar."""
+    monkeypatch.setattr(ops, "PLAIN_SCORE_BYTES", score_bytes)
+    q = _normal((2, hq, 256, 64), 7)
+    k = _normal((2, hkv, 256, 64), 8)
+    v = _normal((2, hkv, 256, 64), 9)
+    ker = jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  scale=0.125, impl="pallas", interpret=True, **kw)
+    out = ops.plain_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), scale=0.125, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ker), atol=5e-5,
+                               rtol=1e-4)
+
+
 def _bf16(a):
     return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
 

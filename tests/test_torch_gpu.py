@@ -40,8 +40,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
-from repro_torch.kernels.attention.ops import \
-    multi_head_attention  # noqa: E402
+from repro_torch.kernels.attention.ops import (  # noqa: E402
+    multi_head_attention, plain_attention)
 from repro_torch.kernels.ota import ops  # noqa: E402
 from repro_torch.kernels.ota.ops import ota_edge_aggregate  # noqa: E402
 from repro_torch.kernels.ota.ref import ota_edge_aggregate_ref  # noqa: E402
@@ -413,6 +413,35 @@ def test_attention_kernel_at_s6_s7_shapes(cuda, dtype, b, hq, hkv, s, d, kw):
         ctl = multi_head_attention(q, k, v, scale=d ** -0.5, impl="ref",
                                    **ctl_kw).float()
         assert (out - ctl).abs().max().item() > atol, ctl_kw
+
+
+# K2 at llama4-maverick's shapes (S4): 40 query heads over 8 kv heads
+# (groups of 5) at head_dim 128, bf16; its dense layers' 8,192 window
+# (which bites only past 8,192 positions) and its global MoE layers; the
+# 16,384-token prompt at B = 1
+S4_ATTN_SHAPES = [
+    (4, 40, 8, 2048, 128, {"window": 8192}),
+    (4, 40, 8, 2048, 128, {}),
+    (1, 40, 8, 16384, 128, {"window": 8192}),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,kw", S4_ATTN_SHAPES)
+def test_attention_kernel_at_s4_shapes(cuda, b, hq, hkv, s, d, kw):
+    """Within the bf16 bar of the plain version; where the window bites,
+    the kernel misses the bar against the plain version without it."""
+    q, k, v = _qkv(b, hq, hkv, s, d, torch.bfloat16, s + hq, cuda)
+    before = attn_ops.launch_count
+    out = multi_head_attention(q, k, v, scale=d ** -0.5, **kw).float()
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count == before + 1
+    atol, rtol = ATTN_BARS[torch.bfloat16]
+    ref = plain_attention(q, k, v, scale=d ** -0.5, **kw).float()
+    torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+    if kw.get("window", s) < s:
+        ctl = plain_attention(q, k, v, scale=d ** -0.5,
+                              **{**kw, "window": None}).float()
+        assert (out - ctl).abs().max().item() > atol
 
 
 def test_attention_kernel_bf16(cuda):

@@ -6,8 +6,10 @@
   them.
 * `run_mc`, `Model.init_params` and the serve launcher with no `device`
   raise where CUDA is absent instead of running on the CPU.
-* Every argument, value, architecture or model option outside the ported
-  slices raises `NotImplementedError` naming its ROADMAP item.
+* Every argument or value outside the ported slices raises
+  `NotImplementedError` naming its ROADMAP item. Every architecture of
+  the reference resolves (`PENDING` is empty since S4 and S5), and the
+  MoE, MLA and MTP options build and prefill.
 """
 import ast
 import os
@@ -74,6 +76,12 @@ MODEL_TRAINING_MODULES = {"repro_torch.kernels.attention.kernel",
 S2_MODULES = {"repro_torch.configs.gemma2_9b", "repro_torch.configs.gemma_7b",
               "repro_torch.configs.minitron_4b", "repro_torch.core.rng",
               "repro_torch.models.transformer"}
+# MoE (S4) and MLA (S5)
+S4_S5_MODULES = {"repro_torch.configs.llama4_maverick_400b_a17b",
+                 "repro_torch.configs.deepseek_v3_671b",
+                 "repro_torch.models.moe", "repro_torch.models.mla",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.model"}
 # the int8 cache (S3), hymba (S6), whisper and pixtral (S7)
 S3_S7_MODULES = {"repro_torch.configs.hymba_1p5b",
                  "repro_torch.configs.whisper_small",
@@ -120,6 +128,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert MODEL_TRAINING_MODULES <= names, MODEL_TRAINING_MODULES - names
     assert S2_MODULES <= names, S2_MODULES - names
     assert S3_S7_MODULES <= names, S3_S7_MODULES - names
+    assert S4_S5_MODULES <= names, S4_S5_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
@@ -300,26 +309,65 @@ def test_rwkv_entry_points_without_device_raise_where_cuda_is_absent(
                     "--prompt-len", "2"])
 
 
-@pytest.mark.parametrize("arch", sorted(PENDING))
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {PENDING[arch]}"):
-        get_config(arch)
+# the two architectures that S4 and S5 ported, which raised before them
+@pytest.mark.parametrize("arch,item", [("llama4-maverick-400b-a17b", "S4"),
+                                       ("deepseek-v3-671b", "S5")])
+def test_formerly_pending_architectures_resolve(arch, item):
+    assert not PENDING, f"{arch} ({item}): PENDING names {PENDING}"
+    cfg = get_config(arch)
+    assert cfg.arch_id == arch and cfg.n_experts
+    assert build_model(cfg).kind == "transformer"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(arch + "-x")
 
 
-OUT_OF_SLICE_CONFIG = [
-    ({"n_experts": 4}, "S4"),
-    ({"n_experts": 4, "opt_int8_cache": True}, "S4"),
-    ({"use_mla": True}, "S5"),
-    ({"mtp": True}, "S5"),
-    ({"family": "encdec", "use_mla": True}, "S5"),
+# MLA's widths (those of reduced deepseek-v3) for a config without them
+MLA_DIMS = {"use_mla": True, "q_lora_rank": 64, "kv_lora_rank": 32,
+            "qk_nope_dim": 32, "qk_rope_dim": 16, "v_head_dim": 32,
+            "head_dim": 48}
+# the MoE, MLA and MTP overrides that raised before S4 and S5 (on reduced
+# olmo-1b; encdec with whisper's reduced encoder widths), and the two
+# architectures reduced
+MOE_MLA_CONFIGS = [
+    ("olmo-1b", {"n_experts": 4}),
+    ("olmo-1b", {"n_experts": 4, "opt_int8_cache": True}),
+    ("olmo-1b", MLA_DIMS),
+    ("olmo-1b", {"mtp": True}),
+    ("olmo-1b", {"family": "encdec", "n_enc_layers": 2, "enc_seq": 16,
+                 **MLA_DIMS}),
+    ("llama4-maverick-400b-a17b", {}),
+    ("deepseek-v3-671b", {}),
 ]
 
 
-@pytest.mark.parametrize("overrides,item", OUT_OF_SLICE_CONFIG)
-def test_out_of_slice_config_raises(overrides, item):
-    cfg = get_config("olmo-1b").reduced().with_(**overrides)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        build_model(cfg)
+@pytest.mark.parametrize("arch,overrides", MOE_MLA_CONFIGS)
+def test_moe_and_mla_configs_build_and_prefill(arch, overrides):
+    """Each builds, prefills 6 tokens into a cache of 8 (the int8 one
+    int8, MLA's its latents), decodes a step, and computes finite
+    per-example losses (the aux loss positive with MoE layers)."""
+    cfg = get_config(arch).reduced().with_(**overrides)
+    model = build_model(cfg)
+    params = model.init_params(device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 7),
+                                     generator=gen)}
+    if model.kind == "encdec":
+        batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                      generator=gen)
+    head = {**batch, "tokens": batch["tokens"][:, :6]}
+    logits, cache = model.prefill(params, head, 8)
+    kv = cache["seg0"]["sub0"]["kv"]
+    if cfg.use_mla:
+        assert sorted(kv) == ["c", "k_rope", "pos_ids"]
+    else:
+        assert kv["k"].dtype == (torch.int8 if cfg.opt_int8_cache
+                                 else torch.float32)
+    logits2, _ = model.decode_step(params, cache, batch["tokens"][:, 6], 6)
+    losses, metrics = model.train_loss_per_example(params, batch)
+    assert logits.shape == logits2.shape == (2, cfg.vocab_size)
+    assert all(bool(torch.isfinite(t).all()) for t in (logits, logits2,
+                                                       losses))
+    assert (metrics["aux_loss"] > 0) == bool(cfg.n_experts)
 
 
 # the structures S3, S6 and S7 ported, which the slices before refused
