@@ -68,26 +68,32 @@ drives the port's main paths:
   log-sum-exp against its plain version (and its output bits unchanged
   without it), `flash_attention`'s gradients against `full_attention`'s
   autograd, the training launcher at its defaults, and repro-100m at
-  full width and depth trained 3 steps on the fused gbma route and
+  full width and depth trained 2 steps on the fused gbma route and
   through the transport (gbma, receiver momentum): K2 in every forward,
   K1 in every slot, the kernel route held to the plain route, each
   step timed whole and by part with its peak memory, and the card held
   to the CPU on the reduced model; then 2 steps each on the fused gbma
-  route and through the transport with rbg keys (`rng_impl="rbg"`), the
-  card's rbg bits for the transport's full-D draw held to the CPU's bit
-  for bit and the draw timed beside threefry's;
-* training olmo-1b and rwkv6-7b over the MAC ("train models"): K2's
-  bf16 kernel with its row log-sum-exp against its plain version (its
-  output bits unchanged without it) and timed at olmo-1b's training
-  shape; the hand-written WKV backward against the plain backward and
-  timed at rwkv6-7b's training shape and a transport node's; the launcher
-  on olmo-1b; olmo-1b at full width and
-  depth and rwkv6-7b at full width with 4 of its 32 layers, in bf16, 3
-  steps each on the fused gbma route and through the transport (gbma,
-  receiver momentum): K2 in every olmo-1b forward, K3 and the backward in
+  route and through the transport with rbg keys (`rng_impl="rbg"`) and
+  with unsafe_rbg keys, the card's bits for the transport's full-D draw
+  held to the CPU's bit for bit and the draw timed beside threefry's;
+* training five models over the MAC ("train models"), each layer
+  recomputed in the backward (`cfg.remat`): K2's bf16 kernel with its
+  row log-sum-exp against its plain version (its output bits unchanged
+  without it) and timed at olmo-1b's training shape, and with lse at
+  hymba's, whisper's and pixtral's training shapes timed beside SDPA;
+  the hand-written WKV backward against the plain backward and timed at
+  rwkv6-7b's training shape and a transport node's; the launcher on
+  olmo-1b and on whisper-small; olmo-1b and hymba-1.5b at full width
+  and depth, rwkv6-7b at full width with 4 of its 32 layers,
+  whisper-small at full width and depth over 1,500 f32 frames and
+  pixtral-12b at full width with 4 of its 40 layers after 1,024
+  patches, in bf16, 2 steps each on the fused gbma route and through the
+  transport with gbma (olmo-1b and rwkv6-7b also with receiver momentum
+  through the transport): K2 twice
+  in every attention layer a step, K3 twice and the backward once in
   every rwkv6-7b layer, K1 in every slot, each step timed whole and by
-  part with its peak memory (the fused route's also profiled); the
-  kernel route held to the
+  part with its peak memory and its model FLOPs' share of the card's
+  peak; the kernel route held to the
   plain route on the first batch, and the card to the CPU on the reduced
   models;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
@@ -3179,9 +3185,14 @@ def serve_timing(model, params, kernel: str,
     and a torch.profiler count of one prefill and one decode step
     (launches, host syncs, device busy time, idle share against the
     profiler-free wall time, and the launches and device time of the
-    kernels named `kernel`)."""
+    kernels named `kernel`; beside them the kernel wrapper's own count of
+    its launches in the profiled run, which the profiler can miss)."""
     import torch
 
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    counter = wkv_ops if kernel == "wkv6" else attn_ops
     out = {}
     for s in prompts:
         inputs = _serve_batch(model.cfg, s, batch=batch)
@@ -3197,8 +3208,11 @@ def serve_timing(model, params, kernel: str,
             model.decode_step(params, cache, tok, s + _prefix(model.cfg))
 
         pre_ms, dec_ms = _best_ms(prefill), _best_ms(decode)
-        prof = {name: _profile_counts(fn, kernel=kernel)
-                for name, fn in (("prefill", prefill), ("decode", decode))}
+        prof = {}
+        for name, fn in (("prefill", prefill), ("decode", decode)):
+            before = counter.launch_count
+            prof[name] = _profile_counts(fn, kernel=kernel)
+            prof[name]["wrapper"] = counter.launch_count - before
         row = {"prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
                "decode_tok_per_s": batch / dec_ms * 1e3}
         for name, wall in (("prefill", pre_ms), ("decode", dec_ms)):
@@ -3208,7 +3222,8 @@ def serve_timing(model, params, kernel: str,
                          "memcpy": p["memcpy"], "device_busy_ms": busy,
                          "device_idle_share": 1.0 - busy / wall,
                          f"{kernel}_kernels": p["kernel"],
-                         f"{kernel}_device_ms": p["kernel_us"] / 1e3}
+                         f"{kernel}_device_ms": p["kernel_us"] / 1e3,
+                         f"{kernel}_wrapper_launches": p["wrapper"]}
         log(f"serve timing {model.cfg.arch_id} B={batch} prompt={s}: "
             f"{json.dumps(row)}")
         out[s] = row
@@ -3507,10 +3522,12 @@ def serve_s2(attn_ops) -> tuple:
                 key = f"B={batch} prompt {s}"
                 rows[key] = {**served[s], **routes[s], **times[s]}
                 launches[f"{arch} {key}"] = served[s]["launches"]
-                k2 = times[s]["prefill"]["flash_attention_kernels"]
+                # the wrapper's count gates: the profiler once saw 31 of
+                # minitron-4b's 32 K2 launches in a prefill
+                k2 = times[s]["prefill"]["flash_attention_wrapper_launches"]
                 if k2 != model.cfg.n_layers:
                     raise AssertionError(
-                        f"{arch} {key}: {k2} K2 kernels in a profiled "
+                        f"{arch} {key}: {k2} K2 launches in a profiled "
                         f"prefill, expected {model.cfg.n_layers}")
         if model.cfg.sliding_window:
             rows[f"B=1 prompt {S2_UNALIGNED_PROMPT} (c)"] = \
@@ -4127,18 +4144,18 @@ TRAIN_ARCH = "repro-100m"
 # the training launcher's defaults (src/repro/launch/train.py:37-48)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_NODES = 8, 256, 8
 TRAIN_NOISE_STD, TRAIN_LR, TRAIN_GAMMA = 0.01, 0.05, 0.9
-# 3 steps a route (cut from 4 to keep the script inside its 1,200 s time
-# limit as the serving phases grew; the timing takes the best of the last
-# 2)
-TRAIN_STEPS = 3
+# 2 steps a route (cut from 4, then 3, to keep the script inside its
+# 1,200 s time limit as the phases grew; the timing takes the best of 2)
+TRAIN_STEPS = 2
 # (aggregator, route): the fused gbma route, gbma through the transport,
 # and receiver momentum through the transport
 TRAIN_ROUTES = (("gbma", "auto"), ("gbma", "transport"),
                 ("momentum", "transport"))
-# the routes whose step (d) profiles: gbma through the transport issues
-# what momentum's does but the carry (30,046 against 30,068 launches a
-# step on an H100), so one transport profile stands for both
-TRAIN_PROFILED = ("gbma fused", "momentum transport")
+# the routes whose step (d) profiles: the fused route only (a transport
+# step's profile cost ~20 s of profiler overhead on an H100; PERF.md keeps
+# the transport profiles from an earlier run: 30,046 and 30,068 launches
+# a step)
+TRAIN_PROFILED = ("gbma fused",)
 # K2 at repro-100m's training shape (B, H, S, d), f32, causal
 TRAIN_ATTN_SHAPE = (8, 10, 256, 64)
 TRAIN_LSE_BAR = (1e-5, 1e-6)  # atol + rtol * |lse|
@@ -4293,14 +4310,26 @@ def _train_parts(cfg, aggregator: str, route: str, impl: str,
     return model, tcfg, opt, build_train_step(model, tcfg, opt)
 
 
-def _train_batches(cfg, steps: int) -> list:
-    from repro_torch.data.synthetic import (SyntheticTokens,
-                                            TokenDatasetConfig)
+def train_seq(cfg) -> int:
+    """The launcher's `--seq` a model trains at: TRAIN_SEQ tokens, after a
+    VLM's patches (pixtral-12b: 1,024 + 256)."""
+    return TRAIN_SEQ + cfg.n_patches
 
-    ds = SyntheticTokens(TokenDatasetConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_BATCH))
-    return [{"tokens": ds.batch(i)} for i in range(steps)]
+
+def _train_batches(cfg, steps: int) -> list:
+    """The launcher's first `steps` batches (`launch.train.train_batches`:
+    tokens, a VLM's zero patch embeddings, an encoder-decoder's zero f32
+    frames) as host arrays."""
+    from repro_torch.launch.train import train_batches
+
+    it = train_batches(cfg, TRAIN_BATCH, train_seq(cfg))
+    return [next(it) for _ in range(steps)]
+
+
+def _on_card(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
 
 
 def _train_run(cfg, aggregator, route, impl, params0, batches,
@@ -4459,20 +4488,21 @@ def time_train_attention(dtype_name: str = "float32") -> dict:
     return row
 
 
-# (f): rbg keys (T6) on the fused gbma route and through the transport
-# (gbma), 2 steps each at full width
+# (f): rbg keys (T6) and unsafe_rbg keys (T7) on the fused gbma route and
+# through the transport (gbma), 2 steps each at full width
 TRAIN_RBG_STEPS = 2
 TRAIN_RBG_ROUTES = (("gbma", "auto"), ("gbma", "transport"))
+TRAIN_RBG_IMPLS = ("rbg", "unsafe_rbg")
 
 
-def train_rbg(cfg, params0, batches) -> tuple:
-    """(f) `TrainConfig(rng_impl="rbg")` at repro-100m's full width: 2
-    steps on each route of TRAIN_RBG_ROUTES, the kernel route against the
-    plain route at TRAIN_ROUTE_BAR with K2's and K1's launches; the
-    transport's full-D draw (the noise key of step 0's slot,
-    `split(fold_in(key(0, 'rbg'), 0))[1]`, D bits) on the card against
-    the CPU, bit for bit; and that draw's normals timed with CUDA events
-    beside the threefry key's. Returns (K2 launches by route, K1
+def train_rbg(cfg, params0, batches, impl: str = "rbg") -> tuple:
+    """(f) `TrainConfig(rng_impl=impl)` (rbg or unsafe_rbg) at
+    repro-100m's full width: 2 steps on each route of TRAIN_RBG_ROUTES,
+    the kernel route against the plain route at TRAIN_ROUTE_BAR with K2's
+    and K1's launches; the transport's full-D draw (the noise key of step
+    0's slot, `split(fold_in(key(0, impl), 0))[1]`, D bits) on the card
+    against the CPU, bit for bit; and that draw's normals timed with CUDA
+    events beside the threefry key's. Returns (K2 launches by route, K1
     launches, the record)."""
     import torch
 
@@ -4484,11 +4514,11 @@ def train_rbg(cfg, params0, batches) -> tuple:
     k2_launches, k1_launches, record = {}, 0, {"routes": {}}
     steps = len(batches)
     for aggregator, route in TRAIN_RBG_ROUTES:
-        name = f"{aggregator} {'fused' if route == 'auto' else route} rbg"
+        name = f"{aggregator} {'fused' if route == 'auto' else route} {impl}"
         losses, params, hist, (k2, k1) = _train_run(
-            cfg, aggregator, route, "auto", params0, batches, "rbg")
+            cfg, aggregator, route, "auto", params0, batches, impl)
         ref_losses, ref_params, _, ref_counts = _train_run(
-            cfg, aggregator, route, "ref", params0, batches, "rbg")
+            cfg, aggregator, route, "ref", params0, batches, impl)
         transport_route = route == "transport"
         per_step = cfg.n_layers * (TRAIN_NODES if transport_route else 1)
         want = (steps * per_step, steps * n_leaves if transport_route else 0)
@@ -4504,7 +4534,7 @@ def train_rbg(cfg, params0, batches) -> tuple:
             f"{loss_rel:.3e} rel, params {param_rel:.3e} of each leaf's max "
             f"(bar {TRAIN_ROUTE_BAR}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"train rbg route {name}")
+            raise AssertionError(f"train {impl} route {name}")
         k2_launches[name] = k2
         k1_launches += k1
         record["routes"][name] = {
@@ -4514,36 +4544,36 @@ def train_rbg(cfg, params0, batches) -> tuple:
         del params, ref_params
         torch.cuda.empty_cache()
 
-    keys = {impl: rng.split(rng.fold_in(
-        rng.key(0, device="cuda", impl=impl), 0))[1]
-        for impl in ("rbg", "threefry2x32")}
+    keys = {kind: rng.split(rng.fold_in(
+        rng.key(0, device="cuda", impl=kind), 0))[1]
+        for kind in (impl, "threefry2x32")}
     t0 = time.perf_counter()
-    card = rng.random_bits(keys["rbg"], (n_params,))
+    card = rng.random_bits(keys[impl], (n_params,))
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = rng.random_bits(keys["rbg"].cpu(), (n_params,))
+    cpu = rng.random_bits(keys[impl].cpu(), (n_params,))
     cpu_s = time.perf_counter() - t0
     same = bool(torch.equal(card.cpu(), cpu))
     del card, cpu
     head = 1 << 20
-    z_card = rng.normal(keys["rbg"], (head,)).cpu()
-    z_cpu = rng.normal(keys["rbg"].cpu(), (head,))
+    z_card = rng.normal(keys[impl], (head,)).cpu()
+    z_cpu = rng.normal(keys[impl].cpu(), (head,))
     z_diff = (z_card - z_cpu).abs().max().item()
     torch.cuda.empty_cache()
-    draw_ms = {impl: cuda_ms(lambda k=k: rng.normal(k, (n_params,)), 3,
-                             warmup=1) for impl, k in keys.items()}
+    draw_ms = {kind: cuda_ms(lambda k=k: rng.normal(k, (n_params,)), 3,
+                             warmup=1) for kind, k in keys.items()}
     record["draw"] = {"values": n_params, "bits_equal": same,
                       "bits_card_s": card_s, "bits_cpu_s": cpu_s,
                       "normal_head_max_abs_diff": z_diff,
                       "normal_ms": draw_ms}
-    log(f"train (f) the transport's full-D rbg draw ({n_params:,} values): "
-        f"card bits == CPU bits: {same} (card {card_s:.3f} s, CPU "
+    log(f"train (f) the transport's full-D {impl} draw ({n_params:,} "
+        f"values): card bits == CPU bits: {same} (card {card_s:.3f} s, CPU "
         f"{cpu_s:.3f} s); first {head:,} normals card vs CPU max |diff| "
-        f"{z_diff:.3e}; normals of the draw {draw_ms['rbg']:.3f} ms (rbg) "
+        f"{z_diff:.3e}; normals of the draw {draw_ms[impl]:.3f} ms ({impl}) "
         f"against {draw_ms['threefry2x32']:.3f} ms (threefry), CUDA events")
     if not same:
-        raise AssertionError("the card's rbg bits differ from the CPU's")
+        raise AssertionError(f"the card's {impl} bits differ from the CPU's")
     return k2_launches, k1_launches, record
 
 
@@ -4555,21 +4585,21 @@ def run_train(attn_ops, ota_ops) -> tuple:
     (b) `flash_attention`'s gradients against `full_attention`'s
         autograd (`check_flash_vjp`);
     (c) the launcher at its defaults (`python -m repro_torch.launch.train
-        --arch repro-100m --steps 3`), then repro-100m at full width and
-        depth (112,248,960 parameters, f32), 3 steps at the launcher's
+        --arch repro-100m --steps 2`), then repro-100m at full width and
+        depth (112,248,960 parameters, f32), 2 steps at the launcher's
         defaults through `build_train_step` + `run_training` on three
         routes (fused gbma; gbma through the transport; receiver
         momentum through the transport): finite losses, `tx_energy` on
         the transport routes, K2 14 launches a forward (N forwards a
         step on the transport route), K1 11 a slot (one a leaf); the
         kernel route against the plain route (`impl='ref'`: plain
-        attention and plain OTA) after the 3 steps;
+        attention and plain OTA) after the 2 steps;
     (d) each route's step timed whole (best of 2) and by part, its peak
         memory and a profile (`train_step_split`), and K2 at the
         training shape (`time_train_attention`);
-    (e) the card against the CPU on the reduced repro-100m: 3 steps of
+    (e) the card against the CPU on the reduced repro-100m: 2 steps of
         each route in (c);
-    (f) rbg keys (`train_rbg`).
+    (f) rbg and unsafe_rbg keys (`train_rbg`).
 
     Returns (K2 launches, K1 launches, the record)."""
     import torch
@@ -4693,12 +4723,13 @@ def run_train(attn_ops, ota_ops) -> tuple:
         record["card_vs_cpu"][name] = rel
     mark("(e)")
 
-    # (f) rbg keys at full width
-    rbg_k2, rbg_k1, record["rbg"] = train_rbg(
-        cfg, params0, batches[:TRAIN_RBG_STEPS])
-    launches.update(rbg_k2)
-    k1_launches += rbg_k1
-    mark("(f)")
+    # (f) rbg and unsafe_rbg keys at full width
+    for impl in TRAIN_RBG_IMPLS:
+        rbg_k2, rbg_k1, record[impl] = train_rbg(
+            cfg, params0, batches[:TRAIN_RBG_STEPS], impl)
+        launches.update(rbg_k2)
+        k1_launches += rbg_k1
+        mark(f"(f) {impl}")
     record["launcher_s"] = launcher_s
     log(f"train: seconds by part {json.dumps(seconds)}")
     return launches, k1_launches, record
@@ -4713,17 +4744,37 @@ WKV_BWD_SOURCE = "src/repro_torch/kernels/wkv/csrc/wkv6_bwd.cu"
 # the JAX package's WKV gradient: jax.vjp of the checkpointed scan (no
 # backward Pallas kernel); the backward kernel replaces that
 WKV_BWD_REPLACES = "src/repro/kernels/wkv/ref.py:39"  # wkv6_ref, via jax.vjp
-MODEL_TRAIN_ARCHS = ("olmo-1b", "rwkv6-7b")
+MODEL_TRAIN_ARCHS = ("olmo-1b", "rwkv6-7b", "hymba-1.5b", "whisper-small",
+                     "pixtral-12b")
 # rwkv6-7b trains at full width with 4 of its 32 layers: at full depth its
 # 7.53 B parameters (15.1 GB bf16), f32 momentum (30.1 GB), gradients and
 # the largest leaf's f32 noise draw do not fit one 80 GB card beside the
 # activations (the reference shards it, fsdp=True)
 RWKV_TRAIN_LAYERS = 4
-# the routes whose step (g) profiles: the fused route only. A profile of
-# a transport step costs 14-24 s of profiler overhead a model on an H100;
-# "train" (d) profiles repro-100m's transport step, and PERF.md keeps
-# the two models' transport profiles from earlier runs
-MODEL_TRAIN_PROFILED = ("gbma fused",)
+# pixtral-12b trains at full width with 4 of its 40 layers (2.43 B
+# parameters, 1.34 B of them the embedding and unembedding): the
+# transport route holds 8 nodes' gradients, f32 momentum and a full-D
+# draw; at 4 layers its step peaked 57,921 MiB over 4,640 resident on an
+# H100 (2 layers: 46,241 over 3,985), so 8 layers would not fit
+PIXTRAL_TRAIN_LAYERS = 4
+# steps a route in (g) (3 before the models trained with the per-layer
+# recompute; the timing takes the better of the 2, the peak is step 2's)
+MODEL_TRAIN_STEPS = 2
+# (g)'s routes: every model takes the fused gbma route and gbma through
+# the transport; olmo-1b and rwkv6-7b also receiver momentum through the
+# transport (a bf16 model's gradients into the f32 carry)
+MODEL_TRAIN_ROUTES = {arch: TRAIN_ROUTES if arch in ("olmo-1b", "rwkv6-7b")
+                      else TRAIN_ROUTES[:2] for arch in MODEL_TRAIN_ARCHS}
+# (f) K2 with lse at the new models' training shapes: (label, dtype, B,
+# Hq, Hkv, S, d, causal, window), each against its plain version with
+# lse and timed beside SDPA (hymba's 1,024 window does not bite at 384)
+TRAIN_ATTN_CASES = (
+    ("hymba local", "bfloat16", 8, 25, 5, 384, 64, True, 1024),
+    ("hymba global", "bfloat16", 8, 25, 5, 384, 64, True, None),
+    ("whisper encoder", "float32", 8, 12, 12, 1500, 64, False, None),
+    ("whisper decoder", "bfloat16", 8, 12, 12, 256, 64, True, None),
+    ("pixtral", "bfloat16", 8, 32, 8, 1280, 128, True, None),
+)
 # the WKV backward at rwkv6-7b's training shape (B, H, T, D) and at a
 # transport node's (one example a node), then the reference tests' shapes
 # and a length off the chunks
@@ -4757,12 +4808,120 @@ MODEL_LOSS_RTOL = 1e-2
 
 def model_train_cfg(arch: str):
     """The configuration a model trains at on the card (rwkv6-7b cut to
-    RWKV_TRAIN_LAYERS layers, nothing else)."""
+    RWKV_TRAIN_LAYERS layers, pixtral-12b to PIXTRAL_TRAIN_LAYERS,
+    nothing else)."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(arch)
-    return cfg.with_(n_layers=RWKV_TRAIN_LAYERS) if arch == "rwkv6-7b" \
-        else cfg
+    layers = {"rwkv6-7b": RWKV_TRAIN_LAYERS,
+              "pixtral-12b": PIXTRAL_TRAIN_LAYERS}.get(arch)
+    return cfg.with_(n_layers=layers) if layers else cfg
+
+
+def launches_per_forward(cfg) -> dict:
+    """K2's, K3's and the WKV backward's launches in one training forward
+    and backward: one an attention layer (whisper's encoder and decoder;
+    its cross-attention is plain) or RWKV layer, and under `cfg.remat`
+    the backward runs each layer's forward again, so K2 and K3 launch
+    twice a layer."""
+    recompute = 2 if cfg.remat else 1
+    if cfg.family == "ssm":
+        return {"k2": 0, "k3": recompute * cfg.n_layers,
+                "wkv_bwd": cfg.n_layers}
+    attention = cfg.n_layers + (cfg.n_enc_layers if cfg.family == "encdec"
+                                else 0)
+    return {"k2": recompute * attention, "k3": 0, "wkv_bwd": 0}
+
+
+def step_model_flops(cfg) -> float:
+    """`launch.analytic.model_flops` of one training step at the
+    launcher's shape (B = TRAIN_BATCH, `train_seq` positions)."""
+    from repro_torch.launch.analytic import model_flops
+    from repro_torch.models.model import InputShape, build_model
+
+    shape = InputShape("train", train_seq(cfg), TRAIN_BATCH, "train")
+    return model_flops(build_model(cfg), shape, 1)
+
+
+def check_train_attention_cases() -> list:
+    """(f) K2 with lse at TRAIN_ATTN_CASES against its plain version with
+    lse: `out` at the dtype's bar (`ATTN_BARS`), `lse` within 1e-5 +
+    1e-6·|lse|; a non-causal case's control (the causal plain version)
+    must miss the bar. Timed with CUDA events: the kernel with lse, the
+    plain version with lse, SDPA (`enable_gqa` for groups), beside the
+    bound (operations over the live pairs, or the bytes of q, k, v, o
+    and lse). One row a case."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.ops import multi_head_attention
+
+    rows = []
+    for label, dt, b, hq, hkv, s, d, causal, window in TRAIN_ATTN_CASES:
+        atol, rtol = ATTN_BARS[dt]
+        q, k, v = attn_inputs(b, hq, hkv, s, d, getattr(torch, dt), s + hq)
+        kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+        out, lse = multi_head_attention(q, k, v, impl="kernel",
+                                        return_lse=True, **kw)
+        ref, ref_lse = multi_head_attention(q, k, v, impl="ref",
+                                            return_lse=True, **kw)
+        err = (out.float() - ref.float()).abs()
+        lse_err = (lse - ref_lse).abs()
+        ok = bool(torch.isfinite(out).all() and torch.isfinite(lse).all()
+                  and (err <= atol + rtol * ref.float().abs()).all()
+                  and (lse_err <= TRAIN_LSE_BAR[0]
+                       + TRAIN_LSE_BAR[1] * ref_lse.abs()).all())
+        control = None
+        if not causal:
+            ctl = multi_head_attention(q, k, v, impl="ref",
+                                       **{**kw, "causal": True})
+            control = (out.float() - ctl.float()).abs().max().item()
+            ok = ok and control > atol
+            del ctl
+        gqa = {"enable_gqa": True} if hkv != hq else {}
+        lib_out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=kw["scale"], **gqa)
+        lib_err = (lib_out.float() - ref.float()).abs().max().item()
+        row = {"case": label, "shape": [b, hq, s, d], "kv_heads": hkv,
+               "dtype": dt, "causal": causal, "window": window,
+               "max_abs_err": err.max().item(),
+               "lse_max_abs_err": lse_err.max().item(),
+               "causal_control_max_abs_err": control,
+               "library_max_abs_err": lib_err}
+        del out, lse, ref, ref_lse, err, lse_err, lib_out
+        reps = 5 if dt == "float32" else 20
+        row["ms"] = cuda_ms(lambda: multi_head_attention(
+            q, k, v, impl="kernel", return_lse=True, **kw), reps)
+        row["plain_ms"] = cuda_ms(lambda: multi_head_attention(
+            q, k, v, impl="ref", return_lse=True, **kw), 2, warmup=1)
+        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=kw["scale"], **gqa), reps)
+        bound, bound_by = attention_bound(b, hq, s, d, dt, hkv=hkv,
+                                          window=window, causal=causal)
+        lse_bytes_ms = 4 * b * hq * s / HBM_BYTES_PER_S * 1e3
+        if bound_by == "bytes":
+            bound += lse_bytes_ms
+        row["bound_ms"], row["bound_by"] = bound, bound_by
+        row["gflop"] = 4.0 * b * hq * d * live_pairs(s, window, causal) / 1e9
+        ctl = "" if control is None else (
+            f"; control: kernel vs the causal plain version {control:.3e} "
+            "(must miss the bar)")
+        log(f"train models (f) K2 {label} with lse q{(b, hq, s, d)} kv "
+            f"heads {hkv} {dt} causal {causal} window {window}: out "
+            f"max_abs_err {row['max_abs_err']:.3e} (atol {atol} + rtol "
+            f"{rtol}), lse {row['lse_max_abs_err']:.3e} (bar "
+            f"{TRAIN_LSE_BAR[0]} + {TRAIN_LSE_BAR[1]}|lse|){ctl}; SDPA vs "
+            f"plain {lib_err:.3e}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms "
+            f"({row['ms'] / row['library_ms']:.2f}x), bound {bound:.4f} ms "
+            f"({bound_by}, {row['gflop']:.1f} GFLOP), "
+            f"{bound / row['ms']:.1%} of it {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2 with lse at {label}")
+        rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def wkv_bwd_bound(b, h, t, d, dtype_name) -> tuple:
@@ -4888,77 +5047,48 @@ def _counts(attn_ops, ota_ops, wkv_ops) -> dict:
             "wkv_bwd": wkv_ops.backward_launch_count}
 
 
-def model_step_split(cfg, aggregator, route, params, batch,
-                     profile: bool) -> dict:
-    """(g) One step's parts at full width, each once on the host clock
-    ending in a synchronize: the forward plus backward (with the fused
-    route's node weights, or the per-node gradients), the edge noise
-    (fused) or the slot (`transport.aggregate`), and the clip with the
-    optimizer's update; with `profile`, a torch.profiler count of one
-    whole step."""
+@contextlib.contextmanager
+def _step_parts(route: str):
+    """Records a CUDA event where a training step's noise (fused route:
+    `perturb_gradients`) or slot (transport route: `transport.aggregate`)
+    begins and one where it ends, for the steps run inside, without
+    synchronizing; yields the list of events."""
     import torch
 
-    from repro_torch.core import rng, transport
-    from repro_torch.core.gbma import (gbma_value_and_grad, node_weights,
-                                       perturb_gradients)
-    from repro_torch.training.train_step import (_clip_and_metrics,
-                                                 _node_grads_fn)
+    from repro_torch.training import train_step as ts
 
-    model, tcfg, opt, step = _train_parts(cfg, aggregator, route, "auto")
-    state = step.init_state(params)
-    k_h, k_w = rng.split(rng.fold_in(rng.key(0, device="cuda"), 0))
+    owner, name = (ts.transport, "aggregate") if route == "transport" \
+        else (ts, "perturb_gradients")
+    inner = getattr(owner, name)
+    events = []
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+    def timed(*args, **kwargs):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        out = inner(*args, **kwargs)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
 
-    row = {}
-    if tcfg.transport is None:
-        vg = gbma_value_and_grad(
-            lambda p, b: model.train_loss_per_example(p, b)[0])
-        w = node_weights(k_h, tcfg.gbma, TRAIN_BATCH)
-        (_, grads), row["forward_backward_ms"] = timed(
-            lambda: vg(params, batch, w))
-        grads, row["noise_ms"] = timed(
-            lambda: perturb_gradients(grads, k_w, tcfg.gbma))
-    else:
-        (_, node_g), row["forward_backward_ms"] = timed(
-            lambda: _node_grads_fn(model, TRAIN_NODES)(params, batch))
-        agg = state[1] if transport.has_state(aggregator) else None
-        (grads, _, _), row["slot_ms"] = timed(lambda: transport.aggregate(
-            aggregator, node_g, k_w, tcfg.transport, agg))
-        del node_g
-    opt_state = state[0] if isinstance(state, tuple) else state
-
-    def update():
-        g, _ = _clip_and_metrics(grads, tcfg)
-        return opt.update(g, opt_state, params)
-
-    _, row["clip_and_optimizer_ms"] = timed(update)
-    del grads, _
-    torch.cuda.empty_cache()
-    if not profile:
-        return row
-    prof = _profile_counts(lambda: step(params, state, batch, 0),
-                           kernel="wkv6" if cfg.family == "ssm"
-                           else "flash_attention")
-    row["profile"] = {"launches": prof["launches"], "syncs": prof["syncs"],
-                      "device_busy_ms": prof["device_us"] / 1e3,
-                      "kernel_launches": prof["kernel"],
-                      "kernel_device_ms": prof["kernel_us"] / 1e3}
-    return row
+    setattr(owner, name, timed)
+    try:
+        yield events
+    finally:
+        setattr(owner, name, inner)
 
 
 def train_model_route(cfg, aggregator, route, params0, batches, mods):
-    """(g) `TRAIN_STEPS` steps of one route through `build_train_step`
+    """(g) `MODEL_TRAIN_STEPS` steps of one route through `build_train_step`
     from a copy of `params0`, each step timed on the host clock (ending in
     a synchronize) with the kernels' launch counts (set to 0 just before
     the run); the peak device memory over the resident parameters and
-    optimizer state during step 2 (the first allocates the momentum).
-    Returns (losses, history, counts, step ms, peak MiB)."""
+    optimizer state during step 2 (the first allocates the momentum); the
+    faster step's time and its parts, from CUDA events recorded in that
+    step without a synchronize (`_step_parts`): the forward plus backward
+    (with the fused route's node weights, or the per-node gradients), the
+    edge noise (fused) or the slot, and the clip with the optimizer's
+    update. Returns (losses, history, counts, step ms of each step, peak
+    MiB, the faster step's parts ms)."""
     import torch
 
     from repro_torch.core.tree import tree_map
@@ -4966,23 +5096,34 @@ def train_model_route(cfg, aggregator, route, params0, batches, mods):
     _, _, _, step = _train_parts(cfg, aggregator, route, "auto")
     params = tree_map(lambda p: p.clone(), params0)
     state = step.init_state(params)
-    step_ms, peak, hist = [], 0.0, []
+    step_ms, peak, hist, parts = [], 0.0, [], []
+    mid = "slot_ms" if route == "transport" else "noise_ms"
     _reset_counts(*mods)
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        params, state, metrics = step(params, state, batch, i)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in "be")
+        with _step_parts(route) as marks:
+            t0 = time.perf_counter()
+            begin.record()
+            params, state, metrics = step(params, state, batch, i)
+            end.record()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        step_ms.append((t1 - t0) * 1e3)
+        parts.append({"forward_backward_ms": begin.elapsed_time(marks[0]),
+                      mid: marks[0].elapsed_time(marks[1]),
+                      "clip_and_optimizer_ms": marks[1].elapsed_time(end)})
         if i == 1:
             peak = (torch.cuda.max_memory_allocated() - base) / 2**20
         hist.append({k: float(v) for k, v in metrics.items()})
     counts = _counts(*mods)
     del params, state
-    return [h["loss"] for h in hist], hist, counts, step_ms, peak
+    best = min(range(len(step_ms)), key=step_ms.__getitem__)
+    return ([h["loss"] for h in hist], hist, counts, step_ms, peak,
+            parts[best])
 
 
 def model_grads(cfg, params, batch, impl: str) -> tuple:
@@ -5053,24 +5194,35 @@ def check_model_routes(cfg, params, batch) -> dict:
 
 
 def run_train_models(attn_ops, ota_ops, wkv_ops) -> tuple:
-    """Training olmo-1b (bf16, full width and depth) and rwkv6-7b (bf16,
-    full width, RWKV_TRAIN_LAYERS layers) over the MAC on the card:
+    """Training olmo-1b (bf16, full width and depth), rwkv6-7b (bf16,
+    full width, RWKV_TRAIN_LAYERS layers), hymba-1.5b (full width and
+    depth, 128 meta tokens), whisper-small (full width and depth, over
+    1,500 f32 frames) and pixtral-12b (full width, PIXTRAL_TRAIN_LAYERS
+    layers, after 1,024 patches) over the MAC on the card, each layer
+    recomputed in the backward (`cfg.remat`, the reference's default):
 
     (f) K2's bf16 kernel with `lse` against its plain version, and timed
-        at olmo-1b's training shape; the WKV backward kernel against the
-        plain backward, and timed at rwkv6-7b's;
+        at olmo-1b's training shape; K2 with `lse` at the new models'
+        training shapes (TRAIN_ATTN_CASES); the WKV backward kernel
+        against the plain backward, and timed at rwkv6-7b's;
     (g) the launcher (`python -m repro_torch.launch.train --arch olmo-1b
-        --steps 2`), then each model TRAIN_STEPS steps on the fused gbma
-        route and through the transport with gbma and with receiver
-        momentum at the launcher's defaults: finite losses, the kernels'
-        launches a step (K2 16 an olmo-1b forward, K3 and the backward 4
-        an rwkv6-7b forward and backward, N of each a transport step; K1
-        one a leaf a slot), ms per step (best of the last 2) with its
-        parts, the profile of a step (MODEL_TRAIN_PROFILED routes), peak
-        memory over the resident parameters and state;
+        --steps 2`, then `--arch whisper-small`, whose batches carry
+        frames), then each model MODEL_TRAIN_STEPS steps on the fused
+        gbma route and through the transport with gbma (olmo-1b and
+        rwkv6-7b also with receiver momentum) at the launcher's
+        defaults: finite losses, the kernels' launches a step (K2 twice
+        an attention layer a forward and backward, K3 twice and the
+        backward once an rwkv6-7b layer, N of each a transport step; K1
+        one a leaf a slot), ms per step (the better of the 2) with that
+        step's parts and the step's model FLOPs
+        (`launch.analytic`) as a share of the card's bf16 peak, peak
+        memory over the resident parameters and state (no profile: one
+        costs ~0.55 ms of profiler overhead a launch on an H100, and
+        hymba-1.5b's fused step makes 52,478; PERF.md keeps each model's
+        from an earlier run);
     (h) the kernel route against the plain route on the first batch;
-    (i) the card against the CPU on the reduced (f32) models, TRAIN_STEPS
-        steps on the fused gbma route.
+    (i) the card against the CPU on the reduced (f32) models,
+        MODEL_TRAIN_STEPS steps on the fused gbma route.
 
     Returns (launches by kernel over (g), the record)."""
     import gc
@@ -5079,6 +5231,7 @@ def run_train_models(attn_ops, ota_ops, wkv_ops) -> tuple:
 
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.launch import train as train_launch
+    from repro_torch.launch.analysis import PEAK_FLOPS
     from repro_torch.models.model import build_model
 
     mods = (attn_ops, ota_ops, wkv_ops)
@@ -5092,82 +5245,86 @@ def run_train_models(attn_ops, ota_ops, wkv_ops) -> tuple:
     record = {"seconds": seconds,
               "lse_errors": check_attention_lse("bfloat16"),
               "lse_timing": time_train_attention("bfloat16"),
+              "train_attention": check_train_attention_cases(),
               "wkv_backward_errors": check_wkv_backward(),
               "wkv_backward_timing": time_wkv_backward()}
     mark("(f)")
 
-    # (g) the launcher as a user runs it, then the three routes
+    # (g) the launcher as a user runs it, then the routes
     totals = {"k1": 0, "k2": 0, "k3": 0, "wkv_bwd": 0}
-    _reset_counts(*mods)
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        train_launch.main(["--arch", "olmo-1b", "--steps", "2"])
-    torch.cuda.synchronize()
-    final = float(buf.getvalue().rsplit("final loss", 1)[1].split()[0])
-    counts = _counts(*mods)
-    log(f"train models (g) launch.train --arch olmo-1b --steps 2: "
-        f"{time.perf_counter() - t0:.2f} s, final loss {final:.4f}, "
-        f"launches {counts}; output: {buf.getvalue().strip().splitlines()}")
-    if not math.isfinite(final) or \
-            counts["k2"] != 2 * model_train_cfg("olmo-1b").n_layers:
-        raise AssertionError("the train launcher on olmo-1b")
-    for key in totals:
-        totals[key] += counts[key]
-    torch.cuda.empty_cache()
-    mark("(g) launcher")
+    for arch in ("olmo-1b", "whisper-small"):
+        _reset_counts(*mods)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_launch.main(["--arch", arch, "--steps", "2"])
+        torch.cuda.synchronize()
+        final = float(buf.getvalue().rsplit("final loss", 1)[1].split()[0])
+        counts = _counts(*mods)
+        want = 2 * launches_per_forward(model_train_cfg(arch))["k2"]
+        log(f"train models (g) launch.train --arch {arch} --steps 2: "
+            f"{time.perf_counter() - t0:.2f} s, final loss {final:.4f}, "
+            f"launches {counts} (K2 expected {want}); output: "
+            f"{buf.getvalue().strip().splitlines()}")
+        if not math.isfinite(final) or counts["k2"] != want:
+            raise AssertionError(f"the train launcher on {arch}")
+        for key in totals:
+            totals[key] += counts[key]
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(f"(g) launcher {arch}")
     record["models"] = {}
     for arch in MODEL_TRAIN_ARCHS:
         cfg = model_train_cfg(arch)
         params0 = build_model(cfg).init_params(device="cuda")
         n_params = sum(p.numel() for p in tree_leaves(params0))
         n_leaves = len(tree_leaves(params0))
-        batches = [{"tokens": torch.from_numpy(b["tokens"]).cuda()}
-                   for b in _train_batches(cfg, TRAIN_STEPS)]
-        rwkv = cfg.family == "ssm"
-        per_forward = {"k2": 0 if rwkv else cfg.n_layers,
-                       "k3": cfg.n_layers if rwkv else 0,
-                       "wkv_bwd": cfg.n_layers if rwkv else 0}
+        batches = [_on_card(b)
+                   for b in _train_batches(cfg, MODEL_TRAIN_STEPS)]
+        per_forward = launches_per_forward(cfg)
+        flops = step_model_flops(cfg)
         rec = record["models"][arch] = {
             "params": n_params, "leaves": n_leaves, "layers": cfg.n_layers,
+            "seq": train_seq(cfg), "model_flops": flops,
             "resident_mib": sum(p.numel() * p.element_size() for p in
                                 tree_leaves(params0)) / 2**20,
             "routes": {}}
-        for aggregator, route in TRAIN_ROUTES:
+        for aggregator, route in MODEL_TRAIN_ROUTES[arch]:
             name = f"{aggregator} {'fused' if route == 'auto' else route}"
             gc.collect()
             torch.cuda.empty_cache()
             log(f"train models (g) {arch} {name}: "
                 f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated "
                 f"before the route")
-            losses, hist, counts, step_ms, peak = train_model_route(
+            losses, hist, counts, step_ms, peak, row = train_model_route(
                 cfg, aggregator, route, params0, batches, mods)
             transport_route = route == "transport"
             nodes = TRAIN_NODES if transport_route else 1
-            want = {key: TRAIN_STEPS * nodes * n for key, n in
+            want = {key: MODEL_TRAIN_STEPS * nodes * n for key, n in
                     per_forward.items()}
-            want["k1"] = TRAIN_STEPS * n_leaves if transport_route else 0
+            want["k1"] = MODEL_TRAIN_STEPS * n_leaves if transport_route \
+                else 0
             tx_ok = not transport_route or all(
                 math.isfinite(h["tx_energy"]) and h["tx_energy"] > 0
                 for h in hist)
             ok = all(math.isfinite(x) for x in losses) and tx_ok \
                 and counts == want
-            row = model_step_split(cfg, aggregator, route, params0,
-                                   batches[0],
-                                   profile=name in MODEL_TRAIN_PROFILED)
-            row.update(step_ms=min(step_ms[-2:]), step_ms_all=step_ms,
+            best = min(step_ms)
+            row.update(step_ms=best, step_ms_all=step_ms,
                        peak_mib_over_resident=peak, losses=losses,
-                       launches_per_step={k: v / TRAIN_STEPS
+                       launches_per_step={k: v / MODEL_TRAIN_STEPS
                                           for k, v in counts.items()},
+                       model_flops_share=flops / (best * 1e-3)
+                       / PEAK_FLOPS,
                        tx_energy=[h.get("tx_energy") for h in hist])
-            if "profile" in row:
-                row["profile"]["device_idle_share"] = \
-                    1.0 - row["profile"]["device_busy_ms"] / row["step_ms"]
             rec["routes"][name] = row
             log(f"train models (g) {arch} ({n_params:,} parameters, "
                 f"{n_leaves} leaves, {cfg.n_layers} layers) {name}, "
-                f"{TRAIN_STEPS} steps: losses {losses}; launches {counts} "
-                f"(expected {want}); {json.dumps(row)} "
+                f"{MODEL_TRAIN_STEPS} steps: losses {losses}; launches "
+                f"{counts} (expected {want}); step {best:.1f} ms, "
+                f"model_flops {flops:.4e} a step, "
+                f"{row['model_flops_share']:.2%} of "
+                f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s; {json.dumps(row)} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"train models {arch} {name}")
@@ -5186,7 +5343,7 @@ def run_train_models(attn_ops, ota_ops, wkv_ops) -> tuple:
         small = model_train_cfg(arch).reduced()
         cpu_params = build_model(small).init_params(device="cpu")
         cuda_params = tree_map(lambda p: p.cuda(), cpu_params)
-        small_batches = _train_batches(small, TRAIN_STEPS)
+        small_batches = _train_batches(small, MODEL_TRAIN_STEPS)
         # the fused route (K1's card against the CPU is "train" (e)'s)
         for aggregator, route in (("gbma", "auto"),):
             name = f"{aggregator} {'fused' if route == 'auto' else route}"
@@ -5200,10 +5357,10 @@ def run_train_models(attn_ops, ota_ops, wkv_ops) -> tuple:
                                              "auto", cpu_params,
                                              small_batches)
             rel = _tree_rel_to_max(on_card, on_cpu)
-            used = counts["k2"] if arch == "olmo-1b" else \
-                min(counts["k3"], counts["wkv_bwd"])
+            used = min(counts["k3"], counts["wkv_bwd"]) \
+                if small.family == "ssm" else counts["k2"]
             ok = rel <= TRAIN_ROUTE_BAR and used > 0
-            log(f"train models (i) reduced {arch} {name}, {TRAIN_STEPS} "
+            log(f"train models (i) reduced {arch} {name}, {MODEL_TRAIN_STEPS} "
                 f"steps: card vs CPU params {rel:.3e} of each leaf's max "
                 f"(bar {TRAIN_ROUTE_BAR}); launches on the card {counts} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -5438,7 +5595,8 @@ def main() -> int:
                             for s, r in served.items()}
         | {"repro-100m prompt 2048 (route check)": repro_launches}
         | {f"train {name}": n for name, n in train_launches.items()}
-        | {"train olmo-1b (bf16, with lse)": model_launches["k2"]}
+        | {"train models (bf16, with lse, each layer recomputed)":
+           model_launches["k2"]}
         | {f"serve S2 {run}": n for run, n in s2_launches.items()}
         | {f"serve S3 {run}": n for run, n in s3_launches.items()}
         | {f"serve S6-S7 {run}": n for run, n in s67_launches.items()}
@@ -5449,6 +5607,7 @@ def main() -> int:
         "s4_s5": s45_record, "lse": train_record["attention"],
         "bf16_lse": model_record["lse_timing"],
         "bf16_lse_errors": model_record["lse_errors"],
+        "train_shapes": model_record["train_attention"],
         "train": train_record, "train_models": model_record,
         "f32": {"source": ATTN_F32_SOURCE, "launches": repro_launches,
                 "sass": f32_sass,
@@ -5476,7 +5635,7 @@ def main() -> int:
         "bound_by": wkv_primary["bound_by"], "library_ms": None,
         "launches_by_run": {f"rwkv6-7b prompt {s}": r["launches"]
                             for s, r in rwkv_served.items()}
-        | {"train rwkv6-7b (4 layers, with checkpoints)":
+        | {"train rwkv6-7b (4 layers, with checkpoints, recomputed)":
            model_launches["k3"]},
         "shapes": wkv_timings, "build": wkv_build,
         "serve": {"rwkv6-7b": {"init": rwkv_init} | {

@@ -42,8 +42,25 @@ dimension (2 or 4), as JAX's typed keys carry their implementation:
   platform, so the reference draws other bits on a TPU; these are its
   CPU bits.
 
+The unsafe_rbg key (`key(seed, impl="unsafe_rbg")`, JAX's
+`impl='unsafe_rbg'`) has rbg's four words and rbg's bits, but splits
+and folds through the generator itself (JAX's `_unsafe_rbg_split`,
+`_unsafe_rbg_fold_in`):
+
+* `key(seed)` is rbg's, `[0, seed, 0, seed]`;
+* `split(k, num)` takes every 10th row of the (10·num, 4) draw of k:
+  key j is outputs [40j, 40j + 4) of k's stream;
+* `fold_in(k, d)` is k XOR outputs [36, 40) (the last row of a (10, 4)
+  draw) of the stream of `key(d)`;
+* a batch of keys splits, and a batch of data folds, from one stream of
+  the batch's first key or datum, as JAX's vmap does.
+
+Its width cannot tell it from rbg, so its key data is an `UnsafeRbgKey`:
+a tensor subclass, which indexing, reshapes, `.to`, `clone` and stacking
+keep, as JAX's typed keys carry their implementation.
+
 Everything downstream of the bits (uniforms, normals in f32 and bf16)
-is the same for both kinds.
+is the same for every kind.
 
 Bits and uniforms are bit-exact with `jax.random`. Normals go through
 `erfinv_f32`, a copy of XLA's single-precision `erf_inv` (Giles'
@@ -89,7 +106,9 @@ Shape = Union[int, Sequence[int]]
 NORMAL_PASS = 1 << 24
 
 # the key kinds by their width in uint32 words
-KEY_WIDTHS = {"threefry2x32": 2, "rbg": 4}
+KEY_WIDTHS = {"threefry2x32": 2, "rbg": 4, "unsafe_rbg": 4}
+# unsafe_rbg's split and fold_in: each key a row of every 10 of a draw
+_UNSAFE_ROWS = 10
 # Philox-4x32's multipliers and Weyl key increments (Salmon et al. 2011)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -121,17 +140,35 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
+class UnsafeRbgKey(torch.Tensor):
+    """Key data of JAX's unsafe_rbg keys: rbg's four words, of another
+    kind. Every function of this module reads the kind from the class
+    and computes on plain tensors (`_plain`)."""
+
+
+def _plain(k: torch.Tensor) -> torch.Tensor:
+    return k.as_subclass(torch.Tensor)
+
+
+def is_unsafe_rbg(k: torch.Tensor) -> bool:
+    return isinstance(k, UnsafeRbgKey)
+
+
 def key(seed, device=None, impl: str = "threefry2x32") -> torch.Tensor:
     """`jax.random.key(seed, impl=impl)` key data (uint32 words in
-    int64): threefry's `[0, seed]`, or rbg's `[0, seed, 0, seed]` (JAX's
-    `_rbg_seed`: the threefry key twice). `seed` may be an int or an
-    integer tensor of any shape; the result is `(*seed.shape, width)`."""
+    int64): threefry's `[0, seed]`, or rbg's and unsafe_rbg's `[0, seed,
+    0, seed]` (JAX's `_rbg_seed`: the threefry key twice; unsafe_rbg's
+    an `UnsafeRbgKey`). `seed` may be an int or an integer tensor of any
+    shape; the result is `(*seed.shape, width)`."""
     if impl not in KEY_WIDTHS:
         raise ValueError(f"impl must be one of {tuple(KEY_WIDTHS)}, got "
                          f"{impl!r}")
     s = torch.as_tensor(seed, dtype=torch.int64, device=device) & MASK32
     half = torch.stack([torch.zeros_like(s), s], dim=-1)
-    return half if impl == "threefry2x32" else torch.cat([half, half], -1)
+    if impl == "threefry2x32":
+        return half
+    k = torch.cat([half, half], -1)
+    return k.as_subclass(UnsafeRbgKey) if impl == "unsafe_rbg" else k
 
 
 def is_rbg(k: torch.Tensor) -> bool:
@@ -159,6 +196,7 @@ def _philox_stream(k: torch.Tensor, start: int, n: int) -> torch.Tensor:
     j from the 128-bit counter (w2, w3, w0, w1) + j (lowest word first),
     its four words the outputs 4j .. 4j + 3. `start` is a multiple of 4.
     The 32 x 32 products wrap in int64; their low 64 bits are exact."""
+    k = _plain(k)
     j = torch.arange(start // 4, start // 4 + (n + 3) // 4,
                      dtype=torch.int64, device=k.device)
     w = [k[i:i + 1] for i in range(4)]
@@ -227,9 +265,25 @@ def dynamic_bits(k: torch.Tensor, size: torch.Tensor,
     return torch.where(j < m, bits0, bits1)
 
 
+def _unsafe_rows(first: torch.Tensor, batch: tuple, num: int,
+                 row: int) -> torch.Tensor:
+    """`(*batch, num, 4)`: row `row` of every _UNSAFE_ROWS of the
+    `(prod(batch) · num · _UNSAFE_ROWS, 4)` draw of the one key
+    `first (4,)` (JAX's vmap of `rng_bit_generator` draws a batch from
+    its first key)."""
+    n = math.prod(batch) * num * _UNSAFE_ROWS
+    rows = _philox_stream(first, 0, 4 * n).reshape(-1, _UNSAFE_ROWS, 4)
+    return rows[:, row].reshape(batch + (num, 4))
+
+
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split(k, num)`: `(..., w)` -> `(..., num, w)`; an rbg
-    key's halves are split apart and key j joins their j-th keys."""
+    key's halves are split apart and key j joins their j-th keys; an
+    unsafe_rbg key's j-th key is row 10j of its own draw."""
+    if is_unsafe_rbg(k):
+        kp = _plain(k)
+        keys = _unsafe_rows(kp.reshape(-1, 4)[0], kp.shape[:-1], num, 0)
+        return keys.as_subclass(UnsafeRbgKey)
     if is_rbg(k):
         halves = split(_halves(k), num)  # (..., 2, num, 2)
         return halves.transpose(-3, -2).reshape(k.shape[:-1] + (num, 4))
@@ -243,7 +297,23 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     `data` is a non-negative int, giving `(..., 2)`, or an integer tensor
     that broadcasts against `k[..., 0]`: one fold per entry, so
     `fold_in(k[:, None], torch.arange(n))` is `(B, n, 2)`. An rbg key
-    folds each half: `(..., 4)`."""
+    folds each half: `(..., 4)`; an unsafe_rbg key is XORed with row 9
+    of the (10, 4) draw of `key(data)`, a tensor of data drawing all its
+    rows from its first datum's key."""
+    if is_unsafe_rbg(k):
+        kp = _plain(k)
+        if isinstance(data, torch.Tensor):
+            d = data.to(device=kp.device, dtype=torch.int64) & MASK32
+            batch = tuple(d.shape)
+            first = d.reshape(-1)[:1]
+        else:
+            batch = ()
+            first = torch.full((1,), int(data) & MASK32, dtype=torch.int64,
+                               device=kp.device)
+        zero = torch.zeros_like(first)
+        seed_key = torch.cat([zero, first, zero, first])
+        bits = _unsafe_rows(seed_key, batch, 1, _UNSAFE_ROWS - 1)
+        return (kp ^ bits[..., 0, :]).as_subclass(UnsafeRbgKey)
     if is_rbg(k):
         if isinstance(data, torch.Tensor):
             data = data[..., None]  # against the halves' axis

@@ -66,6 +66,11 @@ PyTree = Any
 # block_d sentinel: one slot call on the concatenated (N, D) matrix, the
 # untiled reference the tiled path is held to
 FULL_CONCAT = -1
+# the transmitted energy's f32 squares are taken this many values at a
+# time on a larger leaf: a whole (N, size) leaf widened to f32 and squared
+# would hold two f32 copies at once (pixtral-12b's embedding gradient at N
+# = 8 is 5.4 G values: 2 x 20 GiB)
+ENERGY_CHUNK = 1 << 28
 
 # the port's OTA routes, and the reference's names for them
 _OTA_IMPLS = {"auto": "auto", "kernel": "kernel", "ref": "ref",
@@ -273,6 +278,14 @@ def _block_ranges(sizes: list, block_d: Optional[int]) -> list:
     return out
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum(x²) in f32, by chunks of ENERGY_CHUNK values of the flattened
+    leaf, the chunk sums added in order."""
+    flat = x.reshape(-1)
+    return sum(flat[i:i + ENERGY_CHUNK].to(torch.float32).square().sum()
+               for i in range(0, flat.numel(), ENERGY_CHUNK))
+
+
 def aggregate(
     algo: str,
     node_grads: PyTree,  # leaves (n_nodes, *shape): per-node local grads
@@ -334,8 +347,8 @@ def aggregate(
     else:
         tx = flat
 
-    aux = {"tx_energy": cfg.channel.energy * sum(
-        x.to(torch.float32).square().sum() for x in tx)}
+    aux = {"tx_energy": cfg.channel.energy * sum(_square_sum(x)
+                                                 for x in tx)}
 
     if cfg.transmit_dtype is not None and algo != "centralized":
         tx = [x.to(_dtype(cfg.transmit_dtype)) for x in tx]

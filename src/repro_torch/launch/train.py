@@ -10,16 +10,24 @@ channel-transport route (per-node gradients over the simulated MAC). The
 blind family needs `--antennas`; `--power-budget` bounds blind_ec's
 per-node slot energy; `--block-d` / `--transmit-dtype` set the
 transport's tiling and bf16 transmit. Weights are random, from a torch
-generator seeded 0 on the device (`Model.init_params`); the tokens are
-`SyntheticTokens`, the reference's stream.
+generator seeded 0 on the device (`Model.init_params`); the batches are
+the reference launcher's (`train_batches`): `SyntheticTokens`, with
+zero f32 patch embeddings before the tokens of a VLM (pixtral-12b: its
+`--seq` counts the 1,024 patches, so it needs `--seq` 1,025 or more) and
+zero f32 frames for the encoder-decoder (whisper-small: its encoder then
+computes in f32).
 """
 from __future__ import annotations
 
 import argparse
 import math
+from typing import Iterator
+
+import numpy as np
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import ckpt
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import transport
 from repro_torch.core.channel import ChannelConfig
@@ -32,6 +40,36 @@ from repro_torch.optim.gd import get_optimizer
 from repro_torch.training.loop import run_training
 from repro_torch.training.train_step import (TrainConfig, build_train_step,
                                              resolve_route)
+
+
+def train_batches(cfg: ModelConfig, batch: int, seq: int) -> Iterator[dict]:
+    """The reference launcher's batches, as host arrays: `SyntheticTokens`
+    of (batch, seq + 1) tokens at the reference's seed; a VLM's cut to
+    `seq - n_patches + 1` after zero f32 patch embeddings (batch,
+    n_patches, d_model); an encoder-decoder's zero f32 frames (batch,
+    enc_seq, d_model). A VLM's `seq` counts its patches: at `seq <=
+    n_patches` the reference's cut keeps too few tokens, none at
+    pixtral-12b's default (ROADMAP §3 F16), so this raises, at the call."""
+    if cfg.n_patches and seq <= cfg.n_patches:
+        raise ValueError(
+            f"--seq {seq} leaves no token after {cfg.arch_id}'s "
+            f"{cfg.n_patches} patches: pass --seq {cfg.n_patches + 1} or "
+            f"more")
+    ds = SyntheticTokens(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
+
+    def make(tokens: np.ndarray) -> dict:
+        out = {"tokens": tokens}
+        if cfg.n_patches:
+            out["patch_embed"] = np.zeros((batch, cfg.n_patches,
+                                           cfg.d_model), np.float32)
+            out["tokens"] = tokens[:, :seq - cfg.n_patches + 1]
+        if cfg.family == "encdec":
+            out["frames"] = np.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                     np.float32)
+        return out
+
+    return (make(tokens) for tokens in ds)
 
 
 def main(argv=None) -> None:
@@ -75,6 +113,7 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    batches = train_batches(cfg, args.batch, args.seq)
     model = build_model(cfg)
     params = model.init_params(device=device)
     n_params = sum(x.numel() for x in tree_leaves(params))
@@ -99,10 +138,6 @@ def main(argv=None) -> None:
     opt = get_optimizer(args.optimizer, args.lr)
     step = build_train_step(model, tcfg, opt)
 
-    ds = SyntheticTokens(TokenDatasetConfig(
-        vocab_size=cfg.vocab_size, seq_len=args.seq,
-        global_batch=args.batch))
-    batches = ({"tokens": tokens} for tokens in ds)
     params, opt_state, hist = run_training(
         step, params, step.init_state(params), batches, args.steps,
         log_every=max(args.steps // 20, 1))

@@ -127,8 +127,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     padding. (The reference's window, softcap and query offset have no
     caller here and are left out.) Under autograd every key block's f32
     scores and probabilities are kept for the backward: the reference
-    rematerializes each block (`jax.checkpoint`), this twin does not yet,
-    so training MLA past 1,024 positions holds them all."""
+    rematerializes each block (`jax.checkpoint`); the port recomputes
+    the whole layer under `cfg.remat` (`layers.remat`) but not each
+    block, so a layer's backward past 1,024 positions holds them all."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dv = v.shape[-1]

@@ -22,7 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (apply_norm, dtype_of, layer_slice,
                                        mlp_apply, mlp_params, norm_param,
-                                       sinusoidal_positions)
+                                       remat, sinusoidal_positions)
 
 
 def encoder_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -41,17 +41,22 @@ def encoder_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def encoder_forward(params: dict, frames: torch.Tensor, cfg: ModelConfig,
                     impl: str = "auto") -> torch.Tensor:
     """frames (B, S_enc, D) -> encoder states (B, S_enc, D), in f32 when
-    the frames are f32 (JAX's promotion of bf16 + f32)."""
+    the frames are f32 (JAX's promotion of bf16 + f32). Under grad with
+    `cfg.remat`, each layer is recomputed in the backward
+    (`layers.remat`)."""
     s = frames.shape[1]
     positions = torch.arange(s, device=frames.device)
     pos = sinusoidal_positions(positions, cfg.d_model)
     x = frames.to(dtype_of(cfg)) + pos[None].to(frames.dtype)
-    for i in range(cfg.n_enc_layers):
-        bp = layer_slice(params["blocks"], i)
+
+    def block(x, bp):
         h = apply_norm(x, bp["ln1"], cfg)
         a, _ = attn_mod.attn_apply(h, bp["attn"], cfg, positions=positions,
                                    causal=False, impl=impl)
         x = x + a
         h = apply_norm(x, bp["ln2"], cfg)
-        x = x + mlp_apply(h, bp["mlp"], cfg)
+        return x + mlp_apply(h, bp["mlp"], cfg)
+
+    for i in range(cfg.n_enc_layers):
+        x = remat(cfg, block, x, layer_slice(params["blocks"], i))
     return apply_norm(x, params.get("final_norm"), cfg)

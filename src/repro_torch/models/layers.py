@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -46,6 +47,18 @@ def dense_init(gen: torch.Generator, fan_in: int, shape,
 def embed_init(gen: torch.Generator, shape,
                dtype: torch.dtype) -> torch.Tensor:
     return truncated_normal(gen, shape).mul_(0.02).to(dtype)
+
+
+def remat(cfg: ModelConfig, fn, *args, **kwargs):
+    """`fn(*args, **kwargs)`, recomputed in the backward when `cfg.remat`
+    is set and grad is enabled: the reference's `jax.checkpoint(...,
+    nothing_saveable)` around a layer body. The backward keeps the
+    layer's inputs only and runs its forward again (its kernels launch
+    twice); the values do not change. Serving passes its cache or state
+    through under `torch.no_grad`, where `fn` runs once."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def layer_slice(tree, i: int):

@@ -5,6 +5,7 @@
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, cache, token, pos)
     losses, metrics = model.train_loss_per_example(params, batch)
+    shapes = model.params_shape()                  # meta tensors
 
 Four kinds are ported: "transformer" (the decoder, with gemma2's
 sliding windows, softcaps and sandwich norms, gemma's embedding scale and
@@ -32,20 +33,57 @@ key (ROADMAP §3 F15).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, rwkv
 from repro_torch.models import ssm as hymba
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import apply_norm, matmul
+from repro_torch.models.layers import apply_norm, matmul, remat
 
 _IMPLS = ("auto", "kernel", "ref")
 # the weight of deepseek-v3's multi-token-prediction loss, the reference's
 MTP_WEIGHT = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+# the reference's input shapes (`launch.analytic.model_flops` reads them)
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# the tensor factories of the initializers, which `_MetaInit` sends to
+# the meta device
+_FACTORIES = {torch.rand, torch.randn, torch.empty, torch.zeros,
+              torch.ones, torch.full, torch.arange}
+
+
+class _MetaInit(TorchFunctionMode):
+    """Runs an initializer on the meta device: every tensor factory makes
+    a meta tensor (shape and dtype, no storage) and its generator is
+    dropped, so the ops after it compute shapes only."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func in _FACTORIES:
+            kwargs.pop("generator", None)
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
 
 
 class Model:
@@ -77,6 +115,14 @@ class Model:
             p["encoder"] = encdec.encoder_params(generator, self.cfg)
             return p
         return tfm.init_decoder(generator, self.cfg)
+
+    def params_shape(self) -> dict:
+        """The parameter tree as meta tensors: each leaf's shape and dtype,
+        nothing allocated or drawn (the reference's `jax.eval_shape` of
+        `init_params`), so deepseek-v3's 671 B parameters take a moment
+        on any host."""
+        with _MetaInit():
+            return self.init_params(torch.Generator(device="cpu"))
 
     def train_loss_per_example(self, params, batch) -> tuple:
         """Per-example losses (B,) of next-token prediction on
@@ -126,9 +172,12 @@ class Model:
         """Per-example loss of predicting token t + 2 with the MTP head
         from (h_t, the embedding of token t + 1): both normed, joined,
         projected to d_model, through one dense sublayer, then the shared
-        unembedding. The reference recomputes the block in its backward
-        (`jax.checkpoint`), a memory choice with no effect on the values;
-        the port keeps its activations."""
+        unembedding. Under `cfg.remat` the whole head is recomputed in the
+        backward (`layers.remat`), as the reference's `jax.checkpoint`."""
+        return remat(self.cfg, self._mtp_loss_inner, params, h, inputs,
+                     labels)
+
+    def _mtp_loss_inner(self, params, h, inputs, labels) -> torch.Tensor:
         cfg = self.cfg
         mp = params["mtp"]
         h_in = apply_norm(h[:, :-1], mp["norm_h"], cfg)

@@ -50,6 +50,8 @@ def _expert_init(gen: torch.Generator, fan_in: int, shape,
     """`dense_init` of a stacked expert leaf, drawn one (layer, expert)
     matrix at a time into the leaf, so the f32 draw is one expert's."""
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.is_meta:  # `Model.params_shape`: a shape, nothing to draw
+        return out
     for idx in itertools.product(*(range(n) for n in shape[:-2])):
         out[idx] = dense_init(gen, fan_in, shape[-2:], dtype)
     return out

@@ -22,9 +22,8 @@ the reference's `Model.prefill` passes too. Training passes `state=None`,
 the reference's stateless forward: zero shift tokens, a zero initial WKV
 state, nothing written, and the WKV differentiable (`wkv6` under
 autograd: K3 and its hand-written backward on the card). As in the
-dense decoder, every layer's activations are kept for the backward: the
-reference's `remat=True` recomputation is a memory choice with no effect
-on the numbers, and the port does not recompute.
+dense decoder, `cfg.remat` recomputes each block in the backward, as the
+reference's `jax.checkpoint` does (`layers.remat`).
 """
 from __future__ import annotations
 
@@ -36,7 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv.ops import wkv6
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
-                                       layer_slice, rms_norm)
+                                       layer_slice, remat, rms_norm)
 
 W_LORA_RANK = 64
 
@@ -174,13 +173,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens (B, S); `state` the stacked decode state (`init_state`),
     updated in place, or None (the training forward: no state read or
     written). Returns (final-normed hidden (B, S, D), state). `impl`
-    picks the WKV route ('auto' | 'kernel' | 'ref')."""
+    picks the WKV route ('auto' | 'kernel' | 'ref'). Under grad with
+    `cfg.remat`, each block is recomputed in the backward
+    (`layers.remat`): K3 launches twice a layer a training step."""
     x = params["embed"][tokens].to(dtype_of(cfg))
     x = rms_norm(x, params["ln_in"])
     for i in range(cfg.n_layers):
-        x = block_apply(x, layer_slice(params["blocks"], i), cfg,
-                        None if state is None else layer_slice(state, i),
-                        impl=impl)
+        bp = layer_slice(params["blocks"], i)
+        x = remat(cfg, block_apply, x, bp, cfg, layer_slice(state, i),
+                  impl=impl)
     return rms_norm(x, params["final_norm"]), state
 
 

@@ -31,7 +31,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (apply_norm, dense_init, dtype_of,
                                        embed_init, layer_slice, matmul,
                                        mlp_apply, mlp_params, norm_param,
-                                       rms_norm)
+                                       remat, rms_norm)
 
 SSM_CHUNK = 256
 
@@ -190,7 +190,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     """tokens (B, S) -> (final-normed hidden (B, S (+ meta), D), cache),
     the cache updated in place. `prepend_meta` puts the meta tokens
     before the prompt (prefill, training); `decode_pos` makes this a
-    decode step at that absolute position."""
+    decode step at that absolute position. Under grad with `cfg.remat`,
+    each layer is recomputed in the backward
+    (`layers.remat`): the backward holds one layer's scan at a time."""
     x = params["embed"][tokens].to(dtype_of(cfg))
     b, s = tokens.shape
     offset = 0
@@ -203,11 +205,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     else:
         positions = torch.arange(s + offset, device=tokens.device)
     for i in range(cfg.n_layers):
-        x = hymba_block(
-            x, layer_slice(params["blocks"], i), cfg, positions=positions,
-            window=layer_window(cfg, i),
-            cache=None if cache is None else layer_slice(cache, i),
-            decode_pos=decode_pos, impl=impl)
+        bp = layer_slice(params["blocks"], i)
+        x = remat(cfg, hymba_block, x, bp, cfg, positions=positions,
+                  window=layer_window(cfg, i), cache=layer_slice(cache, i),
+                  decode_pos=decode_pos, impl=impl)
     return apply_norm(x, params.get("final_norm"), cfg), cache
 
 

@@ -21,12 +21,12 @@ llama4's (local dense, global MoE) pairs, and all-MoE stacks. An MoE
 sublayer returns its router's aux loss, which `decoder_forward` sums
 over the stack (0 without MoE layers).
 
-Training (`decoder_forward` under autograd) keeps every layer's
-activations for the backward: the reference's `remat=True` (recompute
-each scanned layer in the backward) is a memory choice with no effect on
-the numbers, and the port does not recompute. Only `chunked_xent`
-recomputes, each logits chunk, as the reference's does. At olmo-1b's
-training shape (B = 8, S = 256) the kept activations are a few GB.
+Training (`decoder_forward` under autograd) recomputes each segment
+step in the backward when `cfg.remat` is set, as the reference's
+`jax.checkpoint` around its scan body (`layers.remat`): the backward
+keeps each step's input and runs the step's forward again, so each
+layer's kernels launch twice a training step. `chunked_xent` recomputes
+each logits chunk, as the reference's does.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
 from repro_torch.models.layers import (apply_norm, dtype_of, embed_init,
-                                       layer_slice, norm_param)
+                                       layer_slice, norm_param, remat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,21 +271,31 @@ def decoder_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     the forward is differentiable: each layer reads views of the stacked
     leaves (`layer_slice`), so gradients reach the stacked tensors.
     `enc_out` (B, S_enc, D), the encoder states of an encoder-decoder
-    model, feeds each layer's cross-attention (not needed in decode)."""
+    model, feeds each layer's cross-attention (not needed in decode).
+    Under grad with `cfg.remat`, each segment step runs
+    under `layers.remat`, its MoE aux loss going out with its output."""
+
+    def seg_step(x, sp, sc, subs, enc_out):
+        aux_sum = None
+        for j, sub in enumerate(subs):
+            x, aux = sublayer_apply(
+                x, sp[f"sub{j}"], sub, cfg, positions=positions,
+                cache=None if sc is None else sc[f"sub{j}"],
+                decode_pos=decode_pos, enc_out=enc_out, impl=impl)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        return x, aux_sum
+
     aux_total = None
     for i, seg in enumerate(build_segments(cfg)):
         seg_params = params["segments"][f"seg{i}"]
         seg_cache = None if cache is None else cache[f"seg{i}"]
         for step in range(seg.n_steps):
-            for j, sub in enumerate(seg.subs):
-                x, aux = sublayer_apply(
-                    x, layer_slice(seg_params[f"sub{j}"], step), sub, cfg,
-                    positions=positions,
-                    cache=None if seg_cache is None
-                    else layer_slice(seg_cache[f"sub{j}"], step),
-                    decode_pos=decode_pos, enc_out=enc_out, impl=impl)
-                if aux is not None:
-                    aux_total = aux if aux_total is None else aux_total + aux
+            sp = layer_slice(seg_params, step)
+            x, aux = remat(cfg, seg_step, x, sp, layer_slice(seg_cache, step),
+                           seg.subs, enc_out)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
     if aux_total is None:  # no MoE layer
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     return apply_norm(x, params.get("final_norm"), cfg), cache, aux_total

@@ -28,11 +28,11 @@ transport step launches K2 N times per layer (N x n_layers), a fused
 step once per layer.
 
 Keys are the port's `core.rng` keys of `TrainConfig.rng_impl`: threefry
-in the original layout, or JAX's rbg keys (their bits XLA's CPU
-`RngBitGenerator`'s). `key(seed, impl)`, then `fold_in(base, step)`,
+in the original layout, or JAX's rbg or unsafe_rbg keys (their bits XLA's
+CPU `RngBitGenerator`'s). `key(seed, impl)`, then `fold_in(base, step)`,
 split into `(k_h, k_w)` on the fused route; `transport.step_key` on the
-transport route. Every split, fold and draw downstream takes either
-kind. The
+transport route. Every split, fold and draw downstream takes any kind.
+The
 reference's `_constrain_like_params` is a sharding constraint, which
 means nothing on one device, and is left out.
 
@@ -68,7 +68,7 @@ PyTree = Any
 # aggregators whose MAC folds into the loss / reduced tree (no per-node
 # gradients); everything else goes through the transport
 _FUSED_AGGREGATORS = ("gbma", "fdm", "centralized")
-_RNG_IMPLS = ("threefry2x32", "rbg")
+_RNG_IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +77,8 @@ class TrainConfig:
     gbma: GBMAConfig = dataclasses.field(default_factory=GBMAConfig)
     seed: int = 0
     clip_norm: Optional[float] = None
-    # 'threefry2x32' or 'rbg' (JAX's `jax.random.key(seed, impl=...)`)
+    # 'threefry2x32', 'rbg' or 'unsafe_rbg' (JAX's
+    # `jax.random.key(seed, impl=...)`)
     rng_impl: str = "threefry2x32"
     # gradient accumulation over microbatches (fused route only): each
     # node still transmits one analog gradient per slot
@@ -91,10 +92,6 @@ class TrainConfig:
 
 
 def _check_rng_impl(tcfg: TrainConfig) -> None:
-    if tcfg.rng_impl == "unsafe_rbg":
-        raise NotImplementedError(
-            "rng_impl='unsafe_rbg': its keys have rbg's width, so the kind "
-            "would have to travel with the key (ROADMAP T7)")
     if tcfg.rng_impl not in _RNG_IMPLS:
         raise ValueError(f"rng_impl must be one of {_RNG_IMPLS}, got "
                          f"{tcfg.rng_impl!r}")

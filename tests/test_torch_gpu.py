@@ -1186,3 +1186,87 @@ def test_served_results_match_the_plain_route_on_the_card(cuda):
             np.testing.assert_allclose(getattr(res, name),
                                        getattr(plain, name), rtol=1e-5,
                                        atol=0)
+
+
+# ---------------------------------- training hymba, whisper and pixtral (T8)
+
+# K2 at the new models' training shapes: (B, Hq, Hkv, S, d, dtype, kw):
+# hymba's groups of 5 under its 1,024 window and globally, whisper's f32
+# encoder over 1,500 frames (no causal mask) and bf16 decoder, pixtral's
+# 1,024 patches + 256 tokens over 8 kv heads
+T8_ATTN_SHAPES = [
+    (8, 25, 5, 384, 64, torch.bfloat16, {"window": 1024}),
+    (8, 25, 5, 384, 64, torch.bfloat16, {}),
+    (8, 12, 12, 1500, 64, torch.float32, {"causal": False}),
+    (8, 12, 12, 256, 64, torch.bfloat16, {}),
+    (8, 32, 8, 1280, 128, torch.bfloat16, {}),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,dtype,kw", T8_ATTN_SHAPES)
+def test_attention_lse_at_the_new_training_shapes(cuda, b, hq, hkv, s, d,
+                                                  dtype, kw):
+    """K2 with `lse` against its plain version at K2's bars (f32 atol
+    5e-5 + rtol 1e-4, bf16 atol 3e-2; lse 1e-5 + 1e-6·|lse|), one launch
+    each."""
+    q, k, v = _qkv(b, hq, hkv, s, d, dtype, s + hq, cuda)
+    scale = d ** -0.5
+    before = attn_ops.launch_count
+    out, lse = multi_head_attention(q, k, v, scale=scale, return_lse=True,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count == before + 1
+    ref, ref_lse = multi_head_attention(q, k, v, scale=scale, impl="ref",
+                                        return_lse=True, **kw)
+    atol, rtol = (5e-5, 1e-4) if dtype == torch.float32 else (3e-2, 0.0)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_BAR[0],
+                               rtol=LSE_BAR[1])
+
+
+def test_hymba_fused_steps_recompute_each_layer(cuda):
+    """hymba-1.5b at full width with 2 of its 32 layers (a global layer
+    and a windowed one) in bf16: with `remat=True` the gradients of one
+    forward and backward equal those without it bit for bit, K2 launching
+    twice a layer; then 2 fused gbma steps through the recompute give
+    finite losses and parameters, 4 K2 launches a step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.gbma import GBMAConfig
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.gd import momentum
+    from repro_torch.training.train_step import TrainConfig, build_train_step
+
+    cfg = get_config("hymba-1.5b").with_(n_layers=2, global_layer_ids=(0,))
+    assert cfg.remat
+    params0 = build_model(cfg).init_params(device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 257), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(6))
+    grads = {}
+    for remat in (False, True):
+        params = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params0)
+        before = attn_ops.launch_count
+        losses, _ = build_model(cfg.with_(remat=remat)) \
+            .train_loss_per_example(params, {"tokens": tokens})
+        torch.mean(losses).backward()
+        torch.cuda.synchronize()
+        assert attn_ops.launch_count - before == 2 * (2 if remat else 1)
+        grads[remat] = [p.grad for p in tree_leaves(params)]
+    for a, b_ in zip(grads[False], grads[True]):
+        assert torch.equal(a, b_)
+    step = build_train_step(build_model(cfg), TrainConfig(
+        gbma=GBMAConfig(n_nodes=8, channel=ChannelConfig(
+            fading="rayleigh", noise_std=0.01))), momentum(0.05))
+    params = tree_map(lambda x: x.clone(), params0)
+    state = step.init_state(params)
+    before = attn_ops.launch_count
+    for i in range(2):
+        params, state, metrics = step(params, state, {"tokens": tokens}, i)
+        assert torch.isfinite(metrics["loss"])
+    torch.cuda.synchronize()
+    assert attn_ops.launch_count - before == 2 * 4
+    assert all(torch.isfinite(p).all() for p in tree_leaves(params))

@@ -88,6 +88,9 @@ S3_S7_MODULES = {"repro_torch.configs.hymba_1p5b",
                  "repro_torch.configs.pixtral_12b", "repro_torch.models.ssm",
                  "repro_torch.models.encdec", "repro_torch.models.attention",
                  "repro_torch.serving.engine", "repro_torch.launch.serve"}
+# the analytic model and the roofline terms
+ANALYSIS_MODULES = {"repro_torch.launch.analytic",
+                    "repro_torch.launch.analysis"}
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -129,12 +132,14 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert S2_MODULES <= names, S2_MODULES - names
     assert S3_S7_MODULES <= names, S3_S7_MODULES - names
     assert S4_S5_MODULES <= names, S4_S5_MODULES - names
+    assert ANALYSIS_MODULES <= names, ANALYSIS_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
 @pytest.mark.parametrize("module", sorted(TRANSPORT_MODULES
                                           | TRAINING_MODULES
-                                          | MODEL_TRAINING_MODULES))
+                                          | MODEL_TRAINING_MODULES
+                                          | ANALYSIS_MODULES))
 def test_transport_module_alone_loads_no_jax_and_no_reference(module):
     """Each M7, training and model-training module imported first in a fresh interpreter
     (its own import order, the package's re-exports included) loads
@@ -391,9 +396,9 @@ def test_ported_config_builds(arch, kind, opts):
 def test_training_entry_points_raise():
     """Training is ported for the dense decoder (`opt_flash_vjp` builds:
     the port trains through its flash backward either way) and for RWKV
-    (T5, done: its loss is differentiable on the CPU); rbg keys (T6)
-    build, unsafe_rbg keys raise naming their item; the launcher's case
-    is the test below."""
+    (T5, done: its loss is differentiable on the CPU); rbg keys (T6) and
+    unsafe_rbg keys (T7) build and step; an unknown kind raises; the
+    launcher's case is the test below."""
     from repro_torch.optim.gd import gd
     from repro_torch.training.train_step import TrainConfig, build_train_step
 
@@ -409,9 +414,17 @@ def test_training_entry_points_raise():
     assert torch.isfinite(params["blocks"]["tm"]["wk"].grad).all()
     assert callable(build_train_step(build_model(cfg),
                                      TrainConfig(rng_impl="rbg"), gd(0.1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP T7"):
-        build_train_step(build_model(cfg),
-                         TrainConfig(rng_impl="unsafe_rbg"), gd(0.1))
+    model = build_model(cfg)
+    step = build_train_step(model, TrainConfig(rng_impl="unsafe_rbg"),
+                            gd(0.1))
+    params = model.init_params(device="cpu")
+    new, _, metrics = step(params, step.init_state(params),
+                           {"tokens": torch.zeros((16, 5), dtype=torch.long)},
+                           0)
+    assert torch.isfinite(metrics["loss"])
+    assert not torch.equal(new["embed"], params["embed"])
+    with pytest.raises(ValueError, match="rng_impl"):
+        build_train_step(model, TrainConfig(rng_impl="philox"), gd(0.1))
 
 
 def test_train_launcher_without_device_raises_where_cuda_is_absent(

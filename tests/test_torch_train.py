@@ -253,9 +253,9 @@ def test_train_config_defaults_match_the_reference():
 
 def test_step_refusals():
     """The reference's refusals: a transport config on the fused route,
-    microbatches on the transport route; an unknown key kind; and the
-    port's: unsafe_rbg keys (ROADMAP T7). rbg keys build and step (their
-    trajectories: `test_torch_rbg.py`)."""
+    microbatches on the transport route; an unknown key kind. rbg and
+    unsafe_rbg keys build and step on both routes (their trajectories:
+    `test_torch_rbg.py`, `test_torch_unsafe_rbg.py`)."""
     _, cfg = _configs("tiny")
     model = build_model(cfg)
     with pytest.raises(ValueError, match="fused route ignores it"):
@@ -264,17 +264,19 @@ def test_step_refusals():
     with pytest.raises(ValueError, match="microbatch"):
         build_train_step(model, TrainConfig(aggregator="momentum",
                                             microbatches=2), gd.gd(0.1))
-    step = build_train_step(model, TrainConfig(
-        rng_impl="rbg", gbma=GBMAConfig(n_nodes=2)), gd.gd(0.1))
     params = model.init_params(device="cpu")
     tokens = torch.zeros((4, 9), dtype=torch.long)
-    new, _, metrics = step(params, step.init_state(params),
-                           {"tokens": tokens}, 0)
-    assert math.isfinite(float(metrics["loss"]))
-    assert not torch.equal(new["embed"], params["embed"])
-    with pytest.raises(NotImplementedError, match="ROADMAP T7"):
-        build_train_step(model, TrainConfig(rng_impl="unsafe_rbg"),
-                         gd.gd(0.1))
+    for impl, route in (("rbg", "auto"), ("unsafe_rbg", "auto"),
+                        ("unsafe_rbg", "transport")):
+        tp = transport.TransportConfig(n_nodes=2) \
+            if route == "transport" else None
+        step = build_train_step(model, TrainConfig(
+            rng_impl=impl, gbma=GBMAConfig(n_nodes=2), route=route,
+            transport=tp), gd.gd(0.1))
+        new, _, metrics = step(params, step.init_state(params),
+                               {"tokens": tokens}, 0)
+        assert math.isfinite(float(metrics["loss"])), (impl, route)
+        assert not torch.equal(new["embed"], params["embed"])
     with pytest.raises(ValueError, match="rng_impl"):
         build_train_step(model, TrainConfig(rng_impl="philox"), gd.gd(0.1))
 
