@@ -38,6 +38,14 @@ drives the port's main paths:
   call's wall, K1 launches and peak device memory beside
   `estimate_peak_bytes` and the server's price (plus
   `draw_scratch_bytes`), the plans held to each other bit for bit;
+* seed and row placement over a (rows x mc) mesh ("placement"): LARGE
+  at `ExecPlan(n_shards=4)` over four entries of one card (and over the
+  distinct cards where there are two or more) and the LARGE sweep at 3
+  row blocks x 2 seed blocks, each bit for bit the unplaced main-path
+  call (curves kept), K1 150 times a block; LARGE in chunks of 256
+  placed over 4 within the reference's bars of the unplaced chunks, its
+  checkpoint refused at 2 seed blocks and that sweep started over; each
+  call's wall beside the unplaced one, each block's peak memory;
 * the MC sweep server ("serve mc"): the launcher's selftests on the
   card; the reference's serving mix per request, monolithic and bucketed
   (walls, K1 launches, engine calls, program shapes, each batch's layout,
@@ -995,12 +1003,15 @@ def large_mrc_workload():
 
 def run_large_main_path(ops, label: str, mcs, chs, betas, steps: int,
                         seeds: int, route_seeds: int = 64,
-                        route_steps: int = None, **kw) -> tuple:
-    """A LARGE-scale gbma call (keep_seed_curves=False): the kernel and
-    plain routes at `route_seeds` seeds a row (`route_steps` steps, all
-    by default), then the call at `seeds` seeds a row with its wall, peak
-    device memory and launches (one per step for all trajectories).
-    Returns (launches, seconds per step)."""
+                        route_steps: int = None, keep_curves: bool = False,
+                        **kw) -> tuple:
+    """A LARGE-scale gbma call: the kernel and plain routes at
+    `route_seeds` seeds a row (`route_steps` steps, all by default,
+    keep_seed_curves=False), then the call at `seeds` seeds a row with
+    its wall, peak device memory and launches (one per step for all
+    trajectories), its curves kept when `keep_curves` (the "placement"
+    phase holds its placed runs to them). Returns (launches, seconds per
+    step, wall seconds, the `MCResult`)."""
     import numpy as np
     import torch
 
@@ -1016,7 +1027,7 @@ def run_large_main_path(ops, label: str, mcs, chs, betas, steps: int,
     ops.launch_count = 0
     t0 = time.perf_counter()
     res = run_mc(mcs, chs, "gbma", betas, steps, seeds,
-                 keep_seed_curves=False, device="cuda", **kw)
+                 keep_seed_curves=keep_curves, device="cuda", **kw)
     wall = time.perf_counter() - t0
     launches = ops.launch_count
     peak = torch.cuda.max_memory_allocated()
@@ -1032,7 +1043,7 @@ def run_large_main_path(ops, label: str, mcs, chs, betas, steps: int,
             and np.all(res.mean[:, -1] < res.mean[:, 0])):
         raise AssertionError(f"{label}: mean curves not finite or not "
                              "falling")
-    return launches, wall / steps
+    return launches, wall / steps, wall, res
 
 
 # the "exec plans" phase at LARGE: the reference's chunk of its
@@ -1213,6 +1224,184 @@ def run_exec_plans(ops) -> dict:
               **chunked)
     same("(c) and (d)", c, dd, ("mean", "ci95"))
     log(f"exec plans: {json.dumps(record)}")
+    return launches, record
+
+
+# the "placement" phase: LARGE's seeds over a mesh of 4 entries, the LARGE
+# sweep's rows and seeds over (3 x 2), LARGE chunked at 256 over 4
+PLACEMENT_SHARDS = 4
+PLACEMENT_SWEEP_MESH = (3, 2)
+PLACEMENT_CHUNK = 256
+
+
+def run_placement(ops, large: tuple, sweep: tuple) -> tuple:
+    """Seed and row placement (M8) on the card, every call through
+    `run_mc` with K1: (a) LARGE ('inscan', curves kept) at
+    `ExecPlan(n_shards=4)` over four entries of cuda:0, and over the
+    distinct cards where there are two or more; (b) the LARGE sweep
+    ('inscan', 3 rows) at `row_shards=3, n_shards=2` over six entries;
+    (c) LARGE in chunks of 256, reduced ('hoisted'), unplaced and at
+    `n_shards=4` with a `resume_dir`, whose checkpoint a resume at
+    `n_shards=2` must refuse (the reference's fingerprint error; nothing
+    runs), after which the 2-shard sweep starts over in a fresh directory
+    and runs every chunk. `large` and `sweep` are the unplaced main-path
+    calls (wall seconds, `MCResult` with curves). Checks (a) and (b)
+    against them bit for bit (curves, energies, mean, ci95), (c)'s means
+    within rtol 1e-6 and ci95 within rtol 1e-5 + atol 1e-9 of the
+    unplaced chunked run (the reference's placement bars), and K1's
+    launches: 150 a block. Prints each call's wall beside the unplaced
+    wall and each block's peak device memory (the allocator's, read as
+    the block issues), with the card's name and power limit. Returns (K1's
+    launches per call, the record)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.mc import exec as exec_mod
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.core.mc.plan import ExecPlan
+
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    steps = LARGE["steps"]
+    card = torch.device("cuda", 0)
+    launches, record = {}, {"card": smi}
+    blocks = []
+    real_block = exec_mod._run_block
+
+    def measured_block(*a, **kw):
+        # the caching allocator counts on the host as the block issues:
+        # no synchronize between blocks
+        dev = a[1].device  # the block's betas
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = real_block(*a, **kw)
+        blocks.append({"device": str(dev), "resident_mib": base / 2**20,
+                       "peak_mib": torch.cuda.max_memory_allocated(dev)
+                       / 2**20})
+        return out
+
+    def call(label: str, args, n_blocks: int, unplaced_s=None, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        blocks.clear()
+        ops.launch_count = 0
+        exec_mod._run_block = measured_block
+        t0 = time.perf_counter()
+        try:
+            res = run_mc(*args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            exec_mod._run_block = real_block
+        wall = time.perf_counter() - t0
+        count = ops.launch_count
+        record[label] = {"wall_s": wall, "unplaced_wall_s": unplaced_s,
+                         "launches": count, "blocks": list(blocks),
+                         "plan": res.plan.asdict(), "device": res.device}
+        launches[f"placement {label}"] = count
+        peaks = ", ".join(f"{b['peak_mib']:.1f}" for b in blocks)
+        log(f"placement {label}: wall {wall:.3f} s"
+            + (f" (unplaced {unplaced_s:.3f} s)" if unplaced_s else "")
+            + f", {count} OTA kernel launches ({len(blocks)} blocks x "
+            f"{steps} steps), each block's peak device memory {peaks} MiB; "
+            f"{smi}")
+        if count != n_blocks * steps or len(blocks) != n_blocks:
+            raise AssertionError(
+                f"placement {label}: expected {n_blocks} blocks and "
+                f"{n_blocks * steps} launches, got {len(blocks)} and {count}")
+        return res
+
+    def same(label: str, a, b) -> None:
+        for f in ("risks", "cum_energy", "mean", "ci95"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                bad = int(np.sum(getattr(a, f) != getattr(b, f)))
+                raise AssertionError(f"placement {label}: {f} differs from "
+                                     f"the unplaced call at {bad} entries")
+        log(f"placement {label}: curves, energies, mean and ci95 equal the "
+            "unplaced call's bit for bit")
+
+    # (a) LARGE's seeds over four entries of one card
+    large_wall, large_res = large
+    mc, ch, beta = large_workload()
+    args = (mc, [ch], "gbma", [beta], steps, LARGE["seeds"])
+    placed = call(f"(a) LARGE, n_shards={PLACEMENT_SHARDS} on cuda:0",
+                  args, PLACEMENT_SHARDS, large_wall,
+                  plan=ExecPlan(rng_plan="inscan", n_shards=PLACEMENT_SHARDS),
+                  device=[card] * PLACEMENT_SHARDS)
+    same("(a)", placed, large_res)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        k = PLACEMENT_SHARDS if n_cards >= PLACEMENT_SHARDS else 2
+        placed = call(f"(a) LARGE, n_shards={k} over {k} cards", args, k,
+                      large_wall, plan=ExecPlan(rng_plan="inscan",
+                                                n_shards=k), device="cuda")
+        same("(a) over distinct cards", placed, large_res)
+    del placed
+
+    # (b) the LARGE sweep's rows and seeds over (3 x 2)
+    sweep_wall, sweep_res = sweep
+    mcs, chs, betas = large_sweep_workload()
+    rows, k = PLACEMENT_SWEEP_MESH
+    placed = call(f"(b) LARGE sweep, row_shards={rows}, n_shards={k}",
+                  (mcs, chs, "gbma", betas, LARGE_SWEEP["steps"],
+                   LARGE_SWEEP["seeds"]), rows * k, sweep_wall,
+                  plan=ExecPlan(rng_plan="inscan", n_shards=k,
+                                row_shards=rows), device=[card] * (rows * k))
+    same("(b)", placed, sweep_res)
+    del mcs, placed
+
+    # (c) LARGE in chunks of 256, reduced, placed and resumed under
+    # another mesh
+    chunks = LARGE["seeds"] // PLACEMENT_CHUNK
+
+    def chunked(n_shards: int) -> ExecPlan:
+        return ExecPlan(seed_chunk=PLACEMENT_CHUNK, n_shards=n_shards,
+                        keep_seed_curves=False)
+
+    label = f"(c) LARGE chunks of {PLACEMENT_CHUNK}"
+    plain = call(f"{label}, unplaced", args, chunks, plan=chunked(0),
+                 device=card)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as resume_dir:
+        four = call(f"{label}, n_shards={PLACEMENT_SHARDS}",
+                    args, chunks * PLACEMENT_SHARDS,
+                    record[f"{label}, unplaced"]["wall_s"],
+                    plan=chunked(PLACEMENT_SHARDS),
+                    device=[card] * PLACEMENT_SHARDS, resume_dir=resume_dir)
+        ops.launch_count = 0
+        try:
+            run_mc(*args, plan=chunked(2), device=[card] * 2,
+                   resume_dir=resume_dir)
+        except ValueError as err:
+            if "fingerprint" not in str(err) or ops.launch_count:
+                raise
+            log(f"placement (c): the 4-shard checkpoint refused at "
+                f"n_shards=2, {ops.launch_count} launches: {err}")
+        else:
+            raise AssertionError("placement (c): a resume under another "
+                                 "mesh took the 4-shard checkpoint")
+        with tempfile.TemporaryDirectory(dir=build) as fresh:
+            two = call(f"{label}, n_shards=2, started over",
+                       args, chunks * 2,
+                       record[f"{label}, unplaced"]["wall_s"],
+                       plan=chunked(2), device=[card] * 2, resume_dir=fresh)
+    for label, res in (("n_shards=4", four), ("n_shards=2", two)):
+        rel = float(np.max(np.abs(res.mean - plain.mean)
+                           / np.abs(plain.mean)))
+        ci_ok = bool(np.all(np.abs(res.ci95 - plain.ci95)
+                            <= 1e-5 * np.abs(plain.ci95) + 1e-9))
+        record[f"(c) {label} mean max rel"] = rel
+        log(f"placement (c) {label}: mean vs unplaced chunks max rel "
+            f"{rel:.3e} (bar 1e-06), ci95 within rtol 1e-5 + atol 1e-9: "
+            f"{ci_ok}")
+        if rel > 1e-6 or not ci_ok or not np.all(np.isfinite(res.mean)):
+            raise AssertionError(f"placement (c) {label}: moments off the "
+                                 "unplaced chunked run")
+    del mc
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"placement: phase {record['phase_s']:.1f} s; {json.dumps(record)}")
     return launches, record
 
 
@@ -5421,9 +5610,10 @@ def main() -> int:
     mc_launches = {"fig3": run_fig3_main_path(ops)}
     torch.cuda.synchronize()
     mc, ch, beta = large_workload()
-    mc_launches["large"], large_step_s = run_large_main_path(
-        ops, "LARGE", mc, [ch], [beta], LARGE["steps"], LARGE["seeds"],
-        rng_plan="inscan")
+    mc_launches["large"], large_step_s, large_wall, large_res = \
+        run_large_main_path(ops, "LARGE", mc, [ch], [beta], LARGE["steps"],
+                            LARGE["seeds"], keep_curves=True,
+                            rng_plan="inscan")
     del mc
     torch.cuda.synchronize()
     mc_launches["fig4"] = run_fig4_main_path(ops)
@@ -5441,14 +5631,16 @@ def main() -> int:
     elapsed('fig5, fig7, fig8')
     torch.cuda.synchronize()
     mcs, chs, betas = large_sweep_workload()
-    mc_launches["large sweep"], sweep_step_s = run_large_main_path(
-        ops, f"LARGE sweep N={LARGE_SWEEP['n_grid']}", mcs, chs, betas,
-        LARGE_SWEEP["steps"], LARGE_SWEEP["seeds"], rng_plan="inscan")
+    mc_launches["large sweep"], sweep_step_s, sweep_wall, sweep_res = \
+        run_large_main_path(ops, f"LARGE sweep N={LARGE_SWEEP['n_grid']}",
+                            mcs, chs, betas, LARGE_SWEEP["steps"],
+                            LARGE_SWEEP["seeds"], keep_curves=True,
+                            rng_plan="inscan")
     del mcs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mc, ch, beta = large_mrc_workload()
-    mc_launches["large mrc"], mrc_step_s = run_large_main_path(
+    mc_launches["large mrc"], mrc_step_s, _, _ = run_large_main_path(
         ops, f"LARGE MRC M={LARGE_MRC['m']}", mc, [ch], [beta],
         LARGE_MRC["steps"], LARGE_MRC["seeds"],
         route_seeds=LARGE_MRC["seeds"], route_steps=LARGE_MRC_ROUTE_STEPS,
@@ -5463,6 +5655,13 @@ def main() -> int:
     exec_launches, exec_record = run_exec_plans(ops)
     mc_launches.update(exec_launches)
     elapsed('the exec plans')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    placement_launches, placement_record = run_placement(
+        ops, (large_wall, large_res), (sweep_wall, sweep_res))
+    mc_launches.update(placement_launches)
+    del large_res, sweep_res
+    elapsed('placement')
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     serve_mc_launches, serve_mc_record = run_serve_mc(ops)
@@ -5567,6 +5766,7 @@ def main() -> int:
         "large_sweep_ms_per_step": sweep_step_s * 1e3,
         "large_mrc_ms_per_step": mrc_step_s * 1e3,
         "step_breakdown": breakdown, "exec_plans": exec_record,
+        "placement": placement_record,
         "serve_mc": serve_mc_record, "transport": transport_record,
         "build": ota_build,
         "padded": next(r for r in timings if r["launch"] == "fig3 (a)"),

@@ -11,14 +11,24 @@ Float32 precision: the JAX reference runs its tests with
 port's f32 matrix products must run in full f32 on the card too. TF32 is
 switched off for cuBLAS and cuDNN when this module is imported; TF32
 keeps about three decimal digits, far outside the parity tolerances.
+
+Meshes: the Monte Carlo engine places a sweep's rows and seeds over a
+`(rows × mc)` mesh of devices (`mesh_devices`), laid out row-major as
+the reference's `make_mesh((row_shards, mc), ("rows", "mc"))`. A call's
+`device` may be one device (`None`: the card), which stands for the
+first visible cards from it on (on the CPU: entries of the CPU), or a
+sequence of devices, which may name one device more than once: the
+counterpart of the reference's forced host devices, so that one card
+(or the CPU) runs a placed sweep block by block.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Sequence, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+MeshLike = Union[str, torch.device, None, Sequence[Union[str, torch.device]]]
 
 
 def set_float32_precision() -> None:
@@ -47,3 +57,57 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                            "available; pass device='cpu' to run on the CPU")
     return dev
 
+
+
+def _is_sequence(device: MeshLike) -> bool:
+    return isinstance(device, (list, tuple))
+
+
+def primary_device(device: MeshLike = None) -> torch.device:
+    """The device a call's data lives on: the first entry of a sequence,
+    else `resolve_device(device)`."""
+    if _is_sequence(device):
+        if not device:
+            raise ValueError("an empty device sequence names no device")
+        return resolve_device(device[0])
+    return resolve_device(device)
+
+
+def visible_device_count(device: MeshLike = None) -> int:
+    """How many devices a call may place over: the length of a sequence,
+    the visible cards from a CUDA device's index on (`None` is the card;
+    0 without CUDA), 1 on the CPU."""
+    if _is_sequence(device):
+        return len(device)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda":
+        return max(torch.cuda.device_count() - (dev.index or 0), 0)
+    return 1
+
+
+def mesh_devices(device: MeshLike, row_shards: int,
+                 n_shards: int) -> list:
+    """The `row_shards × max(n_shards, 1)` devices of a placed call,
+    row-major: entry `r · mc + m` holds row block r's seed block m. A
+    sequence gives its first entries; a CUDA device the cards from its
+    index on (raising when too few are visible, or CUDA is absent); the
+    CPU repeats itself. A mesh of one entry is `[primary_device(device)]`."""
+    size = max(int(row_shards), 1) * max(int(n_shards), 1)
+    if size == 1:
+        return [primary_device(device)]
+    if _is_sequence(device):
+        if len(device) < size:
+            raise ValueError(f"a ({row_shards} x {max(n_shards, 1)}) mesh "
+                             f"needs {size} devices, the sequence names "
+                             f"{len(device)}")
+        return [resolve_device(d) for d in device[:size]]
+    dev = primary_device(device)
+    if dev.type != "cuda":
+        return [dev] * size
+    start = dev.index or 0
+    if start + size > torch.cuda.device_count():
+        raise ValueError(
+            f"a ({row_shards} x {max(n_shards, 1)}) mesh from cuda:{start} "
+            f"needs {size} cards, {torch.cuda.device_count()} are visible; "
+            "pass a device list, which may name a card more than once")
+    return [torch.device("cuda", start + i) for i in range(size)]

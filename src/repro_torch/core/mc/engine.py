@@ -14,9 +14,10 @@ The port covers `gbma`, `centralized`, `fdm`, `power_control`,
 antenna count, power budget and minibatch fraction. HOW a sweep runs is
 one `plan.ExecPlan` (RNG plan, seed chunks with Chan-merged moments,
 retry and resume), given, derived (`plan="auto"`) or built from the
-legacy knobs, as in the reference. A call runs on one device: placement
-over several (`n_shards` or `row_shards` >= 2) raises
-`NotImplementedError` naming ROADMAP M8.
+legacy knobs, as in the reference. A plan with `n_shards` or
+`row_shards` >= 2 places seeds and rows over a `(rows × mc)` mesh of the
+call's devices (`exec.run_core`), one block per device; `device` may be a
+list that names one device more than once.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._device import (MeshLike, mesh_devices, primary_device,
+                                 visible_device_count)
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.mc import exec as exec_mod
 from repro_torch.core.mc.plan import (ExecPlan, auto_plan,
@@ -80,8 +82,10 @@ class MCResult:
     bounds:     (C, steps+1) Theorem-1 bound per row, at the row's own N
                 (None unless problem constants were given, every row is
                 gbma and no antenna setting was given).
-    device:     the device the sweep ran on.
-    plan:       the resolved `ExecPlan` the sweep ran under.
+    device:     the device the sweep ran on; of a placed sweep, its mesh's
+                devices joined by commas, row-major.
+    plan:       the resolved `ExecPlan` the sweep ran under, its
+                `n_shards` resolved (0: no seed placement).
     """
 
     risks: Optional[np.ndarray]
@@ -91,6 +95,20 @@ class MCResult:
     bounds: Optional[np.ndarray]
     device: Optional[str] = None
     plan: Optional[ExecPlan] = None
+
+
+def _resolve_n_shards(n_seeds: int, shard_seeds: bool,
+                      device_count: int) -> int:
+    """The legacy `shard_seeds` rule: False = no seed placement; True
+    takes every visible device and needs the seeds to divide (None is
+    the plan's auto rule, `plan.resolve_seed_shards`)."""
+    if not shard_seeds:
+        return 0
+    if n_seeds % device_count != 0:
+        raise ValueError(
+            f"shard_seeds=True needs seeds ({n_seeds}) divisible by the "
+            f"device count ({device_count})")
+    return device_count
 
 
 def _is_scalar(v) -> bool:
@@ -166,7 +184,7 @@ def run_mc(
     resume_dir: Optional[str] = None,
     memory_budget_bytes: Optional[int] = None,
     participation: Union[float, Sequence[float]] = 1.0,
-    device: DeviceLike = None,
+    device: MeshLike = None,
 ) -> MCResult:
     """Run `seeds` Monte Carlo trajectories for each batch row.
 
@@ -197,7 +215,10 @@ def run_mc(
     gradient and draws nothing.
 
     `device`: None runs on the CUDA card and raises without one; pass
-    `device="cpu"` for the CPU. The problem data moves to this device.
+    `device="cpu"` for the CPU. The problem data moves to this device (a
+    list's first entry). A placed plan lays its `(rows × mc)` mesh over
+    the visible cards from this one on, or over a list's entries, which
+    may repeat a device (`_device.mesh_devices`).
 
     `ota_impl` (None: 'auto'): the route of
     `kernels.ota.ota_edge_aggregate` — 'auto' (the CUDA kernel on the
@@ -226,8 +247,13 @@ def run_mc(
     `resume_dir`: a chunked reduced sweep (`seed_chunk` set,
     `keep_seed_curves=False`) checkpoints its chunk cursor and moments
     there after every chunk and resumes from them on the next call, bit
-    for bit (`exec.run_chunked`). `shard_seeds`: seed placement; on the
-    one device of a port call True and None place nothing.
+    for bit (`exec.run_chunked`); a checkpoint of another mesh is another
+    workload's and raises. `shard_seeds` (legacy): True places the seeds
+    over every visible device (`_device.visible_device_count`: the cards,
+    a list's length, 1 on the CPU) and raises when they do not divide;
+    False places nothing; None places over every device when they divide.
+    Placement leaves every per-seed curve bit for bit as the unplaced
+    call's.
     """
     if rng_plan is not None and rng_plan not in ("hoisted", "inscan"):
         raise ValueError(
@@ -254,7 +280,8 @@ def run_mc(
             "size")
     if seeds < 1:
         raise ValueError(f"need seeds >= 1, got {seeds}")
-    dev = resolve_device(device)
+    dev = primary_device(device)
+    n_visible = visible_device_count(device)
 
     ch_batch = channels if isinstance(channels, ChannelBatch) \
         else ChannelBatch.stack(list(channels))
@@ -346,19 +373,25 @@ def run_mc(
             b_max=0 if stochastic is None else stochastic[2],
             invert_channel=invert_channel,
             participation_on=any(q < 1.0 for q in parts),
-            memory_budget_bytes=memory_budget_bytes, device=dev)
+            memory_budget_bytes=memory_budget_bytes,
+            device_count=n_visible, device=dev)
     else:
-        # the reference's legacy rule: shard_seeds=True takes every
-        # device, one on a port call, which places nothing
+        # the reference's legacy rule, resolved before the plan is built
+        # (shard_seeds=True's divisibility error included)
         eff_plan = ExecPlan(
             rng_plan="hoisted" if rng_plan is None else rng_plan,
             seed_chunk=seed_chunk,
-            n_shards={None: None, False: 0, True: 1}[shard_seeds],
+            n_shards=None if shard_seeds is None else _resolve_n_shards(
+                seeds if seed_chunk is None else seed_chunk, shard_seeds,
+                n_visible),
             keep_seed_curves=(True if keep_seed_curves is None
                               else keep_seed_curves),
             ota_impl="auto" if ota_impl is None else ota_impl)
     validate_plan(eff_plan, seeds=seeds, n_rows=n_rows)
-    resolve_seed_shards(eff_plan, seeds)
+    n_shards = resolve_seed_shards(eff_plan, seeds, device_count=n_visible)
+    eff_plan = eff_plan.replace(n_shards=n_shards)
+    mesh = dict(devices=mesh_devices(device, eff_plan.row_shards, n_shards),
+                row_shards=eff_plan.row_shards, n_shards=n_shards)
     if resume_dir is not None and (eff_plan.seed_chunk is None
                                    or eff_plan.keep_seed_curves):
         raise ValueError(
@@ -385,16 +418,22 @@ def run_mc(
             seed_chunk=eff_plan.seed_chunk,
             keep_seed_curves=eff_plan.keep_seed_curves,
             core_kwargs=core_kwargs, resume_dir=resume_dir,
-            retry=eff_plan.retry)
+            retry=eff_plan.retry, **mesh)
     elif eff_plan.keep_seed_curves:
         risks, cum_e = (x.cpu().numpy() for x in exec_mod.run_core(
-            params, betas_t, t0, seed_ints, batch_prob.data, **core_kwargs))
+            params, betas_t, t0, seed_ints, batch_prob.data, **mesh,
+            **core_kwargs))
         mean, ci95 = exec_mod.host_seed_stats(risks)
     else:
+        args = (params, betas_t, t0, seed_ints, batch_prob.data)
+        if len(mesh["devices"]) == 1:
+            moments = exec_mod.run_core(*args, reduce_moments=True,
+                                        **core_kwargs)
+        else:  # as the reference: the moments of the gathered curves
+            moments = exec_mod.seed_moments(
+                exec_mod.run_core(*args, **mesh, **core_kwargs)[0])
         mean, ci95 = (x.cpu().numpy() for x in exec_mod.device_seed_stats(
-            *exec_mod.run_core(params, betas_t, t0, seed_ints,
-                               batch_prob.data, reduce_moments=True,
-                               **core_kwargs), seeds))
+            *moments, seeds))
         risks = cum_e = None
 
     bounds = None
@@ -411,7 +450,8 @@ def run_mc(
                     betas_t.cpu().numpy(), ch_batch.configs, pcs, n_nodes)])
     return MCResult(risks=risks, mean=mean.astype(np.float32),
                     ci95=ci95.astype(np.float32), cum_energy=cum_e,
-                    bounds=bounds, device=str(dev), plan=eff_plan)
+                    bounds=bounds, device=",".join(
+                        str(d) for d in mesh["devices"]), plan=eff_plan)
 
 
 def slice_result(res: MCResult, rows: Union[slice, Sequence[int]]

@@ -46,7 +46,7 @@ residual e `(B, N_max, d)`: rows with the flag transmit x = α(g + e),
 after participation masks x; every other row selects α = 1.
 
 Seed reduction: `keep_seed_curves=False` reduces the `(C, S, steps+1)`
-curves on the device to exact two-pass moments (mean, M2)
+curves on the device to two-pass moments (mean, M2; `seed_moments`)
 (`run_core(reduce_moments=True)`); only `(C, steps+1)` statistics leave
 the device. Unchunked, they become (mean, ci95) there
 (`device_seed_stats`).
@@ -183,15 +183,17 @@ def _group_ctx(ctx: SlotCtx, lo: int, hi: int, n_antennas,
     return with_antennas(gctx, n_antennas, m_sizes)
 
 
-def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
-             seed_ints: np.ndarray, data: dict, *, grad_fn, risk_fn,
-             algos: tuple, fading: str, steps: int, n_sizes: tuple,
-             invert_channel: bool = False, h_min: float = 0.3,
-             ota_impl: str = "auto", phase_zero: bool = False,
-             n_antennas: Optional[int] = None,
-             m_per_row: Optional[tuple] = None, stochastic=None,
-             rng_plan: str = "hoisted", reduce_moments: bool = False):
-    """Run C rows × S seeds × `steps` slots, row c under `algos[c]`.
+def _run_block(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
+               seed_ints: np.ndarray, data: dict, *, grad_fn, risk_fn,
+               algos: tuple, fading: str, steps: int, n_sizes: tuple,
+               invert_channel: bool = False, h_min: float = 0.3,
+               ota_impl: str = "auto", phase_zero: bool = False,
+               n_antennas: Optional[int] = None,
+               m_per_row: Optional[tuple] = None, stochastic=None,
+               rng_plan: str = "hoisted", reduce_moments: bool = False,
+               algo_set: Optional[tuple] = None):
+    """Run C rows × S seeds × `steps` slots on one device, row c under
+    `algos[c]`: the single-device core, one block of a placed call.
 
     params: per-row `(C,)` tensors (channel scalars, n_nodes, gamma,
     nest; `participation` when some row drops nodes; `ec` and
@@ -204,6 +206,9 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
     stochastic_grad_from_idx, b_max)` for a minibatch run, or None.
     `rng_plan`: 'hoisted' draws a single-algorithm call's streams for all
     steps before the loop, 'inscan' per step (module docstring).
+    `algo_set`: the whole call's algorithms when this is one block of a
+    placed call (None: `algos`'), so that hoisting and error feedback are
+    decided as the call decides them.
 
     Step order, as in the reference's scan body: the gradient at the
     Nesterov lookahead θ − nest·β·γ·m (over this step's minibatch), the
@@ -213,16 +218,19 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
     θ ← θ − βm; the final θ's risk is appended.
 
     Returns per-seed `(risks (C, S, steps+1), cum_energy (C, S, steps))`,
-    or the seeds' exact two-pass `(mean, M2)` of shape `(C, steps+1)`
-    when `reduce_moments`.
+    or the seeds' two-pass `(mean, M2)` (`seed_moments`) of shape
+    `(C, steps+1)` when `reduce_moments`.
     """
     n_rows, n_seeds = betas.shape[0], len(seed_ints)
     batch = n_rows * n_seeds
     device = betas.device
     dim = theta0.shape[0]
     n_max = data["mask"].shape[1]
+    if algo_set is None:
+        algo_set = tuple(dict.fromkeys(algos))
     _note_program_shape((
-        reduce_moments, tuple(dict.fromkeys(algos)), fading, steps, n_sizes,
+        reduce_moments, tuple(dict.fromkeys(algos)), algo_set, fading,
+        steps, n_sizes,
         n_antennas, () if m_per_row is None else tuple(sorted(set(
             m_per_row))), invert_channel, h_min, ota_impl, phase_zero,
         rng_plan, stochastic, grad_fn, risk_fn, _shapes(params),
@@ -232,13 +240,13 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
     order, groups = _slot_groups(algos)
     permuted = bool(np.any(order != np.arange(n_rows)))
     if permuted:  # group order, once: each group is one contiguous slice
-        idx = torch.as_tensor(order, device=device)
+        idx = _to_device(order, device)
         params = {k: v[idx] for k, v in params.items()}
         betas = betas[idx]
         data = {k: v[idx] for k, v in data.items()}
         if m_per_row is not None:
             m_per_row = tuple(m_per_row[c] for c in order)
-    use_ec = any(ALGO_REGISTRY[a].error_feedback for a in algos)
+    use_ec = any(ALGO_REGISTRY[a].error_feedback for a in algo_set)
 
     # per-trajectory (B,) views of the per-row params: b = c·S + s
     p = {k: v.repeat_interleave(n_seeds) for k, v in params.items()}
@@ -251,11 +259,12 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
     spans = [(fn, lo * n_seeds, hi * n_seeds) for fn, lo, hi in groups]
     group_ctx = [_group_ctx(ctx, lo, hi, n_antennas, m_per_row, n_seeds)
                  for _, lo, hi in spans]
-    seeds = torch.as_tensor(np.asarray(seed_ints, np.int64), device=device)
+    seeds = _to_device(np.asarray(seed_ints, np.int64), device)
     keys = rng.key(seeds.repeat(n_rows))
     step_keys = rng.split(keys, steps)  # (B, T, 2)
-    # the reference's rule: one algorithm (its name, not its slot group)
-    hoist = rng_plan == "hoisted" and len(set(algos)) == 1
+    # the reference's rule: one algorithm in the call (its name, not its
+    # slot group)
+    hoist = rng_plan == "hoisted" and len(algo_set) == 1
     draws_all: Optional[dict] = None
     if hoist and ALGO_REGISTRY[algos[0]].hoist_draws is not None:
         draws_all = ALGO_REGISTRY[algos[0]].hoist_draws(
@@ -337,12 +346,112 @@ def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
     risks = risks.view(n_rows, n_seeds, steps + 1)
     cum_curve = cum_curve.view(n_rows, n_seeds, steps)
     if permuted:  # back to the caller's row order
-        inv = torch.as_tensor(np.argsort(order), device=device)
+        inv = _to_device(np.argsort(order), device)
         risks, cum_curve = risks[inv], cum_curve[inv]
     if reduce_moments:
-        mean = risks.mean(dim=1)
-        return mean, (risks - mean[:, None, :]).square().sum(dim=1)
+        return seed_moments(risks)
     return risks, cum_curve
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device` without waiting for the device's queue
+    (a pageable copy is staged before the call returns), so a placed
+    call's blocks issue one after another without a host sync."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        device, non_blocking=True)
+
+
+def seed_moments(risks: torch.Tensor) -> tuple:
+    """`(C, S, steps+1)` curves -> the seeds' two-pass `(mean, M2)` of
+    shape `(C, steps+1)`, M2 about the f32 mean in the corrected form
+    (`_centred_m2`)."""
+    mean = risks.mean(dim=1)
+    return mean, _centred_m2(risks, mean)
+
+
+def _centred_m2(risks: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """Σ d² − (Σ d)² / S over the seeds, d = x − mean: the two-pass M2
+    with the rounding of `mean` cancelled to first order (the corrected
+    two-pass form), so seeds that agree give exactly 0 — their spread is
+    0, where Σ d² alone keeps the mean's rounding, a value that follows
+    the summation order (step 0's ci95, where every seed starts from θ0,
+    differed between a 256-seed and two 128-seed blocks on an H100)."""
+    dev = risks - mean[:, None, :]
+    total = dev.sum(dim=1)
+    return dev.square().sum(dim=1) - total * total / risks.shape[1]
+
+
+def run_core(params: dict, betas: torch.Tensor, theta0: torch.Tensor,
+             seed_ints: np.ndarray, data: dict, *,
+             devices: Optional[list] = None, row_shards: int = 1,
+             n_shards: int = 0, reduce_moments: bool = False,
+             **core_kwargs):
+    """Run C rows × S seeds × `steps` slots (`_run_block`'s arguments),
+    placed over a `(rows × mc)` mesh when `row_shards` or `n_shards`
+    (resolved: 0 or k >= 2) is 2 or more, as the reference's `shard_map`
+    places `_mc_core_impl`.
+
+    `devices`: the mesh's `row_shards · max(n_shards, 1)` devices,
+    row-major (`_device.mesh_devices`); every input lies on the first.
+    Row block r takes rows `[r·C/R, (r+1)·C/R)` in the caller's order,
+    seed block m seeds `[m·S/k, (m+1)·S/k)`; block (r, m) runs
+    `_run_block` on `devices[r·k + m]` with the call's static sizes (N_max
+    in the mask, `n_sizes`, `b_max`, the static antenna count and
+    `algo_set`, which decides hoisting), so each trajectory replays the
+    unplaced call's streams and arithmetic. Blocks issue one after another
+    without a host sync: on distinct cards they run at once, on one card
+    in turn.
+
+    Returns `(risks (C, S, steps+1), cum_energy (C, S, steps))` on the
+    first device, or with `reduce_moments` the seeds' `(mean, M2)` of
+    shape `(C, steps+1)` there: unplaced, `seed_moments` of the curves;
+    placed, each block's moments (`lsum`, `lmean = lsum / s`, `lm2` by
+    `_centred_m2`) merged per row block on its first device in seed-block
+    order, `mean = Σ_m lsum_m / (s·k)` and `M2 = Σ_m (lm2_m + s·(lmean_m −
+    mean)²)` (the reference's psum over 'mc')."""
+    mc = max(int(n_shards), 1)
+    if devices is None or row_shards * mc == 1:
+        return _run_block(params, betas, theta0, seed_ints, data,
+                          reduce_moments=reduce_moments, **core_kwargs)
+    n_rows, seeds = betas.shape[0], len(seed_ints)
+    rows_per, seeds_per = n_rows // row_shards, seeds // mc
+    algos, m_per_row = core_kwargs["algos"], core_kwargs.get("m_per_row")
+    algo_set = core_kwargs.get("algo_set") or tuple(dict.fromkeys(algos))
+    blocks = []
+    for r in range(row_shards):
+        rows = slice(r * rows_per, (r + 1) * rows_per)
+        kw = dict(core_kwargs, algos=tuple(algos[rows]), algo_set=algo_set,
+                  m_per_row=None if m_per_row is None
+                  else tuple(m_per_row[rows]))
+        for m in range(mc):
+            dev = devices[r * mc + m]
+            on = lambda t: t.to(dev, non_blocking=True)
+            blocks.append(_run_block(
+                {k: on(v[rows]) for k, v in params.items()}, on(betas[rows]),
+                on(theta0), seed_ints[m * seeds_per:(m + 1) * seeds_per],
+                {k: on(v[rows]) for k, v in data.items()}, **kw))
+    first = devices[0]
+    if not reduce_moments:
+        return tuple(torch.cat([torch.cat(
+            [blocks[r * mc + m][i].to(first) for m in range(mc)], dim=1)
+            for r in range(row_shards)]) for i in (0, 1))
+    means, m2s = [], []
+    for r in range(row_shards):
+        head = devices[r * mc]
+        lsum, lmean, lm2 = [], [], []
+        for m in range(mc):
+            risks = blocks[r * mc + m][0]
+            total = risks.sum(dim=1)
+            mean = total / seeds_per
+            lsum.append(total.to(head))
+            lmean.append(mean.to(head))
+            lm2.append(_centred_m2(risks, mean).to(head))
+        gmean = sum(lsum[1:], lsum[0]) / (seeds_per * mc)
+        terms = [part + seeds_per * (mean - gmean).square()
+                 for part, mean in zip(lm2, lmean)]
+        means.append(gmean.to(first))
+        m2s.append(sum(terms[1:], terms[0]).to(first))
+    return torch.cat(means), torch.cat(m2s)
 
 
 def device_seed_stats(mean: torch.Tensor, m2: torch.Tensor,
@@ -351,7 +460,9 @@ def device_seed_stats(mean: torch.Tensor, m2: torch.Tensor,
     1.96·std(ddof=1)/√n — the formula of `host_seed_stats`, so the
     unchunked paths agree."""
     if n > 1:
-        return mean, 1.96 * torch.sqrt(m2 / (n - 1)) / math.sqrt(n)
+        # M2 >= 0 up to its rounding (`_centred_m2`)
+        return mean, 1.96 * torch.sqrt(m2.clamp_min(0.0) / (n - 1)) \
+            / math.sqrt(n)
     return mean, torch.zeros_like(mean)
 
 
@@ -484,16 +595,19 @@ def static_signature(statics: dict) -> str:
 
 
 def _workload_fingerprint(params, betas, theta0, seed_ints, data,
-                          seed_chunk, n_rows, core_kwargs) -> np.ndarray:
+                          seed_chunk, n_rows, n_shards, row_shards,
+                          core_kwargs) -> np.ndarray:
     """sha256 identity of a chunked sweep, as a (32,) uint8 leaf.
 
     Covers the static core kwargs (callables by qualname), the numeric
     workload (params, stepsizes, θ0, problem data), the seed ints, the
-    chunk size, the row count and the device type ('cuda' or 'cpu',
-    never an index: the accumulators' bits depend on the device's
-    arithmetic, not on which card). Two sweeps with equal fingerprints
-    replay the same chunk streams in the same order, so a checkpoint of
-    one resumes the other bit for bit."""
+    chunk size, the row count, the mesh shape (`row_shards` x resolved
+    `n_shards`, as the reference: the moments' merge order across seed
+    blocks is part of the accumulators' bits) and the device type ('cuda'
+    or 'cpu', never an index: the bits depend on the device's arithmetic,
+    not on which card). Two sweeps with equal fingerprints replay the
+    same chunk streams in the same order, so a checkpoint of one resumes
+    the other bit for bit."""
     h = hashlib.sha256()
     _hash_static_kwargs(h, core_kwargs)
     for name in sorted(params):
@@ -505,15 +619,16 @@ def _workload_fingerprint(params, betas, theta0, seed_ints, data,
     h.update(np.ascontiguousarray(
         np.asarray(seed_ints, np.int64)).tobytes())
     h.update(f"chunk={seed_chunk};rows={n_rows};"
+             f"mesh={row_shards}x{n_shards};"
              f"device={betas.device.type};".encode())
     return np.frombuffer(h.digest(), np.uint8)
 
 
 def _mc_moments_merge(acc_mean, acc_m2, n_prev, params, betas, theta0,
                       seed_ints, data, **core_kwargs) -> None:
-    """One seed chunk's two-pass moments Chan-merged into the running
-    `(C, steps+1)` (mean, M2) accumulators, in place; `n_prev` seeds are
-    in them already."""
+    """One seed chunk's two-pass moments (placed: merged across its seed
+    blocks) Chan-merged into the running `(C, steps+1)` (mean, M2)
+    accumulators, in place; `n_prev` seeds are in them already."""
     bmean, bm2 = run_core(params, betas, theta0, seed_ints, data,
                           reduce_moments=True, **core_kwargs)
     mean, m2 = chan_merge(acc_mean, acc_m2, n_prev, bmean, bm2,
@@ -553,14 +668,17 @@ def _load_resume(resume_dir: str, fp: np.ndarray):
 
 
 def run_chunked(params, betas, theta0, seed_ints, data, *, seed_chunk,
-                keep_seed_curves, core_kwargs, resume_dir=None, retry=None):
+                keep_seed_curves, core_kwargs, resume_dir=None, retry=None,
+                devices=None, row_shards=1, n_shards=0):
     """Run the seed axis in blocks of `seed_chunk` (a chunk's seed ints
     are data). Returns (risks, cum_energy, mean, ci95) as numpy arrays,
     the first two None when `keep_seed_curves=False`.
 
     Device memory per chunk scales with C · seed_chunk: kept curves
     stream into preallocated host arrays, reduced ones Chan-merge into
-    `(C, steps+1)` accumulators on the device.
+    `(C, steps+1)` accumulators on the first device. `devices`,
+    `row_shards`, `n_shards`: each chunk is placed over that mesh
+    (`run_core`); placed moments merge across seed blocks first.
 
     `resume_dir` (reduced path only) checkpoints (fingerprint, chunk
     cursor, accumulators) to `<resume_dir>/mc_chunked_resume.npz` after
@@ -585,6 +703,7 @@ def run_chunked(params, betas, theta0, seed_ints, data, *, seed_chunk,
             "blocks — pad the seed count or pick a chunk that divides it")
     steps = core_kwargs["steps"]
     n_rows = len(betas)
+    mesh = dict(devices=devices, row_shards=row_shards, n_shards=n_shards)
     if keep_seed_curves:
         if resume_dir is not None:
             raise ValueError(
@@ -598,7 +717,7 @@ def run_chunked(params, betas, theta0, seed_ints, data, *, seed_chunk,
 
             def _run(blk=blk):
                 r, ce = run_core(params, betas, theta0, blk, data,
-                                 **core_kwargs)
+                                 **mesh, **core_kwargs)
                 return r.cpu().numpy(), ce.cpu().numpy()
 
             r, ce = _attempt_chunk(retry, off, "curves", _run)
@@ -606,7 +725,8 @@ def run_chunked(params, betas, theta0, seed_ints, data, *, seed_chunk,
             cum_e[:, off:off + seed_chunk] = ce
         return (risks, cum_e) + host_seed_stats(risks)
     fp = _workload_fingerprint(params, betas, theta0, seed_ints, data,
-                               seed_chunk, n_rows, core_kwargs)
+                               seed_chunk, n_rows, n_shards, row_shards,
+                               core_kwargs)
     start = 0
     acc_mean = torch.zeros((n_rows, steps + 1), dtype=torch.float32,
                            device=betas.device)
@@ -627,7 +747,7 @@ def run_chunked(params, betas, theta0, seed_ints, data, *, seed_chunk,
 
         def _merge(blk=blk, off=off):
             _mc_moments_merge(acc_mean, acc_m2, off, params, betas, theta0,
-                              blk, data, **core_kwargs)
+                              blk, data, **mesh, **core_kwargs)
 
         def _reset(snap=snap):
             acc_mean.copy_(torch.from_numpy(snap[0]))

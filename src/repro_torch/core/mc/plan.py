@@ -9,11 +9,15 @@ per-device budget), or builds the equivalent one from its legacy knobs
 (`rng_plan`, `seed_chunk`, `keep_seed_curves`, `ota_impl`,
 `shard_seeds`).
 
-A port call runs on the one device it is given, so the device count is
-1: a plan that places seeds or rows over two or more devices raises
-`NotImplementedError` naming ROADMAP M8 (multi-GPU placement).
-`auto_plan(cost_model="measured")` re-prices the seed chunk with the
-calibrated cost model (`costmodel`), as in the reference.
+Placement: a plan with `n_shards` or `row_shards` >= 2 lays the live
+seeds and the sweep rows over a `(rows × mc)` mesh of devices
+(`_device.mesh_devices`; `exec.run_core` runs one block per device, as
+the reference's `shard_map` runs one shard). The devices are the call's
+`device` list, or the visible cards; a list may name one device more
+than once, so one card or the CPU runs a placed sweep block by block. A
+plan over more devices than the call has raises the reference's
+`ValueError`. `auto_plan(cost_model="measured")` re-prices the seed
+chunk with the calibrated cost model (`costmodel`), as in the reference.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._device import (MeshLike, primary_device,
+                                 visible_device_count)
 
 # The CI-class memory budget the scheduler is sized against: the
 # fallback where the device reports no memory size (the CPU).
@@ -33,8 +38,6 @@ DEFAULT_MEMORY_BUDGET_BYTES = 2 * 2**30
 # cache-resident regime (its `large_chunked` benchmark entry, ~100 MiB at
 # the hand-tuned chunk of 32), big enough to amortize per-chunk dispatch.
 DEFAULT_CHUNK_TARGET_BYTES = 128 * 2**20
-
-_PLACEMENT = "ROADMAP M8: multi-GPU placement"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,8 +81,9 @@ class ExecPlan:
                 live in one call. Must divide the seed count.
     n_shards:   seed placement over devices: None = auto (every visible
                 device when the live seed count divides), 0 or 1 = one
-                device, k >= 2 = k devices (not ported: M8).
-    row_shards: sweep-row placement (1; k >= 2 is not ported: M8).
+                device, k >= 2 = k contiguous seed blocks on k devices.
+    row_shards: sweep-row placement: k >= 2 = k contiguous row blocks,
+                each over its own `max(n_shards, 1)` devices.
     keep_seed_curves: False reduces per-seed curves to (mean, ci95) on
                 the device; Chan-merged moments under chunking.
     ota_impl:   'auto' | 'kernel' | 'ref', the route of the OTA slot
@@ -148,29 +152,36 @@ def validate_plan(plan: ExecPlan, *, seeds: int, n_rows: int) -> None:
 
 def resolve_seed_shards(plan: ExecPlan, seeds: int,
                         device_count: Optional[int] = None) -> int:
-    """The seed mesh size of this call: 0 = no seed placement, the only
-    value a port call runs with. `n_shards=None` keeps the reference's
-    auto rule (every device when the live seed count divides, which on
-    one device is none); a plan that places seeds or rows over two or
-    more devices raises `NotImplementedError`."""
+    """The concrete 'mc' mesh size of this call: 0 = no seed placement.
+
+    `n_shards=None` keeps the legacy auto rule (`shard_seeds=None`): every
+    visible device when the live seed count divides evenly, else off.
+    `device_count` is the call's (`_device.visible_device_count`; None:
+    one device). A mesh of more seed × row shards than that raises the
+    reference's error; the reference's own check passes a row mesh
+    without seed shards (or under the auto rule) that its `make_mesh`
+    then refuses, and this raises there too."""
     s_live = plan.seed_chunk if plan.seed_chunk is not None else seeds
     ndev = 1 if device_count is None else int(device_count)
     if plan.n_shards is None:
         n_sh = ndev if (ndev > 1 and s_live % ndev == 0) else 0
     else:
         n_sh = 0 if int(plan.n_shards) <= 1 else int(plan.n_shards)
-    if n_sh > 1 or plan.row_shards > 1:
-        raise NotImplementedError(
-            f"placing seeds over {n_sh or 1} x rows over {plan.row_shards} "
-            f"devices is not ported yet ({_PLACEMENT})")
-    return 0
+    if max(n_sh, 1) * plan.row_shards > max(ndev, 1):
+        raise ValueError(
+            f"plan places {n_sh or 1} x {plan.row_shards} shards but only "
+            f"{ndev} device(s) are visible — pass a device list (it may "
+            "name one CUDA device or the CPU more than once), or shrink "
+            "the plan")
+    return n_sh
 
 
-def device_memory_budget_bytes(device: DeviceLike = None) -> int:
+def device_memory_budget_bytes(device: MeshLike = None) -> int:
     """Per-device memory budget: 80 % of a CUDA device's total memory (the
     reference takes 80 % of the backend's `bytes_limit`); on the CPU the
-    CI-class default. `device=None` is the CUDA card."""
-    dev = resolve_device(device)
+    CI-class default. `device=None` is the CUDA card; of a device list,
+    the first entry counts."""
+    dev = primary_device(device)
     if dev.type == "cuda":
         return int(0.8 * torch.cuda.mem_get_info(dev)[1])
     return DEFAULT_MEMORY_BUDGET_BYTES
@@ -197,14 +208,15 @@ def auto_plan(*, n_rows: int, seeds: int, steps: int, n_max: int, dim: int,
               cost_model: str = "analytic",
               calibration_path: Optional[str] = None,
               _model=None,
-              device: DeviceLike = None) -> ExecPlan:
+              device: MeshLike = None) -> ExecPlan:
     """Derive an `ExecPlan` from the workload, the memory model and the
-    device count (1 unless given), as the reference's analytic rule
-    does; every returned field is concrete.
+    device count (`device_count`, else `visible_device_count(device)`),
+    as the reference's analytic rule does; every returned field is
+    concrete.
 
     Placement: `gcd(seeds, device_count)` seed shards, the row axis the
-    largest divisor of `n_rows` fitting the remaining devices (a plan
-    with two or more shards does not run in the port: M8).
+    largest divisor of `n_rows` fitting the remaining devices: the whole
+    mesh is used whenever the axes divide.
 
     Chunking: the sweep chunks when the all-live per-device estimate
     (`exec.estimate_peak_bytes`) exceeds `target_chunk_bytes` (default
@@ -232,7 +244,8 @@ def auto_plan(*, n_rows: int, seeds: int, steps: int, n_max: int, dim: int,
             f"cost_model must be 'analytic' or 'measured', "
             f"got {cost_model!r}")
 
-    ndev = 1 if device_count is None else int(device_count)
+    ndev = visible_device_count(device) if device_count is None \
+        else int(device_count)
     budget = device_memory_budget_bytes(device) \
         if memory_budget_bytes is None else int(memory_budget_bytes)
     target = DEFAULT_CHUNK_TARGET_BYTES if target_chunk_bytes is None \
@@ -276,7 +289,8 @@ def auto_plan(*, n_rows: int, seeds: int, steps: int, n_max: int, dim: int,
             from repro_torch.core.mc import costmodel
 
             model = costmodel.load_cost_model(
-                calibration_path, device_count=ndev, device=device)
+                calibration_path, device_count=ndev,
+                device=primary_device(device))
         if model is not None:
             from repro_torch.core.mc.costmodel import Workload
 

@@ -176,8 +176,17 @@ class MCProblemBatch:
 # --------------------------------------------------------------------------
 def _quadratic_grad_row(row: dict, theta: torch.Tensor) -> torch.Tensor:
     """g_n = (x_nᵀθ − y_n) x_n + λθ per node, for every (row, seed):
-    `theta (C, S, d)` -> `(C, S, N, d)`, masked."""
-    resid = torch.einsum("cnf,csf->csn", row["X"], theta) \
+    `theta (C, S, d)` -> `(C, S, N, d)`, masked.
+
+    Each dot product is a product and a sum over one axis, never a matrix
+    product: a GEMM's summation order follows the batch's shape (the
+    CPU's small-matrix loop against BLAS, a card's tile choice), and a
+    trajectory's bits must not depend on how many others share its call
+    (a placed call's blocks hold fewer)."""
+    # the products laid out (C, S, d, N): the sum over d runs along an
+    # outer axis, one output per lane on the card
+    x_t = row["X"].transpose(1, 2).contiguous()
+    resid = (x_t[:, None] * theta[:, :, :, None]).sum(dim=2) \
         - row["y"][:, None, :]
     g = resid[..., None] * row["X"][:, None]
     g.add_(row["lam"][:, None, None, None] * theta[:, :, None, :])
@@ -187,7 +196,8 @@ def _quadratic_grad_row(row: dict, theta: torch.Tensor) -> torch.Tensor:
 def _quadratic_risk_row(row: dict, theta: torch.Tensor) -> torch.Tensor:
     """Excess risk 0.5 (θ−θ*)ᵀ H (θ−θ*): `theta (C, S, d)` -> `(C, S)`."""
     diff = theta - row["theta_star"][:, None, :]
-    h_diff = torch.einsum("cij,csj->csi", row["H"], diff)
+    # a sum over the last axis, not a GEMM (`_quadratic_grad_row`)
+    h_diff = (row["H"][:, None] * diff[:, :, None, :]).sum(dim=-1)
     return (0.5 * diff * h_diff).sum(dim=-1)
 
 
@@ -249,18 +259,32 @@ def localization_mc_problem(r: np.ndarray, x: np.ndarray, src: np.ndarray,
 # --------------------------------------------------------------------------
 # logistic (federated logistic regression, stochastic-capable: Fig. 8)
 # --------------------------------------------------------------------------
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + e^{-x}) from ops whose CPU vector and scalar loops agree
+    bit for bit (`torch.sigmoid`'s do not), so an element's value never
+    depends on where the batch puts it (`_quadratic_grad_row`)."""
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) = max(x, 0) + log1p(e^{-|x|}), from ops whose CPU
+    vector and scalar loops agree (`torch.logaddexp`'s do not)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def _logistic_margin(row: dict, theta: torch.Tensor) -> torch.Tensor:
-    """y_i <x_i, θ> per (row, seed, node, local sample)."""
-    return row["yn"][:, None] * torch.einsum("cnkf,csf->csnk", row["Xn"],
-                                             theta)
+    """y_i <x_i, θ> per (row, seed, node, local sample); sums over the
+    last axis, not GEMMs (`_quadratic_grad_row`)."""
+    return row["yn"][:, None] * (
+        row["Xn"][:, None] * theta[:, :, None, None, :]).sum(dim=-1)
 
 
 def _logistic_grad_row(row: dict, theta: torch.Tensor) -> torch.Tensor:
     """Full-batch per-node gradient of the regularized logistic loss:
     g_n = (1/k) Σ_i −σ(−m_i) y_i x_i + λθ, masked."""
     k = row["Xn"].shape[2]
-    coef = -torch.sigmoid(-_logistic_margin(row, theta)) * row["yn"][:, None]
-    g = torch.einsum("csnk,cnkf->csnf", coef, row["Xn"]) / float(k)
+    coef = -_sigmoid(-_logistic_margin(row, theta)) * row["yn"][:, None]
+    g = (coef[..., None] * row["Xn"][:, None]).sum(dim=3) / float(k)
     g = g + row["lam"][:, None, None, None] * theta[:, :, None, :]
     return g * row["mask"][:, None, :, None]
 
@@ -296,9 +320,9 @@ def _logistic_sgrad_from_idx_row(row: dict, theta: torch.Tensor,
                       idx)
     lane = (torch.arange(b, device=idx.device)
             < b_count[:, None]).to(torch.float32)[:, None, None, :]
-    m = ys * torch.einsum("csnbf,csf->csnb", xs, theta)
-    coef = -torch.sigmoid(-m) * ys * lane
-    g = torch.einsum("csnb,csnbf->csnf", coef, xs) \
+    m = ys * (xs * theta[:, :, None, None, :]).sum(dim=-1)
+    coef = -_sigmoid(-m) * ys * lane
+    g = (coef[..., None] * xs).sum(dim=3) \
         / b_count.to(torch.float32)[:, None, None, None]
     g = g + row["lam"][:, None, None, None] * theta[:, :, None, :]
     return g * row["mask"][:, None, :, None]
@@ -311,8 +335,7 @@ def _logistic_risk_row(row: dict, theta: torch.Tensor) -> torch.Tensor:
     taken in f64 and rounded once to f32: F ≈ 0.5 carries that one
     rounding, where an f32 sum in PyTorch's order sat an ulp of F from
     XLA's more often (ROADMAP §3, F8)."""
-    loss = torch.logaddexp(torch.zeros((), device=theta.device),
-                           -_logistic_margin(row, theta))
+    loss = _softplus(-_logistic_margin(row, theta))
     w = row["mask"][:, None, :, None]
     n_samples = row["mask"].sum(dim=1) * row["Xn"].shape[2]
     f = (loss * w).sum(dim=(2, 3), dtype=torch.float64).to(torch.float32) \

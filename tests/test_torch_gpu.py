@@ -27,8 +27,9 @@ and 3). The rbg keys' bits and normals on the card equal the CPU's. The
 port's threefry is checked to draw an odd count without a host-to-device copy, and a long
 normal draw in passes to give the one-pass bits. The execution
 plans run through K1: hoisted draws give the per-step bits, chunked
-moments match unchunked ones, and a sweep resumed after an injected
-fault equals the uninterrupted one bit for bit. The MC sweep server runs
+moments match unchunked ones, a sweep resumed after an injected
+fault equals the uninterrupted one bit for bit, and LARGE placed over
+four mesh entries of the card equals the unplaced call bit for bit. The MC sweep server runs
 on the card: the launcher's selftests, and a served mix through K1 held
 to the plain route.
 """
@@ -1132,6 +1133,33 @@ def test_resume_after_an_injected_fault_is_bit_identical_on_the_card(
     assert ops.launch_count - before == 2 * 20  # chunks at 16 and 24
     np.testing.assert_array_equal(resumed.mean, clean.mean)
     np.testing.assert_array_equal(resumed.ci95, clean.ci95)
+
+
+def test_placed_large_call_has_the_unplaced_bits_on_the_card(cuda):
+    """LARGE (N = 4096, d = 24, 150 steps, 1,024 seeds, 'inscan') with its
+    seeds over four mesh entries of one card (M8): K1 launched 150 times
+    in each of the four blocks, and the curves, energies and statistics
+    the unplaced call's bit for bit."""
+    import numpy as np
+
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.mc.engine import run_mc
+    from repro_torch.core.mc.plan import ExecPlan
+    from repro_torch.figures import MSDProblem
+
+    mc = MSDProblem.make(4096, dim=24).to_mc(cuda)
+    args = (mc, [ChannelConfig(fading="rayleigh", scale=1.0, noise_std=1.0,
+                               energy=1.0 / 4096)], "gbma", [0.01], 150,
+            1024)
+    plain = run_mc(*args, rng_plan="inscan", device=cuda)
+    before = ops.launch_count
+    placed = run_mc(*args, plan=ExecPlan(rng_plan="inscan", n_shards=4),
+                    device=[cuda] * 4)
+    assert ops.launch_count - before == 4 * 150
+    assert placed.plan.n_shards == 4
+    for field in ("risks", "cum_energy", "mean", "ci95"):
+        np.testing.assert_array_equal(getattr(placed, field),
+                                      getattr(plain, field))
 
 
 # --------------------------------------------------------------- the server

@@ -216,34 +216,45 @@ def test_sweep_server_entry_points_without_device_raise_where_cuda_is_absent(
 
 def test_measured_cost_model_is_ported_but_placement_is_not():
     """`auto_plan(cost_model="measured")` runs (the analytic plan where
-    no calibration entry matches); a plan over two or more devices still
-    raises naming M8."""
+    no calibration entry matches). Placement is ported (M8): a plan over
+    at most the call's devices resolves its seed shards, one over more
+    raises the reference's oversubscription `ValueError`."""
     from repro_torch.core.mc.plan import auto_plan, resolve_seed_shards
 
     kw = dict(n_rows=1, seeds=64, steps=10, n_max=8, dim=3,
               memory_budget_bytes=1 << 30)
     assert auto_plan(**kw, cost_model="measured", device="cpu") == \
         auto_plan(**kw)
-    for plan in (ExecPlan(n_shards=2), ExecPlan(row_shards=2),
-                 ExecPlan(n_shards=4, seed_chunk=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-            resolve_seed_shards(plan, 64, device_count=4)
+    for plan, shards in ((ExecPlan(n_shards=2), 2),
+                         (ExecPlan(n_shards=0, row_shards=2), 0),
+                         (ExecPlan(n_shards=4, seed_chunk=8), 4)):
+        assert resolve_seed_shards(plan, 64, device_count=4) == shards
+        with pytest.raises(ValueError, match="1 device"):
+            resolve_seed_shards(plan, 64, device_count=1)
 
 
-# every execution argument of the reference is ported but placement over
-# several devices: a port call runs on the one device it is given
+# placement over several devices is ported: on the one device a port
+# call has by default ('cpu'), a placed plan raises the reference's
+# oversubscription error; a device list places it
 OUT_OF_SLICE = [
-    ({"plan": ExecPlan(n_shards=2)}, "M8"),
+    ({"plan": ExecPlan(n_shards=2)}, "2 x 1 shards"),
     ({"plan": ExecPlan(n_shards=2, seed_chunk=2,
-                       keep_seed_curves=False)}, "M8"),
+                       keep_seed_curves=False)}, "2 x 1 shards"),
 ]
 
 
 @pytest.mark.parametrize("kwargs,item", OUT_OF_SLICE)
 def test_out_of_slice_arguments_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(ValueError, match=item):
         run_mc(_problem(), [ChannelConfig()], "gbma", [0.01], 3, 2,
                device="cpu", **kwargs)
+    placed = run_mc(_problem(), [ChannelConfig()], "gbma", [0.01], 3, 2,
+                    device=["cpu", "cpu"], **kwargs)
+    plain = run_mc(_problem(), [ChannelConfig()], "gbma", [0.01], 3, 2,
+                   device="cpu", **{k: v.replace(n_shards=0)
+                                    for k, v in kwargs.items()})
+    assert placed.plan.n_shards == 2
+    np.testing.assert_array_equal(placed.mean, plain.mean)
 
 
 @pytest.mark.parametrize("algo", ["blind", "blind_ec"])

@@ -13,8 +13,9 @@
   them, and a grid over algorithms, chunks, antennas, `b_max`,
   participation and `invert_channel`); `chan_merge` and
   `finalize_merged_stats` against numpy and the reference; `run_mc`'s
-  plan errors and `NotImplementedError` for placement over several
-  devices (ROADMAP M8); the measured cost model the analytic plan where
+  plan errors and the oversubscription `ValueError` for placement over
+  more devices than the call has, row placement over a list of two CPU
+  entries bit for bit; the measured cost model the analytic plan where
   no calibration entry matches; `MCResult.plan`.
 * Chunks (`exec.run_chunked`): chunked curves and moments against the
   reference's chunked `run_mc` per family at the engine bar (rtol 1e-5;
@@ -406,9 +407,11 @@ PLAN_ERRORS = [
     (dict(resume_dir="r", seed_chunk=2), ValueError, "keep_seed_curves"),
     (dict(seed_chunk=3), ValueError, "divide"),
     (dict(plan=ExecPlan(ota_impl="inline")), ValueError, "ota_impl"),
-    (dict(plan=ExecPlan(n_shards=2)), NotImplementedError, "ROADMAP M8"),
-    (dict(plan=ExecPlan(n_shards=4, seed_chunk=4)), NotImplementedError,
-     "ROADMAP M8"),
+    # placement over more devices than the call has: the reference's
+    # oversubscription error (one CPU device here; a device list places)
+    (dict(plan=ExecPlan(n_shards=2)), ValueError, "1 device"),
+    (dict(plan=ExecPlan(n_shards=4, seed_chunk=4)), ValueError,
+     "1 device"),
 ]
 
 
@@ -420,27 +423,40 @@ def test_run_mc_plan_errors(mc, kw, err, match):
 
 
 def test_row_placement_raises_naming_m8(mc):
+    """Row placement (M8) over one CPU device raises the reference's
+    oversubscription error; over a list of two CPU entries it runs, each
+    row block on its entry, and returns the unplaced curves bit for
+    bit."""
     _, tp = mc
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        run_mc(tp, [_pch(), _pch()], "gbma", [0.01, 0.02], 4, SEEDS,
-               plan=ExecPlan(row_shards=2), device="cpu")
+    args = (tp, [_pch(), _pch(noise_std=0.7)], "gbma", [0.01, 0.02], 4,
+            SEEDS)
+    rows = ExecPlan(n_shards=0, row_shards=2)
+    with pytest.raises(ValueError, match="1 device"):
+        run_mc(*args, plan=rows, device="cpu")
+    plain = run_mc(*args, device="cpu")
+    placed = run_mc(*args, plan=rows, device=["cpu", "cpu"])
+    assert placed.plan.row_shards == 2 and placed.device == "cpu,cpu"
+    np.testing.assert_array_equal(placed.risks, plain.risks)
+    np.testing.assert_array_equal(placed.cum_energy, plain.cum_energy)
 
 
 def test_run_mc_records_the_resolved_plan(mc):
     """The legacy knobs build the equivalent `ExecPlan` (the same run,
     bit for bit), `shard_seeds` places nothing on one device, "auto"
-    resolves a concrete plan, and `slice_result` keeps the plan."""
+    resolves a concrete plan, the recorded plan's `n_shards` is the
+    resolved one (0: no seed placement), and `slice_result` keeps the
+    plan."""
     _, tp = mc
     args = (tp, [_pch(), _pch(noise_std=1.0)], "gbma", [0.01, 0.02], 6,
             SEEDS)
     legacy = run_mc(*args, rng_plan="inscan", seed_chunk=4,
                     keep_seed_curves=False, shard_seeds=True, device="cpu")
     assert legacy.plan == ExecPlan(rng_plan="inscan", seed_chunk=4,
-                                   n_shards=1, keep_seed_curves=False)
+                                   n_shards=0, keep_seed_curves=False)
     pinned = run_mc(*args, plan=legacy.plan, device="cpu")
     np.testing.assert_array_equal(pinned.mean, legacy.mean)
     np.testing.assert_array_equal(pinned.ci95, legacy.ci95)
-    assert run_mc(*args, device="cpu").plan == ExecPlan()
+    assert run_mc(*args, device="cpu").plan == ExecPlan(n_shards=0)
     auto = run_mc(*args, plan="auto", device="cpu")
     assert auto.plan == ExecPlan(n_shards=0)
     assert slice_result(auto, [1]).plan == auto.plan
