@@ -104,6 +104,16 @@ drives the port's main paths:
   peak; the kernel route held to the
   plain route on the first batch, and the card to the CPU on the reduced
   models;
+* training over a (data x model) mesh ("mesh train", M12a): olmo-1b at
+  full width and depth in bf16, 2 steps of the fused gbma route through
+  `build_train_step` under `use_mesh` on a (2, 2) mesh of four entries of
+  cuda:0, with `fsdp` off and on (and over the distinct cards where the
+  machine has two or more, bit for bit the run over entries of cuda:0):
+  K2 on each entry's heads, twice a layer a step; the final parameters
+  held to the unmeshed step's by "train models"' route bar (losses, and
+  each leaf's distance to the f32 model against the unmeshed step's),
+  every shard its block of `unshard`; each step's wall, the card's peak
+  over resident and each entry's resident bytes;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
   bf16 at a 32- and a 2048-token prompt, with the same checks (the plain
   route at the 32-token prompt) and the weights' initialization peak;
@@ -1619,9 +1629,9 @@ def step_profile(cases: dict) -> dict:
     for name, (run, n, dim, trajectories) in cases.items():
         run(4)  # warm-up: kernel build, allocator, cuBLAS handles
         walls = {}
-        # 10 and 40 steps (cut from 10 and 60 to keep the script inside
-        # its 1,200 s time limit)
-        for steps in (10, 40, 10, 40):
+        # 10 and 40 steps, once each (cut from 10 and 60, then from two
+        # runs of each, to keep the script inside its 1,200 s time limit)
+        for steps in (10, 40):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(steps)
@@ -5562,6 +5572,244 @@ def run_train_models(attn_ops, ota_ops, wkv_ops) -> tuple:
     return totals, record
 
 
+# ------------------------------------------------------------- mesh train
+# M12a: olmo-1b at full width and depth in bf16 on a (data x model) mesh,
+# 2 steps of the fused gbma route at "train models"' batch (B = 8, S =
+# 256), channel and optimizer, the MAC's nodes the data ranks
+MESH_TRAIN_ARCH = "olmo-1b"
+MESH_TRAIN_SHAPE = (2, 2)
+MESH_TRAIN_STEPS = 2
+
+
+def _mesh_train_step(cfg, mesh):
+    """(model, train step) as the launcher builds the fused gbma step,
+    with n_nodes the mesh's data ranks (None: one device, 2 nodes); on a
+    mesh built under `use_mesh`."""
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.gbma import GBMAConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.gd import get_optimizer
+    from repro_torch.sharding.specs import use_mesh
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 build_train_step)
+
+    nodes = mesh.shape["data"] if mesh is not None else MESH_TRAIN_SHAPE[0]
+    ch = ChannelConfig(fading="rayleigh", noise_std=TRAIN_NOISE_STD,
+                       energy=1.0)
+    tcfg = TrainConfig(aggregator="gbma",
+                       gbma=GBMAConfig(n_nodes=nodes, channel=ch))
+    model = build_model(cfg)
+    with use_mesh(mesh):
+        step = build_train_step(model, tcfg,
+                                get_optimizer("momentum", TRAIN_LR))
+    return model, step
+
+
+def _mesh_train_run(cfg, params0, batches, mesh, attn_ops) -> dict:
+    """MESH_TRAIN_STEPS steps of the fused step from `params0` (laid out
+    over `mesh` by the reference's rules, or on one device with `mesh`
+    None), K2's launch count set to 0 just before and read just after.
+    Each step timed on the host clock (ending in a synchronize of every
+    card); the peak memory of each card during step 2 over what it held
+    before it; each mesh entry's resident parameter and state bytes; the
+    faster step's parts from CUDA events recorded in it on the current
+    card (`_step_parts`: the forward and backward, the edge noise, the
+    clip and the optimizer)."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.sharding.placement import Sharded, shard_params
+
+    _, step = _mesh_train_step(cfg, mesh)
+    if mesh is None:
+        params, cards = tree_map(lambda p: p.clone(), params0), \
+            [params0["embed"].device]
+    else:
+        params = shard_params(params0, cfg.fsdp, mesh)
+        cards = sorted(set(mesh.devices), key=str)
+    state = step.init_state(params)
+    resident = None
+    if mesh is not None:
+        resident = [sum(leaf.shards[i].numel() * leaf.shards[i]
+                        .element_size() for leaf in tree_leaves(
+                            (params, state)) if isinstance(leaf, Sharded))
+                    / 2**20 for i in range(mesh.size)]
+    attn_ops.launch_count = 0
+    losses, step_ms, base, parts = [], [], {}, []
+    for i, batch in enumerate(batches):
+        for c in cards:
+            torch.cuda.synchronize(c)
+        if i == 1:
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+                base[c] = torch.cuda.memory_allocated(c)
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in "be")
+        with _step_parts("fused") as marks:
+            t0 = time.perf_counter()
+            begin.record()
+            params, state, metrics = step(params, state, batch, i)
+            end.record()
+            for c in cards:
+                torch.cuda.synchronize(c)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append({"forward_backward_ms": begin.elapsed_time(marks[0]),
+                      "noise_ms": marks[0].elapsed_time(marks[1]),
+                      "clip_and_optimizer_ms": marks[1].elapsed_time(end)})
+        losses.append(float(metrics["loss"]))
+    peaks = {str(c): (torch.cuda.max_memory_allocated(c) - base[c]) / 2**20
+             for c in cards}
+    best = min(range(len(step_ms)), key=step_ms.__getitem__)
+    return {"losses": losses, "params": params, "step_ms": step_ms,
+            "parts": parts[best], "peak_mib_over_resident": peaks,
+            "resident_mib": resident, "k2": attn_ops.launch_count}
+
+
+def _leaf_distances(out, ref) -> list:
+    """||out - ref|| per leaf, in f64 on the card."""
+    from repro_torch.core.tree import tree_leaves
+
+    return [_l2(o.double() - r.double())
+            for o, r in zip(tree_leaves(out), tree_leaves(ref))]
+
+
+def _l2(x) -> float:
+    import torch
+
+    return torch.linalg.vector_norm(x).item()
+
+
+def run_mesh_train(attn_ops) -> tuple:
+    """"mesh train" (M12a): olmo-1b at full width and depth in bf16, each
+    layer recomputed (`cfg.remat`), trained MESH_TRAIN_STEPS steps on the
+    fused gbma route on a (2, 2) ("data", "model") mesh of four entries
+    of cuda:0, with the config's `fsdp=False` and with `fsdp=True`; where
+    the machine shows two or more cards, also on (2, 2) over four distinct
+    cards or (2, 1) over two, each bit for bit the run over entries of
+    cuda:0 at the same shape. Each run is held to the unmeshed fused step
+    at the same seed, nodes and batches by the bar "train models" (h)
+    holds olmo-1b's routes to: the losses within MODEL_LOSS_RTOL, and
+    each leaf of the final parameters at most MODEL_BF16_RATIO times as
+    far (in norm) from the f32 model's (the same parameters upcast, the
+    same steps) as the unmeshed bf16 step's. Every shard equals its
+    block of `unshard`; K2 launches on each entry's heads, twice a
+    layer a step (the forward and the recompute). Returns (K2 launches
+    of the phase: the unmeshed bf16 and f32 runs and the mesh runs, the
+    record)."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.placement import unshard
+
+    t_phase = time.perf_counter()
+    cfg = model_train_cfg(MESH_TRAIN_ARCH)
+    params0 = build_model(cfg).init_params(device="cuda")
+    batches = [_on_card(b) for b in _train_batches(cfg, MESH_TRAIN_STEPS)]
+    plain = _mesh_train_run(cfg, params0, batches, None, attn_ops)
+    f32 = _mesh_train_run(cfg.with_(dtype="float32"),
+                          tree_map(lambda p: p.float(), params0), batches,
+                          None, attn_ops)
+    d_plain = _leaf_distances(plain["params"], f32["params"])
+    log(f"mesh train unmeshed {MESH_TRAIN_ARCH} fused gbma, "
+        f"{MESH_TRAIN_STEPS} steps ({MESH_TRAIN_SHAPE[0]} nodes): bf16 "
+        f"losses {plain['losses']}, step ms {plain['step_ms']}, the "
+        f"faster's parts {json.dumps(plain['parts'])}, peak MiB over "
+        f"resident {plain['peak_mib_over_resident']}, K2 {plain['k2']}; "
+        f"f32 losses {f32['losses']}, step ms {f32['step_ms']}")
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)
+    record = {"unmeshed": {k: plain[k] for k in (
+        "losses", "step_ms", "parts", "peak_mib_over_resident", "k2")},
+        "f32": {k: f32[k] for k in ("losses", "step_ms")}, "runs": {}}
+    n_cards = torch.cuda.device_count()
+    runs = [("(2, 2) cuda:0 x 4", MESH_TRAIN_SHAPE, ["cuda:0"] * 4, False),
+            ("(2, 2) cuda:0 x 4 fsdp", MESH_TRAIN_SHAPE, ["cuda:0"] * 4,
+             True)]
+    if n_cards >= 4:
+        runs.append(("(2, 2) 4 cards", MESH_TRAIN_SHAPE,
+                     [f"cuda:{i}" for i in range(4)], False))
+    elif n_cards >= 2:
+        runs += [("(2, 1) cuda:0 x 2", (2, 1), ["cuda:0"] * 2, False),
+                 ("(2, 1) 2 cards", (2, 1), ["cuda:0", "cuda:1"], False)]
+    launches, finals = plain["k2"] + f32["k2"], {}
+    for label, shape, devices, fsdp in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = make_mesh(shape, ("data", "model"), devices)
+        mcfg = cfg.with_(fsdp=fsdp)
+        run = _mesh_train_run(mcfg, params0, batches, mesh, attn_ops)
+        launches += run["k2"]
+        want = MESH_TRAIN_STEPS * per_step * mesh.size
+        whole = unshard(run["params"])
+        blocks_ok = all(
+            torch.equal(s, full[leaf.box(i)])
+            for leaf, full in zip(tree_leaves(run["params"]),
+                                  tree_leaves(whole))
+            for i, s in enumerate(leaf.shards))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(run["losses"], plain["losses"]))
+        ratios = [(dm / dp if dp > 0 else (0.0 if dm == 0 else math.inf))
+                  for dm, dp in zip(_leaf_distances(whole, f32["params"]),
+                                    d_plain)]
+        moved = [_l2(a.double() - b.double()) / max(
+            _l2(b.double() - c.double()), 1e-30) for a, b, c in zip(
+                tree_leaves(whole), tree_leaves(plain["params"]),
+                tree_leaves(params0))]
+        same = None
+        twin = {"(2, 2) 4 cards": "(2, 2) cuda:0 x 4",
+                "(2, 1) 2 cards": "(2, 1) cuda:0 x 2"}.get(label)
+        if twin is not None:
+            same = all(torch.equal(s.to(t.device), t) for x, y in zip(
+                tree_leaves(run["params"]), tree_leaves(finals[twin]))
+                for s, t in zip(x.shards, y.shards))
+        ok = (all(math.isfinite(x) for x in run["losses"])
+              and loss_rel <= MODEL_LOSS_RTOL
+              and max(ratios) <= MODEL_BF16_RATIO and blocks_ok
+              and run["k2"] == want and same is not False)
+        row = {"mesh": list(shape), "devices": devices, "fsdp": fsdp,
+               "losses": run["losses"], "step_ms": run["step_ms"],
+               "parts": run["parts"],
+               "peak_mib_over_resident": run["peak_mib_over_resident"],
+               "resident_mib_per_entry": run["resident_mib"],
+               "k2": run["k2"], "k2_expected": want, "loss_rel": loss_rel,
+               "to_f32_ratio": ratios, "rel_to_unmeshed_update": moved,
+               "bits_equal_entries_of_cuda0": same}
+        record["runs"][label] = row
+        log(f"mesh train {label} {MESH_TRAIN_ARCH} ({cfg.n_layers} x "
+            f"{cfg.d_model}, bf16, fsdp={fsdp}), {MESH_TRAIN_STEPS} steps: "
+            f"losses {run['losses']} (unmeshed {plain['losses']}, "
+            f"{loss_rel:.3e} rel, bar {MODEL_LOSS_RTOL}); per leaf, the "
+            f"distance to the f32 model over the unmeshed step's "
+            f"{[f'{x:.3f}' for x in ratios]} (bar {MODEL_BF16_RATIO}); "
+            f"printed: ||mesh - unmeshed|| over ||unmeshed - start|| "
+            f"{[f'{x:.2e}' for x in moved]}; every shard its block "
+            f"{blocks_ok}; step ms {[f'{x:.1f}' for x in run['step_ms']]} "
+            f"(unmeshed {[f'{x:.1f}' for x in plain['step_ms']]}), the "
+            f"faster's parts {json.dumps(run['parts'])}; peak "
+            f"MiB over resident by card "
+            f"{ {k: round(v, 1) for k, v in run['peak_mib_over_resident'].items()} }"
+            f", resident MiB by entry "
+            f"{[round(x, 1) for x in run['resident_mib']]}; K2 "
+            f"{run['k2']} (expected {want}: {MESH_TRAIN_STEPS} steps x "
+            f"{cfg.n_layers} layers x 2 x {mesh.size} entries); bits "
+            f"against entries of cuda:0 {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mesh train {label}")
+        if n_cards >= 2 and label in ("(2, 2) cuda:0 x 4",
+                                      "(2, 1) cuda:0 x 2"):
+            finals[label] = run["params"]
+        del run, whole
+    finals.clear()
+    del params0, plain, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh train: {record['seconds']:.1f} s")
+    return launches, record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-src", default=None,
@@ -5712,6 +5960,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # training olmo-1b on a (data x model) mesh of the card's entries: K2
+    # on each entry's heads, twice a layer a step
+    mesh_launches, mesh_record = run_mesh_train(attn_ops)
+    elapsed('mesh train')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # K3 and the RWKV6 serving path: one launch per layer in the prefill
     # and in each decode step
     wkv_errs = check_wkv_vs_plain()
@@ -5781,7 +6036,7 @@ def main() -> int:
         "sass": sass,
         "launches": sum(r["launches"] for r in served.values())
         + sum(train_launches.values()) + model_launches["k2"]
-        + sum(s2_launches.values()) + sum(s3_launches.values())
+        + mesh_launches + sum(s2_launches.values()) + sum(s3_launches.values())
         + sum(s67_launches.values()) + sum(s45_launches.values()),
         "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
         "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes; "
@@ -5797,6 +6052,8 @@ def main() -> int:
         | {f"train {name}": n for name, n in train_launches.items()}
         | {"train models (bf16, with lse, each layer recomputed)":
            model_launches["k2"]}
+        | {"mesh train (olmo-1b unmeshed bf16 and f32, then on (2, 2), "
+           "each entry's heads)": mesh_launches}
         | {f"serve S2 {run}": n for run, n in s2_launches.items()}
         | {f"serve S3 {run}": n for run, n in s3_launches.items()}
         | {f"serve S6-S7 {run}": n for run, n in s67_launches.items()}
@@ -5809,6 +6066,7 @@ def main() -> int:
         "bf16_lse_errors": model_record["lse_errors"],
         "train_shapes": model_record["train_attention"],
         "train": train_record, "train_models": model_record,
+        "mesh_train": mesh_record,
         "f32": {"source": ATTN_F32_SOURCE, "launches": repro_launches,
                 "sass": f32_sass,
                 **{key: attn_f32[key] for key in (

@@ -14,7 +14,9 @@ keeps about three decimal digits, far outside the parity tolerances.
 
 Meshes: the Monte Carlo engine places a sweep's rows and seeds over a
 `(rows × mc)` mesh of devices (`mesh_devices`), laid out row-major as
-the reference's `make_mesh((row_shards, mc), ("rows", "mc"))`. A call's
+the reference's `make_mesh((row_shards, mc), ("rows", "mc"))`; the
+training step's `("data", "model")` meshes (`launch.mesh.make_mesh`)
+take their devices from the same function. A call's
 `device` may be one device (`None`: the card), which stands for the
 first visible cards from it on (on the CPU: entries of the CPU), or a
 sequence of devices, which may name one device more than once: the
@@ -23,6 +25,7 @@ counterpart of the reference's forced host devices, so that one card
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import torch
@@ -85,21 +88,23 @@ def visible_device_count(device: MeshLike = None) -> int:
     return 1
 
 
-def mesh_devices(device: MeshLike, row_shards: int,
-                 n_shards: int) -> list:
-    """The `row_shards × max(n_shards, 1)` devices of a placed call,
-    row-major: entry `r · mc + m` holds row block r's seed block m. A
-    sequence gives its first entries; a CUDA device the cards from its
-    index on (raising when too few are visible, or CUDA is absent); the
-    CPU repeats itself. A mesh of one entry is `[primary_device(device)]`."""
-    size = max(int(row_shards), 1) * max(int(n_shards), 1)
+def mesh_devices(device: MeshLike, *shape: int) -> list:
+    """The devices of a mesh of `shape` (any number of axes; an axis of
+    size 0 counts as 1, as a sweep's `n_shards=0`), row-major: for the
+    Monte Carlo engine's `(row_shards, n_shards)` mesh, entry `r · mc + m`
+    holds row block r's seed block m. A sequence gives its first
+    entries; a CUDA device the cards from its index on (raising when too
+    few are visible, or CUDA is absent); the CPU repeats itself. A mesh
+    of one entry is `[primary_device(device)]`."""
+    dims = [max(int(s), 1) for s in shape]
+    size = math.prod(dims)
+    label = " x ".join(str(d) for d in dims)
     if size == 1:
         return [primary_device(device)]
     if _is_sequence(device):
         if len(device) < size:
-            raise ValueError(f"a ({row_shards} x {max(n_shards, 1)}) mesh "
-                             f"needs {size} devices, the sequence names "
-                             f"{len(device)}")
+            raise ValueError(f"a ({label}) mesh needs {size} devices, the "
+                             f"sequence names {len(device)}")
         return [resolve_device(d) for d in device[:size]]
     dev = primary_device(device)
     if dev.type != "cuda":
@@ -107,7 +112,7 @@ def mesh_devices(device: MeshLike, row_shards: int,
     start = dev.index or 0
     if start + size > torch.cuda.device_count():
         raise ValueError(
-            f"a ({row_shards} x {max(n_shards, 1)}) mesh from cuda:{start} "
-            f"needs {size} cards, {torch.cuda.device_count()} are visible; "
-            "pass a device list, which may name a card more than once")
+            f"a ({label}) mesh from cuda:{start} needs {size} cards, "
+            f"{torch.cuda.device_count()} are visible; pass a device list, "
+            "which may name a card more than once")
     return [torch.device("cuda", start + i) for i in range(size)]

@@ -11,7 +11,8 @@ Three tiers, all realizing Eq. (8)-(9):
       the superposition goes through K1 (`kernels.ota`) on the card.
 (ii)  `gbma_value_and_grad` + `perturb_gradients`: each node's local loss
       weighted by its detached gain (grad sum_n h_n f_n / N =
-      sum_n h_n g_n / N), then the edge noise added to the gradient tree.
+      sum_n h_n g_n / N), then the edge noise added to the gradient tree;
+      over a mesh, `gbma_mesh_value_and_grad`, the nodes the batch ranks.
 (iii) `shard_map_aggregate`: the explicit per-rank protocol: scale the
       local gradient by the local gain, all-reduce (SUM) over a
       `torch.distributed` process group (the physical superposition),
@@ -34,6 +35,7 @@ from repro_torch.core import rng, transport
 from repro_torch.core.channel import ChannelConfig, edge_noise_std, \
     sample_gains
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.sharding import comm, placement
 
 PyTree = Any
 
@@ -146,6 +148,59 @@ def gbma_value_and_grad(loss_fn: Callable[..., torch.Tensor]
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, live)]
         return torch.mean(losses.detach()), tree_unflatten(treedef, grads)
+
+    return fn
+
+
+def gbma_mesh_value_and_grad(losses_fn: Callable[..., list], mesh,
+                             batch_axes: tuple
+                             ) -> Callable[..., Tuple[torch.Tensor, PyTree]]:
+    """`gbma_value_and_grad` over a mesh. `losses_fn(params, local_batch)`
+    takes a tree of `sharding.placement.Sharded` leaves and each mesh
+    entry's rows of the batch (a dict of per-entry lists) and returns
+    each entry's per-example losses.
+
+    Returns `(params, batch, weights) -> (mean_loss, grads)`: the global
+    batch and its per-example weights are split over `batch_axes` (batch
+    rank r holds rows [r·B/n, (r + 1)·B/n): node r's contiguous examples
+    and its gain when the nodes are the batch ranks), each entry's
+    objective is sum(w · losses) / B (the global batch's normalisation),
+    and the gradients land sharded like the parameters: summed over the
+    batch ranks where a leaf is replicated over them, in rank order (the
+    data-axis sum that is the MAC superposition; a leaf split over a
+    batch axis was reduce-scattered by its gather's backward). The clean
+    loss is the mean over the global batch, on the mesh's first
+    device."""
+
+    def fn(params, batch, weights):
+        leaves, treedef = tree_flatten(params)
+        live = [leaf.with_shards([s.detach().requires_grad_(True)
+                                  for s in leaf.shards]) for leaf in leaves]
+        local = {k: placement.split_batch(v, mesh, batch_axes)
+                 for k, v in batch.items()}
+        w_local = placement.split_batch(weights.detach(), mesh, batch_axes)
+        bsz = weights.shape[0]
+        flat = [s for leaf in live for s in leaf.shards]
+        with torch.enable_grad():
+            losses = losses_fn(tree_unflatten(treedef, live), local)
+            objs = [torch.sum(w.to(x.dtype) * x)
+                    / torch.full((), float(bsz), dtype=x.dtype,
+                                 device=x.device)
+                    for w, x in zip(w_local, losses)]
+            grads = torch.autograd.grad(objs, flat, allow_unused=True)
+        out, k = [], 0
+        for leaf in live:
+            n = len(leaf.shards)
+            shards = [torch.zeros_like(p) if g is None else g
+                      for g, p in zip(grads[k:k + n], leaf.shards)]
+            k += n
+            missing = [a for a in batch_axes if a not in leaf.used_axes()]
+            out.append(leaf.with_shards(comm.reduce(shards, mesh, missing)))
+        dev = mesh.devices[0]
+        clean = torch.mean(torch.cat([
+            losses[i].detach().to(dev)
+            for i in placement.leads(mesh, batch_axes)]))
+        return clean, tree_unflatten(treedef, out)
 
     return fn
 

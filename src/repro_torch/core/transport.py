@@ -60,6 +60,7 @@ from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.mc.slots import (ALGO_REGISTRY, AlgoSpec, SlotCtx,
                                        slot_update_block, with_antennas)
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.sharding.placement import Sharded
 
 PyTree = Any
 
@@ -195,14 +196,26 @@ def add_tree_noise(grads: PyTree, key: torch.Tensor, std: float,
     the stream (the same key on every rank draws the same noise). Each
     leaf gets `g + std * normal(k, g.shape, noise_dtype).to(g.dtype)`,
     std rounded to the leaf's dtype as the reference's Python scalar is;
-    bf16 noise is JAX's own bf16 draw (`rng.normal`)."""
+    bf16 noise is JAX's own bf16 draw (`rng.normal`). A leaf laid out over
+    a mesh (`sharding.placement.Sharded`) is drawn whole, on the key's
+    device, and each entry adds its block of the draw: every shard's
+    noise is the slice of the one-device draw, bit for bit, and replicas
+    get equal copies."""
     leaves, treedef = tree_flatten(grads)
     keys = rng.split(key, len(leaves))
     nd = _dtype(noise_dtype)
-    noisy = [g + weak_scalar(std, g.dtype)
-             * rng.normal(k, tuple(g.shape), dtype=nd).to(g.dtype)
-             for g, k in zip(leaves, keys)]
-    return tree_unflatten(treedef, noisy)
+
+    def noisy(g, k):
+        z = rng.normal(k, tuple(g.shape), dtype=nd)
+        if isinstance(g, Sharded):
+            return g.with_shards([
+                s + weak_scalar(std, s.dtype)
+                * z[g.box(i)].to(device=s.device, dtype=s.dtype)
+                for i, s in enumerate(g.shards)])
+        return g + weak_scalar(std, g.dtype) * z.to(g.dtype)
+
+    return tree_unflatten(treedef, [noisy(g, k)
+                                    for g, k in zip(leaves, keys)])
 
 
 # --------------------------------------------------------------------------

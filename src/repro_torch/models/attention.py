@@ -30,8 +30,9 @@ layers in Python, so a layer's flag is known on the host: a global
 layer passes `window=None` (to K2 and to `decode_attention`), which is
 the function the flag computes.
 
-Out of this slice: the sharding calls (ROADMAP M12, the mesh path of
-training and serving). `blockwise_attention`, the
+This module has no sharding calls: on a mesh, training runs
+`attn_apply` on each entry's local heads (`models.meshed`, ROADMAP
+M12a); serving on a mesh is M12b. `blockwise_attention`, the
 reference's blockwise attention, serves MLA's prefill past 1,024
 positions (`models.mla`) as in the reference; this module's own
 attention takes K2 in serving and the flash backward in training,

@@ -9,6 +9,12 @@ Adam's step count `t` is an int32 device tensor, so an update never
 reads a value on the host. Python scalars are rounded to f32 before
 they multiply an f32 tensor, as JAX rounds its weakly typed scalars
 (`transport.weak_scalar`).
+
+On a mesh the trees' leaves are `sharding.placement.Sharded`: each
+update runs on every entry's local tensor (`_map`), so the states are
+sharded like the parameters and replicas stay equal. `global_norm` sums
+each distinct block's squares once, in a fixed order, on the first
+entry's device.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 
 from repro_torch.core.transport import weak_scalar
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.sharding.placement import Sharded, leafwise
 
 PyTree = Any
 _F32 = torch.float32
@@ -37,6 +44,11 @@ def _zeros(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=_F32, device=p.device)
 
 
+def _map(fn, *trees):
+    """`tree_map` with each `Sharded` leaf updated entry by entry."""
+    return tree_map(lambda *xs: leafwise(fn, *xs), *trees)
+
+
 def gd(stepsize: float) -> Optimizer:
     """theta <- theta - beta v (paper Eq. 9), stateless."""
     lr = _f32(stepsize)
@@ -45,8 +57,8 @@ def gd(stepsize: float) -> Optimizer:
         return ()
 
     def update(grads, state, params):
-        new = tree_map(lambda p, g: (p.to(_F32) - lr * g.to(_F32))
-                       .to(p.dtype), params, grads)
+        new = _map(lambda p, g: (p.to(_F32) - lr * g.to(_F32))
+                   .to(p.dtype), params, grads)
         return new, state
 
     return Optimizer(init, update)
@@ -56,12 +68,12 @@ def momentum(stepsize: float, beta: float = 0.9) -> Optimizer:
     lr, b = _f32(stepsize), _f32(beta)
 
     def init(params):
-        return tree_map(_zeros, params)
+        return _map(_zeros, params)
 
     def update(grads, state, params):
-        new_m = tree_map(lambda m, g: b * m + g.to(_F32), state, grads)
-        new_p = tree_map(lambda p, m: (p.to(_F32) - lr * m).to(p.dtype),
-                         params, new_m)
+        new_m = _map(lambda m, g: b * m + g.to(_F32), state, grads)
+        new_p = _map(lambda p, m: (p.to(_F32) - lr * m).to(p.dtype),
+                     params, new_m)
         return new_p, new_m
 
     return Optimizer(init, update)
@@ -74,31 +86,43 @@ def adam(stepsize: float, b1: float = 0.9, b2: float = 0.999,
 
     def init(params):
         leaf = tree_leaves(params)[0]
-        return {"m": tree_map(_zeros, params), "v": tree_map(_zeros, params),
+        return {"m": _map(_zeros, params), "v": _map(_zeros, params),
                 "t": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
     def update(grads, state, params):
         t = state["t"] + 1
-        m = tree_map(lambda m_, g: b1_ * m_ + c1 * g.to(_F32), state["m"],
-                     grads)
-        v = tree_map(lambda v_, g: b2_ * v_ + c2 * torch.square(g.to(_F32)),
-                     state["v"], grads)
+        m = _map(lambda m_, g: b1_ * m_ + c1 * g.to(_F32), state["m"],
+                 grads)
+        v = _map(lambda v_, g: b2_ * v_ + c2 * torch.square(g.to(_F32)),
+                 state["v"], grads)
         tf = t.to(_F32)
         bc1 = 1 - torch.pow(torch.full_like(tf, b1_), tf)
         bc2 = 1 - torch.pow(torch.full_like(tf, b2_), tf)
-        new_p = tree_map(
-            lambda p, m_, v_: (p.to(_F32) - lr * (m_ / bc1)
-                               / (torch.sqrt(v_ / bc2) + eps_)).to(p.dtype),
+        new_p = _map(
+            lambda p, m_, v_: (p.to(_F32) - lr * (m_ / bc1.to(p.device))
+                               / (torch.sqrt(v_ / bc2.to(p.device)) + eps_)
+                               ).to(p.dtype),
             params, m, v)
         return new_p, {"m": m, "v": v, "t": t}
 
     return Optimizer(init, update)
 
 
+def _square_sum(g) -> torch.Tensor:
+    """A leaf's f32 sum of squares; a `Sharded` leaf's over its distinct
+    blocks in rank order, on its first entry's device."""
+    if not isinstance(g, Sharded):
+        return torch.sum(torch.square(g.to(_F32)))
+    acc = None
+    for i in g.distinct():
+        part = torch.sum(torch.square(g.shards[i].to(_F32))).to(g.device)
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def global_norm(grads: PyTree) -> torch.Tensor:
     """f32 global L2 norm of a gradient tree (a 0-d device tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(_F32)))
-                          for g in tree_leaves(grads)))
+    return torch.sqrt(sum(_square_sum(g) for g in tree_leaves(grads)))
 
 
 def clip_by_global_norm(grads: PyTree, max_norm: float,
@@ -112,7 +136,7 @@ def clip_by_global_norm(grads: PyTree, max_norm: float,
     scale = torch.clamp_max(
         torch.full_like(norm, _f32(max_norm)) / norm.clamp_min(_f32(1e-9)),
         1.0)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads)
+    return _map(lambda g: (g * scale.to(g.device)).to(g.dtype), grads)
 
 
 def get_optimizer(name: str, stepsize: float) -> Optimizer:

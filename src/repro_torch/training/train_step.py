@@ -32,9 +32,20 @@ in the original layout, or JAX's rbg or unsafe_rbg keys (their bits XLA's
 CPU `RngBitGenerator`'s). `key(seed, impl)`, then `fold_in(base, step)`,
 split into `(k_h, k_w)` on the fused route; `transport.step_key` on the
 transport route. Every split, fold and draw downstream takes any kind.
-The
-reference's `_constrain_like_params` is a sharding constraint, which
-means nothing on one device, and is left out.
+
+**On a mesh** (`build_train_step` under `sharding.specs.use_mesh(mesh)`,
+the reference's entry point; `use_dp_over_model` too where it is on):
+the fused route runs over parameters laid out by the reference's rules
+(`sharding.placement.shard_params(params, cfg.fsdp, mesh)`) and a global
+batch, which the step splits over the batch axes. The nodes are the
+batch ranks (`n_nodes` = the product of the "pod" and "data" sizes, as
+the reference's launcher sets it): each entry's loss weighted by its
+node's gain, the gradients summed over the batch ranks in rank order
+(the MAC superposition) and landing sharded like the parameters (the
+reference's `_constrain_like_params`), then the edge noise (each shard
+the slice of the one-device draw), the clip and the optimizer, shard by
+shard (`core.gbma.gbma_mesh_value_and_grad`, `models.meshed`). The
+transport route and microbatches on a mesh are ROADMAP M12c and raise.
 
 Stateful aggregators (receiver momentum, blind_ec's per-node residual)
 carry their transport state inside the opt_state slot:
@@ -56,12 +67,15 @@ import torch
 
 from repro_torch.core import rng, transport
 from repro_torch.core.channel import edge_noise_std
-from repro_torch.core.gbma import (GBMAConfig, gbma_value_and_grad,
-                                   node_weights, perturb_gradients)
+from repro_torch.core.gbma import (GBMAConfig, gbma_mesh_value_and_grad,
+                                   gbma_value_and_grad, node_weights,
+                                   perturb_gradients)
 from repro_torch.core.transport import weak_scalar
 from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
                                    tree_unflatten)
+from repro_torch.models import meshed
 from repro_torch.optim.gd import Optimizer, clip_by_global_norm, global_norm
+from repro_torch.sharding import specs
 
 PyTree = Any
 
@@ -202,6 +216,24 @@ def _node_grads_fn(model, n_nodes: int) -> Callable:
     return fn
 
 
+def _mesh_value_and_grad(model, gcfg: GBMAConfig, mesh) -> Callable:
+    """The fused route's (params, batch, weights) -> (loss, grads) over
+    `mesh`, for the dense decoder (`models.meshed`); the nodes are the
+    batch ranks."""
+    meshed.check_supported(model.cfg)
+    lay = meshed.MeshLayout(mesh, specs.tp_axis(), specs.data_axes(mesh))
+    nodes = 1
+    for a in ("pod", "data"):
+        nodes *= mesh.shape.get(a, 1)
+    if gcfg.n_nodes != nodes:
+        raise ValueError(
+            f"on a mesh the MAC's nodes are its pod x data ranks: n_nodes "
+            f"must be {nodes}, got {gcfg.n_nodes}")
+    return gbma_mesh_value_and_grad(
+        lambda p, b: meshed.train_losses(model, p, b["tokens"], lay),
+        mesh, lay.batch_axes)
+
+
 def _clip_and_metrics(grads: PyTree, tcfg: TrainConfig) -> tuple:
     """`grad_norm` is the PRE-clip global norm; `clip_frac` marks the
     steps where the clip engaged. The clip reuses the computed norm."""
@@ -230,7 +262,13 @@ def build_train_step(model, tcfg: TrainConfig, opt: Optimizer) -> Callable:
     gcfg = tcfg.gbma
     route = resolve_route(tcfg)
     base_key = _base_key_fn(tcfg.seed, tcfg.rng_impl)
+    mesh = specs.current_mesh()
 
+    if mesh is not None and (route == "transport" or tcfg.microbatches > 1):
+        raise NotImplementedError(
+            "the transport route and microbatches on a mesh are ROADMAP "
+            "M12c; the mesh step takes the fused route (gbma, fdm, "
+            "centralized) with microbatches=1")
     if route == "transport":
         return _build_transport_step(model, tcfg, opt, base_key)
     if tcfg.transport is not None:
@@ -238,8 +276,11 @@ def build_train_step(model, tcfg: TrainConfig, opt: Optimizer) -> Callable:
             "TrainConfig.transport is set but the fused route ignores it; "
             "pass route='transport' to use it")
 
-    vg = gbma_value_and_grad(
-        lambda p, b: model.train_loss_per_example(p, b)[0])
+    if mesh is None:
+        vg = gbma_value_and_grad(
+            lambda p, b: model.train_loss_per_example(p, b)[0])
+    else:
+        vg = _mesh_value_and_grad(model, gcfg, mesh)
     gbma_on = tcfg.aggregator == "gbma" and gcfg.enabled
 
     def train_step(params, opt_state, batch, step):

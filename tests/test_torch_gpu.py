@@ -31,7 +31,9 @@ moments match unchunked ones, a sweep resumed after an injected
 fault equals the uninterrupted one bit for bit, and LARGE placed over
 four mesh entries of the card equals the unplaced call bit for bit. The MC sweep server runs
 on the card: the launcher's selftests, and a served mix through K1 held
-to the plain route.
+to the plain route. The fused training step over a (2, 2) mesh of four
+entries of the card launches K2 on each entry's heads and stays within
+the training bar of the unmeshed step, bit for bit run after run.
 """
 import dataclasses
 
@@ -1298,3 +1300,60 @@ def test_hymba_fused_steps_recompute_each_layer(cuda):
     torch.cuda.synchronize()
     assert attn_ops.launch_count - before == 2 * 4
     assert all(torch.isfinite(p).all() for p in tree_leaves(params))
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_mesh_train_step_on_four_entries_of_the_card(cuda, fsdp):
+    """The fused step over a (2, 2) ("data", "model") mesh of
+    ["cuda:0"] * 4 (M12a) on the reduced olmo-1b in f32: K2 on each
+    entry's heads (one launch a layer an entry a step: the reduced config
+    does not recompute), the params after 2 steps within 1e-6 + 1e-5·|p|
+    of the unmeshed step's, every shard its block of `unshard`, and two
+    runs the same bits."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.channel import ChannelConfig
+    from repro_torch.core.gbma import GBMAConfig
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.gd import momentum
+    from repro_torch.sharding.placement import shard_params, unshard
+    from repro_torch.sharding.specs import use_mesh
+    from repro_torch.training.train_step import TrainConfig, build_train_step
+
+    cfg = get_config("olmo-1b").reduced().with_(fsdp=fsdp)
+    model = build_model(cfg)
+    params0 = model.init_params(device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (8, 65),
+                                        device=cuda, generator=gen)}
+               for _ in range(2)]
+    tcfg = TrainConfig(gbma=GBMAConfig(n_nodes=2, channel=ChannelConfig(
+        fading="rayleigh", noise_std=0.05)))
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+
+    def run(on_mesh: bool):
+        with use_mesh(mesh if on_mesh else None):
+            step = build_train_step(model, tcfg, momentum(0.05))
+        params = shard_params(params0, fsdp, mesh) if on_mesh \
+            else tree_map(lambda x: x.clone(), params0)
+        state = step.init_state(params)
+        before = attn_ops.launch_count
+        for i, b in enumerate(batches):
+            params, state, _ = step(params, state, b, i)
+        torch.cuda.synchronize()
+        assert attn_ops.launch_count - before == 2 * cfg.n_layers * (
+            4 if on_mesh else 1)
+        return params
+
+    ref = run(False)
+    meshed, again = run(True), run(True)
+    whole = unshard(meshed)
+    for leaf, full, r in zip(tree_leaves(meshed), tree_leaves(whole),
+                             tree_leaves(ref)):
+        assert torch.allclose(full, r, rtol=1e-5, atol=1e-6)
+        for i, s in enumerate(leaf.shards):
+            assert torch.equal(s, full[leaf.box(i)])
+    for x, y in zip(tree_leaves(meshed), tree_leaves(again)):
+        for s, t in zip(x.shards, y.shards):
+            assert torch.equal(s, t)

@@ -91,6 +91,11 @@ S3_S7_MODULES = {"repro_torch.configs.hymba_1p5b",
 # the analytic model and the roofline terms
 ANALYSIS_MODULES = {"repro_torch.launch.analytic",
                     "repro_torch.launch.analysis"}
+# the mesh path of training (M12a): the rules, the layout, the
+# collectives, the meshes and the dense decoder over a mesh
+MESH_MODULES = {"repro_torch.sharding", "repro_torch.sharding.specs",
+                "repro_torch.sharding.placement", "repro_torch.sharding.comm",
+                "repro_torch.launch.mesh", "repro_torch.models.meshed"}
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -133,15 +138,18 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert S3_S7_MODULES <= names, S3_S7_MODULES - names
     assert S4_S5_MODULES <= names, S4_S5_MODULES - names
     assert ANALYSIS_MODULES <= names, ANALYSIS_MODULES - names
+    assert MESH_MODULES <= names, MESH_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
 @pytest.mark.parametrize("module", sorted(TRANSPORT_MODULES
                                           | TRAINING_MODULES
                                           | MODEL_TRAINING_MODULES
-                                          | ANALYSIS_MODULES))
+                                          | ANALYSIS_MODULES
+                                          | MESH_MODULES))
 def test_transport_module_alone_loads_no_jax_and_no_reference(module):
-    """Each M7, training and model-training module imported first in a fresh interpreter
+    """Each M7, training, model-training and mesh module imported first
+    in a fresh interpreter
     (its own import order, the package's re-exports included) loads
     neither JAX nor the reference."""
     env = {**os.environ, "PYTHONPATH": str(SRC)}
