@@ -114,6 +114,21 @@ drives the port's main paths:
   each leaf's distance to the f32 model against the unmeshed step's),
   every shard its block of `unshard`; each step's wall, the card's peak
   over resident and each entry's resident bytes;
+* serving over a (data x model) mesh ("mesh serve", M12b): olmo-1b at
+  full width and depth in bf16 on a (2, 2) mesh of four entries of
+  cuda:0 (`fsdp` off at a 32- and a 2048-token prompt, on at 32) and
+  repro-100m in f32 on (1, 4) with `opt_pad_heads` off and on, B = 4,
+  through `Model.prefill` and 16 `Model.decode_step`s under `use_mesh`,
+  teacher-forced on the unmeshed run's greedy tokens, and olmo-1b's
+  `Engine.generate` on (2, 2) (and over the distinct cards where the
+  machine has two or more, bit for bit the run over entries of cuda:0):
+  K2 once a layer on each entry's (or padded) heads in every prefill;
+  olmo-1b's logits no farther from the f32 model's than twice the
+  unmeshed run's, with the first greedy tokens equal, repro-100m's
+  within atol 1e-4 + rtol 1e-4 of the unmeshed run's; every cache shard
+  its block of `unshard`; each prefill and decode step timed and
+  profiled beside the unmeshed run's, each entry's resident bytes and
+  the card's peak over resident;
 * serving rwkv6-7b through the WKV6 kernel, at full width and depth in
   bf16 at a 32- and a 2048-token prompt, with the same checks (the plain
   route at the 32-token prompt) and the weights' initialization peak;
@@ -5810,6 +5825,386 @@ def run_mesh_train(attn_ops) -> tuple:
     return launches, record
 
 
+# ------------------------------------------------------------- mesh serve
+# M12b: the dense decoder served on a (data x model) mesh of four entries
+# of cuda:0 through `Model.prefill`, `Model.decode_step` and
+# `Engine.generate` under `use_mesh`: olmo-1b at full width and depth in
+# bf16 on (2, 2) (fsdp off at both prompts, on at the short one) and
+# repro-100m in f32 on (1, 4), with `opt_pad_heads` off (heads
+# replicated, the cache split on head_dim) and on (12 heads, 3 an
+# entry); B = 4, 16 new tokens, decode teacher-forced on the unmeshed
+# run's greedy tokens
+MESH_SERVE_NEW_TOKENS = 16
+MESH_SERVE_F32_BAR = 1e-4  # atol = rtol, tests/test_torch_serve.py's
+
+
+def _mesh_serve_seq(model, params, prompt, fed, mesh, attn_ops) -> dict:
+    """Prefill `prompt` (a cache of S + MESH_SERVE_NEW_TOKENS) and decode
+    MESH_SERVE_NEW_TOKENS steps feeding `fed[i]` (None: this run's greedy
+    token), under `use_mesh(mesh)` (None: unmeshed). K2's count is set to
+    0 just before the prefill and read just after. Returns the logits of
+    the prefill and each step (f32, the first entry's card), the tokens
+    fed, the cache and K2's launches."""
+    from repro_torch.sharding.specs import use_mesh
+
+    s = prompt.shape[1]
+    with use_mesh(mesh):
+        attn_ops.launch_count = 0
+        logits, cache = model.prefill(params, {"tokens": prompt},
+                                      s + MESH_SERVE_NEW_TOKENS)
+        k2 = attn_ops.launch_count
+        seq, toks = [logits], []
+        for i in range(MESH_SERVE_NEW_TOKENS):
+            tok = logits.argmax(-1) if fed is None else fed[i]
+            toks.append(tok)
+            logits, cache = model.decode_step(params, cache, tok, s + i)
+            seq.append(logits)
+    return {"logits": seq, "fed": toks, "cache": cache, "k2": k2}
+
+
+def _mesh_serve_timing(model, params, prompt, mesh, cards) -> dict:
+    """Prefill ms and decode ms per step (host clock ending in a
+    synchronize of every card, best of 2; the teacher-forced run before
+    it warmed these shapes), and one profiled decode step and, at the
+    longest prompt, one profiled prefill: launches, device busy time and
+    the idle share against the timed wall."""
+    import torch
+
+    from repro_torch.sharding.specs import use_mesh
+
+    s = prompt.shape[1]
+    tok = prompt[:, -1]
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    def best(fn):
+        times = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    with use_mesh(mesh):
+        def prefill():
+            return model.prefill(params, {"tokens": prompt},
+                                 s + MESH_SERVE_NEW_TOKENS)
+
+        _, cache = prefill()
+
+        def decode():
+            model.decode_step(params, cache, tok, s)
+
+        row = {"prefill_ms": best(prefill), "decode_ms_per_step": best(decode)}
+        profiled = [("decode", decode, row["decode_ms_per_step"])]
+        if s == SERVE_PROMPTS[-1]:
+            profiled.append(("prefill", prefill, row["prefill_ms"]))
+        for name, fn, wall in profiled:
+            p = _profile_counts(fn, kernel="flash_attention")
+            busy = p["device_us"] / 1e3
+            row[name] = {"launches": p["launches"], "device_busy_ms": busy,
+                         "device_idle_share": 1.0 - busy / wall}
+    return row
+
+
+def _entry_mib(tree, i: int) -> float:
+    """Mesh entry i's resident MiB of the `Sharded` leaves of `tree`."""
+    from repro_torch.core.tree import tree_leaves
+
+    return sum(x.shards[i].numel() * x.shards[i].element_size()
+               for x in tree_leaves(tree)) / 2**20
+
+
+def _mesh_serve_run(model, params0, prompt, fed, shape, devices, fsdp,
+                    attn_ops) -> dict:
+    """One mesh run: the parameters placed by the reference's rules, the
+    teacher-forced sequence (`_mesh_serve_seq`) with the card's peak over
+    what it held before the prefill, every cache shard held to its block
+    of `unshard`, each entry's resident weight and cache MiB, and the
+    timing (`_mesh_serve_timing`)."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.placement import shard_params, unshard
+
+    mesh = make_mesh(shape, ("data", "model"), devices)
+    cards = sorted(set(mesh.devices), key=str)
+    params = shard_params(params0, fsdp, mesh)
+    base = {}
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+        base[c] = torch.cuda.memory_allocated(c)
+    t0 = time.perf_counter()
+    run = _mesh_serve_seq(model, params, prompt, fed, mesh, attn_ops)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    run["peak_mib_over_resident"] = {
+        str(c): (torch.cuda.max_memory_allocated(c) - base[c]) / 2**20
+        for c in cards}
+    whole = unshard(run["cache"])
+    run["blocks_ok"] = all(
+        torch.equal(s, full[leaf.box(i)])
+        for leaf, full in zip(tree_leaves(run["cache"]), tree_leaves(whole))
+        for i, s in enumerate(leaf.shards))
+    run["weights_mib"] = [_entry_mib(params, i) for i in range(mesh.size)]
+    run["cache_mib"] = [_entry_mib(run["cache"], i)
+                        for i in range(mesh.size)]
+    run["k_spec"] = list(tree_leaves(run["cache"])[0].spec)
+    del whole
+    run["timing"] = _mesh_serve_timing(model, params, prompt, mesh, cards)
+    run["mesh"], run["entries"] = mesh, mesh.size
+    run["seconds"] = time.perf_counter() - t0
+    return run
+
+
+def _logit_distance(seq, ref) -> float:
+    """||seq - ref|| over the prefill's and every step's logits, f64."""
+    return math.sqrt(sum(_l2(a.double() - b.double()) ** 2
+                         for a, b in zip(seq, ref)))
+
+
+def _greedy_equal(seq, ref) -> tuple:
+    """(whether the prefill's greedy tokens are equal, the count of equal
+    greedy tokens over the prefill and every step, their number)."""
+    a = [x.argmax(-1) for x in seq]
+    b = [x.argmax(-1).to(y.device) for x, y in zip(ref, a)]
+    return (_same(a[0], b[0]),
+            sum(int((x == y).sum()) for x, y in zip(a, b)),
+            sum(x.numel() for x in a))
+
+
+def _same(a, b) -> bool:
+    """Whether `a` and `b` (on any cards) hold the same bits."""
+    import torch
+
+    return torch.equal(a, b.to(a.device))
+
+
+def run_mesh_serve(attn_ops) -> tuple:
+    """"mesh serve" (M12b), the runs MESH_SERVE_* name above. olmo-1b:
+    the unmeshed bf16 run (greedy) and the f32 model (the same weights
+    upcast, fed the same tokens) are the references; each mesh run,
+    teacher-forced on the unmeshed run's tokens, must be at most
+    MODEL_BF16_RATIO times as far (in norm, over the prefill's and every
+    step's logits) from the f32 model's logits as the unmeshed run is,
+    with the prefill's greedy tokens equal (the count of equal greedy
+    tokens printed); then `Engine.generate` under the (2, 2) mesh at the
+    short prompt, its tokens against the unmeshed engine's. repro-100m
+    (f32): every logit within atol 1e-4 + rtol 1e-4 of the unmeshed
+    run's. Each run: K2 once a layer on each entry in the prefill, every
+    cache shard its block of `unshard`, the times, launches and idle
+    shares beside the unmeshed run's, each entry's resident MiB and the
+    card's peak over resident. Where the machine shows two or more cards,
+    the same run over distinct cards bit for bit the run over entries of
+    cuda:0. Returns (K2 launches of the phase, the record)."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.sharding.placement import shard_params
+    from repro_torch.sharding.specs import use_mesh
+
+    t_phase = time.perf_counter()
+    record = {"runs": {}, "unmeshed": {}}
+    launches = 0
+    n_cards = torch.cuda.device_count()
+    cuda0 = [torch.device("cuda:0")]
+
+    def idle(t: dict) -> str:
+        return ", ".join(f"{k} {t[k]['device_idle_share']:.3f}"
+                         for k in ("prefill", "decode") if k in t)
+
+    def report(label, cfg, run, s, bars: dict, extra: str) -> bool:
+        want = cfg.n_layers * run["entries"]
+        t, u = run["timing"], record["unmeshed"][f"{cfg.arch_id} {s}"]
+        ok = bars.pop("ok") and run["blocks_ok"] and run["k2"] == want
+        row = {"arch": cfg.arch_id, "dtype": cfg.dtype, "prompt": s,
+               "batch": SERVE_BATCH, "mesh": list(run["mesh"].shape.values()),
+               "devices": [str(d) for d in run["mesh"].devices],
+               "k_spec": run["k_spec"], "k2": run["k2"],
+               "k2_expected": want, "blocks_ok": run["blocks_ok"],
+               "timing": t, "unmeshed_timing": u,
+               "weights_mib_per_entry": run["weights_mib"],
+               "cache_mib_per_entry": run["cache_mib"],
+               "peak_mib_over_resident": run["peak_mib_over_resident"],
+               "seconds": run["seconds"], **bars}
+        record["runs"][f"{label} {cfg.arch_id} {s}"] = row
+        log(f"mesh serve {label} {cfg.arch_id} ({cfg.n_layers} x "
+            f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.dtype}, pad "
+            f"{cfg.opt_pad_heads}) B={SERVE_BATCH} prompt={s}: {extra}; "
+            f"cache k spec {run['k_spec']}, every shard its block "
+            f"{run['blocks_ok']}; K2 {run['k2']} a prefill (expected "
+            f"{want}: {cfg.n_layers} layers x {run['entries']} entries); "
+            f"prefill ms {t['prefill_ms']:.2f} (unmeshed "
+            f"{u['prefill_ms']:.2f}), decode ms/step "
+            f"{t['decode_ms_per_step']:.2f} (unmeshed "
+            f"{u['decode_ms_per_step']:.2f}); launches per decode step "
+            f"{t['decode']['launches']} (unmeshed "
+            f"{u['decode']['launches']}); idle share {idle(t)} (unmeshed "
+            f"{idle(u)}); resident MiB per "
+            f"entry: weights {[round(x, 1) for x in run['weights_mib']]}, "
+            f"cache {[round(x, 2) for x in run['cache_mib']]}; peak MiB "
+            f"over resident "
+            f"{ {k: round(v, 1) for k, v in run['peak_mib_over_resident'].items()} }"
+            f"; {run['seconds']:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mesh serve {label} {cfg.arch_id} {s}")
+        return ok
+
+    # olmo-1b in bf16, the f32 model (the same weights upcast) beside it
+    model, params0 = _serve_model("olmo-1b")
+    cfg = model.cfg
+    f32_model, f32_params = _serve_model(
+        "olmo-1b", params=tree_map(lambda p: p.float(), params0),
+        dtype="float32")
+    olmo_runs = [("(2, 2) cuda:0 x 4", (2, 2), ["cuda:0"] * 4, False,
+                  SERVE_PROMPTS),
+                 ("(2, 2) cuda:0 x 4 fsdp", (2, 2), ["cuda:0"] * 4, True,
+                  SERVE_PROMPTS[:1])]
+    if n_cards >= 4:
+        olmo_runs.append(("(2, 2) 4 cards", (2, 2),
+                          [f"cuda:{i}" for i in range(4)], False,
+                          SERVE_PROMPTS[:1]))
+    elif n_cards >= 2:
+        olmo_runs += [(f"{shape} {tag}", shape, devs, False,
+                       SERVE_PROMPTS[:1])
+                      for shape in ((2, 1), (1, 2))
+                      for tag, devs in (("cuda:0 x 2", ["cuda:0"] * 2),
+                                        ("2 cards", ["cuda:0", "cuda:1"]))]
+    twins = {"(2, 2) 4 cards": "(2, 2) cuda:0 x 4",
+             "(2, 1) 2 cards": "(2, 1) cuda:0 x 2",
+             "(1, 2) 2 cards": "(1, 2) cuda:0 x 2"}
+    for s in SERVE_PROMPTS:
+        prompt = _prompt(cfg.vocab_size, s)
+        plain = _mesh_serve_seq(model, params0, prompt, None, None,
+                                attn_ops)
+        f32 = _mesh_serve_seq(f32_model, f32_params, prompt, plain["fed"],
+                              None, attn_ops)
+        launches += plain["k2"] + f32["k2"]
+        del plain["cache"], f32["cache"]
+        d_plain = _logit_distance(plain["logits"], f32["logits"])
+        record["unmeshed"][f"olmo-1b {s}"] = _mesh_serve_timing(
+            model, params0, prompt, None, cuda0)
+        finals = {}
+        for label, shape, devices, fsdp, prompts in olmo_runs:
+            if s not in prompts:
+                continue
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = _mesh_serve_run(model, params0, prompt, plain["fed"],
+                                  shape, devices, fsdp, attn_ops)
+            launches += run["k2"]
+            ratio = _logit_distance(run["logits"], f32["logits"]) / d_plain
+            first, n_eq, n_tok = _greedy_equal(run["logits"],
+                                               plain["logits"])
+            same = None
+            if label in twins:
+                same = all(_same(a, b) for a, b in
+                           zip(run["logits"], finals[twins[label]]))
+            finals[label] = run["logits"]
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in run["logits"])
+            bars = {"to_f32_ratio": ratio, "first_tokens_equal": first,
+                    "greedy_equal": n_eq, "greedy_total": n_tok,
+                    "bits_equal_entries_of_cuda0": same,
+                    "ok": (finite and ratio <= MODEL_BF16_RATIO and first
+                           and same is not False)}
+            report(label, cfg, run, s, bars,
+                   f"logits' distance to the f32 model over the unmeshed "
+                   f"run's {ratio:.4f} (bar {MODEL_BF16_RATIO}); prefill's "
+                   f"greedy tokens equal {first}; {n_eq} of {n_tok} greedy "
+                   f"tokens equal (teacher-forced); bits against entries "
+                   f"of cuda:0 {same}")
+            del run
+        del plain, f32, finals
+
+    # `Engine.generate` under the (2, 2) mesh at the short prompt
+    s = SERVE_PROMPTS[0]
+    prompt = _prompt(cfg.vocab_size, s)
+    scfg = ServeConfig(max_new_tokens=MESH_SERVE_NEW_TOKENS)
+    want_toks = Engine(model, params0, scfg).generate({"tokens": prompt})
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    placed = shard_params(params0, False, mesh)
+    eng = Engine(model, placed, scfg)
+    with use_mesh(mesh):
+        Engine(model, placed, ServeConfig(max_new_tokens=2)).generate(
+            {"tokens": prompt})  # warm-up
+        torch.cuda.synchronize()
+        attn_ops.launch_count = 0
+        t0 = time.perf_counter()
+        toks = eng.generate({"tokens": prompt})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2 = attn_ops.launch_count
+    launches += k2
+    n_eq = int((toks == want_toks).sum())
+    ok = (toks.shape == (SERVE_BATCH, MESH_SERVE_NEW_TOKENS)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and torch.equal(toks[:, 0], want_toks[:, 0])
+          and k2 == cfg.n_layers * mesh.size)
+    record["generate"] = {"prompt": s, "wall_s": wall, "k2": k2,
+                          "tokens_equal": n_eq, "tokens": toks.numel(),
+                          "tok_per_s": toks.numel() / wall}
+    log(f"mesh serve Engine.generate (2, 2) cuda:0 x 4 olmo-1b B="
+        f"{SERVE_BATCH} prompt={s} new={MESH_SERVE_NEW_TOKENS}: wall "
+        f"{wall:.3f} s ({toks.numel() / wall:.1f} tok/s), K2 {k2}, "
+        f"{n_eq} of {toks.numel()} tokens equal the unmeshed engine's, "
+        f"first tokens equal {torch.equal(toks[:, 0], want_toks[:, 0])} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("mesh serve Engine.generate")
+    del model, params0, f32_model, f32_params, placed, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # repro-100m in f32 on (1, 4): heads replicated, or padded to 12
+    model, params0 = _serve_model("repro-100m")
+    cfg = model.cfg
+    padded = build_model(cfg.with_(opt_pad_heads=True))
+    for s in SERVE_PROMPTS:
+        prompt = _prompt(cfg.vocab_size, s)
+        plain = _mesh_serve_seq(model, params0, prompt, None, None,
+                                attn_ops)
+        launches += plain["k2"]
+        del plain["cache"]
+        record["unmeshed"][f"repro-100m {s}"] = _mesh_serve_timing(
+            model, params0, prompt, None, cuda0)
+        for label, m in (("(1, 4) cuda:0 x 4", model),
+                         ("(1, 4) cuda:0 x 4 pad", padded)):
+            run = _mesh_serve_run(m, params0, prompt, plain["fed"], (1, 4),
+                                  ["cuda:0"] * 4, False, attn_ops)
+            launches += run["k2"]
+            share = max(_share(a, b, MESH_SERVE_F32_BAR)
+                        for a, b in zip(run["logits"], plain["logits"]))
+            first, n_eq, n_tok = _greedy_equal(run["logits"],
+                                               plain["logits"])
+            bars = {"f32_share_of_bar": share, "first_tokens_equal": first,
+                    "greedy_equal": n_eq, "greedy_total": n_tok,
+                    "ok": share <= 1.0 and first}
+            report(label, m.cfg, run, s, bars,
+                   f"largest logit difference at {share:.4f} of the f32 bar "
+                   f"(atol {MESH_SERVE_F32_BAR} + rtol {MESH_SERVE_F32_BAR})"
+                   f"; {n_eq} of {n_tok} greedy tokens equal")
+            del run
+        del plain
+    del model, params0, padded
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh serve: {record['seconds']:.1f} s")
+    return launches, record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-src", default=None,
@@ -5967,6 +6362,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # serving olmo-1b and repro-100m on a (data x model) mesh of the
+    # card's entries: K2 on each entry's (or padded) heads in the prefill
+    mesh_serve_launches, mesh_serve_record = run_mesh_serve(attn_ops)
+    elapsed('mesh serve')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     # K3 and the RWKV6 serving path: one launch per layer in the prefill
     # and in each decode step
     wkv_errs = check_wkv_vs_plain()
@@ -6036,7 +6438,8 @@ def main() -> int:
         "sass": sass,
         "launches": sum(r["launches"] for r in served.values())
         + sum(train_launches.values()) + model_launches["k2"]
-        + mesh_launches + sum(s2_launches.values()) + sum(s3_launches.values())
+        + mesh_launches + mesh_serve_launches
+        + sum(s2_launches.values()) + sum(s3_launches.values())
         + sum(s67_launches.values()) + sum(s45_launches.values()),
         "max_abs_err": max(attn_errs.values()), "tolerance": "f32 atol "
         "5e-05 + rtol 1e-04, bf16 atol 3e-02 at the slice's shapes; "
@@ -6054,6 +6457,9 @@ def main() -> int:
            model_launches["k2"]}
         | {"mesh train (olmo-1b unmeshed bf16 and f32, then on (2, 2), "
            "each entry's heads)": mesh_launches}
+        | {"mesh serve (olmo-1b bf16 and f32, repro-100m unmeshed, then "
+           "on (2, 2) and (1, 4), each entry's or padded heads)":
+           mesh_serve_launches}
         | {f"serve S2 {run}": n for run, n in s2_launches.items()}
         | {f"serve S3 {run}": n for run, n in s3_launches.items()}
         | {f"serve S6-S7 {run}": n for run, n in s67_launches.items()}
@@ -6066,7 +6472,7 @@ def main() -> int:
         "bf16_lse_errors": model_record["lse_errors"],
         "train_shapes": model_record["train_attention"],
         "train": train_record, "train_models": model_record,
-        "mesh_train": mesh_record,
+        "mesh_train": mesh_record, "mesh_serve": mesh_serve_record,
         "f32": {"source": ATTN_F32_SOURCE, "launches": repro_launches,
                 "sass": f32_sass,
                 **{key: attn_f32[key] for key in (

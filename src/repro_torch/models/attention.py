@@ -22,7 +22,7 @@ scale per (token, head), quantized on write as the reference does, bit
 for bit, and dequantized to f32 on read (`cache_kv`). `opt_pad_heads`
 changes nothing on one card: without a mesh the reference's pad is 0,
 and its other effect, k and v repeated to q's width, is what K2's GQA
-does by reading kv head h // group.
+does by reading kv head h // group (on a mesh, `models.meshed` pads).
 
 The reference feeds hymba's few global layers a traced `is_global` flag,
 which sends its prefill past the Pallas kernel. The port loops over
@@ -30,13 +30,14 @@ layers in Python, so a layer's flag is known on the host: a global
 layer passes `window=None` (to K2 and to `decode_attention`), which is
 the function the flag computes.
 
-This module has no sharding calls: on a mesh, training runs
-`attn_apply` on each entry's local heads (`models.meshed`, ROADMAP
-M12a); serving on a mesh is M12b. `blockwise_attention`, the
-reference's blockwise attention, serves MLA's prefill past 1,024
-positions (`models.mla`) as in the reference; this module's own
-attention takes K2 in serving and the flash backward in training,
-whatever `opt_flash_vjp` says.
+This module has no sharding calls: on a mesh, training and serving
+run its pieces (`project_qkv`, `sdpa`, `write_prefill`, `cache_write`,
+`decode_scores`, `decode_probs`) on each entry's local heads or
+head_dim columns (`models.meshed`, ROADMAP M12a, M12b).
+`blockwise_attention`, the reference's blockwise attention, serves
+MLA's prefill past 1,024 positions (`models.mla`) as in the reference;
+this module's own attention takes K2 in serving and the flash backward
+in training, whatever `opt_flash_vjp` says.
 """
 from __future__ import annotations
 
@@ -229,26 +230,77 @@ def cache_kv(cache: dict, which: str) -> torch.Tensor:
     return x
 
 
-def _store(cache: dict, name: str, new: torch.Tensor, slots) -> None:
+def _store(cache: dict, name: str, new: torch.Tensor, slots,
+           cols: slice = slice(None)) -> None:
     """Write `new` (B, Hkv, n, d) into `cache[name]` at `slots` of the
-    position axis, quantized first when the cache is int8."""
+    position axis, quantized first when the cache is int8; a cache that
+    holds only the head_dim columns `cols` (a mesh entry's block) takes
+    those, each scale still over the whole head."""
     if f"{name}_scale" in cache:
         new, scale = quantize(new)
         cache[f"{name}_scale"][:, :, slots] = scale
-    cache[name][:, :, slots] = new
+    cache[name][:, :, slots] = new[..., cols]
 
 
 def cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                pos: int) -> dict:
+                pos: int, cols: slice = slice(None)) -> dict:
     """Write one token (B, Hkv, 1, d) at absolute position `pos` into its
-    ring-buffer slot, in place."""
+    ring-buffer slot, in place (head_dim columns `cols` as in `_store`)."""
     slot = pos % cache["k"].shape[-2]
-    _store(cache, "k", k_new, slice(slot, slot + 1))
-    _store(cache, "v", v_new, slice(slot, slot + 1))
+    _store(cache, "k", k_new, slice(slot, slot + 1), cols)
+    _store(cache, "v", v_new, slice(slot, slot + 1), cols)
     # a fill on a one-element slice: `pos_ids[slot] = pos` would copy a
     # host scalar to the card and synchronize, once per layer and token
     cache["pos_ids"][slot:slot + 1].fill_(pos)
     return cache
+
+
+def write_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, cols: slice = slice(None)) -> None:
+    """Write a prefill's last min(S, cache_len) keys and values (B, Hkv,
+    S, d) into the cache, in place, position p in slot p mod cache_len,
+    where decode's ring buffer (`cache_write`) keeps it; an int8 cache
+    takes each key quantized, then rolled into its slot (head_dim
+    columns `cols` as in `_store`)."""
+    s = k.shape[2]
+    cache_len = cache["k"].shape[-2]
+    take = min(s, cache_len)
+    # prefill's positions are 0..S-1: the first one kept, S - take,
+    # belongs in slot (S - take) mod cache_len
+    shift = (s - take) % cache_len
+
+    def ring(t: torch.Tensor, dim: int) -> torch.Tensor:
+        return torch.roll(t, shift, dim) if shift else t
+
+    _store(cache, "k", ring(k[:, :, s - take:], 2), slice(0, take), cols)
+    _store(cache, "v", ring(v[:, :, s - take:], 2), slice(0, take), cols)
+    cache["pos_ids"][:take] = ring(positions[s - take:], 0)
+    cache["pos_ids"][take:] = -1
+
+
+def decode_scores(q: torch.Tensor, cache: dict) -> torch.Tensor:
+    """One query token's unscaled f32 scores (B, Hkv, group, L) against
+    the cached keys (an int8 cache dequantized); on a mesh entry holding
+    head_dim columns, q's same columns give a partial sum."""
+    b, hq, _, d = q.shape
+    hkv = cache["k"].shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    return torch.einsum("bhgd,bhsd->bhgs", qg, cache_kv(cache, "k"))
+
+
+def decode_probs(s: torch.Tensor, pos_ids: torch.Tensor, pos: int,
+                 cfg: ModelConfig, window: Optional[int]) -> torch.Tensor:
+    """Scores -> probabilities: scaled, the config's softcap, only the
+    filled keys at or before `pos` (and less than `window` positions back
+    when a window is given), softmax."""
+    s = s * cfg.head_dim ** -0.5
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    valid = (pos_ids >= 0) & (pos_ids <= pos)
+    if window is not None:
+        valid &= (pos - pos_ids) < window
+    s = torch.where(valid, s, NEG_INF)
+    return torch.softmax(s, dim=-1)
 
 
 def decode_attention(q: torch.Tensor, cache: dict, pos: int,
@@ -259,19 +311,8 @@ def decode_attention(q: torch.Tensor, cache: dict, pos: int,
     only the keys less than `window` positions back when a window is
     given."""
     b, hq, _, d = q.shape
-    hkv = cache["k"].shape[1]
-    g = hq // hkv
-    qg = q.reshape(b, hkv, g, d).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, cache_kv(cache, "k")) \
-        * cfg.head_dim ** -0.5
-    if cfg.attn_softcap is not None:
-        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
-    pid = cache["pos_ids"]
-    valid = (pid >= 0) & (pid <= pos)
-    if window is not None:
-        valid &= (pos - pid) < window
-    s = torch.where(valid, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = decode_probs(decode_scores(q, cache), cache["pos_ids"], pos, cfg,
+                     window)
     out = torch.einsum("bhgs,bhsd->bhgd", p, cache_kv(cache, "v"))
     return out.reshape(b, hq, 1, d).to(q.dtype)
 
@@ -279,24 +320,12 @@ def decode_attention(q: torch.Tensor, cache: dict, pos: int,
 # --------------------------------------------------------------------------
 # attention sub-layer (projections + rope + sdpa / decode)
 # --------------------------------------------------------------------------
-def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
-               positions: torch.Tensor, causal: bool = True,
-               window: Optional[int] = None,
-               cache: Optional[dict] = None,
-               decode_pos: Optional[int] = None,
-               impl: str = "auto") -> tuple:
-    """x (B, S, D) -> (out (B, S, D), cache), attending over the sliding
-    `window` when one is given (causal unless `causal=False`; RoPE under
-    `cfg.use_rope`). With a cache and S == 1 this is a decode step at
-    `decode_pos`; otherwise a prefill, which writes the last
-    min(S, cache_len) keys and values into the cache when one is given,
-    position p in slot p mod cache_len, where decode's ring buffer
-    (`cache_write`) keeps it; an int8 cache takes each key quantized,
-    then rolled into its slot. (The reference writes them into slots 0..
-    in order, which places a windowed ring's keys where decode does not
-    expect them when S > window and S mod window != 0.) An f32 `x`
-    against bf16 weights computes in f32 (`layers.matmul`). `impl`
-    selects the prefill attention as in `sdpa`."""
+def project_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                positions: torch.Tensor) -> tuple:
+    """x (B, S, D) -> q (B, Hq, S, d), k, v (B, Hkv, S, d) views: the
+    projections, qk-norm (a plain RMS norm of each head) and RoPE under
+    `cfg.use_rope`. An f32 `x` against bf16 weights computes in f32
+    (`layers.matmul`)."""
     b, s, _ = x.shape
     q = matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = matmul(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -307,26 +336,32 @@ def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, d) views
+    return tuple(t.transpose(1, 2) for t in (q, k, v))
 
+
+def attn_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
+               positions: torch.Tensor, causal: bool = True,
+               window: Optional[int] = None,
+               cache: Optional[dict] = None,
+               decode_pos: Optional[int] = None,
+               impl: str = "auto") -> tuple:
+    """x (B, S, D) -> (out (B, S, D), cache), attending over the sliding
+    `window` when one is given (causal unless `causal=False`; RoPE under
+    `cfg.use_rope`). With a cache and S == 1 this is a decode step at
+    `decode_pos`; otherwise a prefill, which writes its keys and values
+    into the cache when one is given (`write_prefill`: key p in slot p
+    mod cache_len; the reference writes them into slots 0.. in order,
+    which places a windowed ring's keys where decode does not expect
+    them when S > window and S mod window != 0). `impl` selects the
+    prefill attention as in `sdpa`."""
+    b, s, _ = x.shape
+    q, k, v = project_qkv(x, p, cfg, positions)
     if cache is not None and s == 1:
         cache = cache_write(cache, k, v, decode_pos)
         out = decode_attention(q, cache, decode_pos, cfg, window=window)
     else:
         out = sdpa(q, k, v, cfg, causal=causal, window=window, impl=impl)
         if cache is not None:  # prefill into the cache
-            cache_len = cache["k"].shape[-2]
-            take = min(s, cache_len)
-            # prefill's positions are 0..S-1: the first one kept,
-            # S - take, belongs in slot (S - take) mod cache_len
-            shift = (s - take) % cache_len
-
-            def ring(t: torch.Tensor, dim: int) -> torch.Tensor:
-                return torch.roll(t, shift, dim) if shift else t
-
-            _store(cache, "k", ring(k[:, :, s - take:], 2), slice(0, take))
-            _store(cache, "v", ring(v[:, :, s - take:], 2), slice(0, take))
-            cache["pos_ids"][:take] = ring(positions[s - take:], 0)
-            cache["pos_ids"][take:] = -1
+            write_prefill(cache, k, v, positions)
     out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return matmul(out, p["wo"]), cache

@@ -26,6 +26,13 @@ WKV recurrence for RWKV): 'auto' (the CUDA kernel on the card, its plain
 version on the CPU), 'kernel' or 'ref' (the plain version, on any
 device) — the last lets the card compare the two routes.
 
+Under `sharding.specs.use_mesh(mesh)`, with parameters from
+`sharding.placement.shard_params`, `init_cache`, `prefill` and
+`decode_step` serve the dense decoder on the mesh (`models.meshed`):
+each KV cache leaf a `Sharded` placed by the reference's `cache_spec`,
+the logits global, on the mesh's first device. Other families raise
+`NotImplementedError` there (ROADMAP M12c).
+
 The VLM prefill sizes its cache at n_patches + max(max_len, S): the
 reference's max(max_len, n_patches + S) is too short by n_patches when
 max_len counts the new tokens, so its first decode overwrites patch 0's
@@ -41,10 +48,11 @@ from torch.overrides import TorchFunctionMode
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, rwkv
+from repro_torch.models import encdec, meshed, rwkv
 from repro_torch.models import ssm as hymba
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, matmul, remat
+from repro_torch.sharding import specs
 
 _IMPLS = ("auto", "kernel", "ref")
 # the weight of deepseek-v3's multi-token-prediction loss, the reference's
@@ -196,7 +204,11 @@ class Model:
         on a windowed sublayer, a ring buffer; every hymba layer at the
         full length, with its SSM states; whisper's with the
         cross-attention K and V), or RWKV's O(1) state (`cache_len`
-        unused)."""
+        unused). Under `use_mesh`, the decoder's cache placed on the
+        mesh (`device` unused)."""
+        mesh = specs.current_mesh()
+        if mesh is not None:
+            return meshed.init_cache(self, batch, cache_len, mesh)
         if self.kind == "rwkv":
             return rwkv.init_state(batch, self.cfg, device=device)
         if self.kind == "hymba":
@@ -215,6 +227,9 @@ class Model:
         sizes the KV cache beyond the prompt for later decode steps;
         hymba's meta tokens and the VLM's patches come on top (RWKV's
         state has no length)."""
+        mesh = specs.current_mesh()
+        if mesh is not None:
+            return meshed.prefill(self, params, batch, max_len, mesh)
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -254,6 +269,9 @@ class Model:
         int, counting hymba's meta tokens and the VLM's patches; RWKV
         reads none). Returns (logits (B, V) f32, the cache, updated in
         place)."""
+        mesh = specs.current_mesh()
+        if mesh is not None:
+            return meshed.decode_step(self, params, cache, token, pos, mesh)
         if self.kind == "rwkv":
             h, cache = rwkv.forward(params, token[:, None], self.cfg, cache,
                                     impl=self.impl)

@@ -13,6 +13,14 @@ scaled logits, then `argmax`; the key starts at `key(seed)` and is
 folded with the step index after every decode step (skipped when
 greedy: the key is then never read, and a fold is ~180 launches of the
 eager threefry).
+
+Under `sharding.specs.use_mesh(mesh)` (parameters from
+`placement.shard_params`) the same loop serves on the mesh: the prompt's
+rows placed by the batch rule, the model's mesh prefill and decode
+(`models.meshed`) returning global logits on the mesh's first device,
+where the tokens are drawn: one draw over the global (B, V) logits, as
+the reference's one `categorical`, so the tokens are the unmeshed
+engine's at the same key.
 """
 from __future__ import annotations
 
@@ -43,14 +51,15 @@ class Engine:
     def generate(self, batch: dict) -> torch.Tensor:
         """batch: {"tokens": (B, S) prompt ids} (with "frames" for
         whisper, "patch_embed" for the VLM). Returns (B, max_new_tokens)
-        generated ids (int64, on the prompt's device)."""
+        generated ids (int64, on the logits' device: the prompt's, or
+        under a mesh its first entry's)."""
         cfg, m = self.cfg, self.model
         tokens = batch["tokens"]
         prompt_len = tokens.shape[1]
         pos0 = prompt_len + (m.cfg.n_patches or 0) + (m.cfg.meta_tokens or 0)
         logits, cache = m.prefill(self.params, batch,
                                   prompt_len + cfg.max_new_tokens)
-        key = rng.key(cfg.seed, device=tokens.device)
+        key = rng.key(cfg.seed, device=logits.device)
         out = []
         tok = self._sample(logits, key)
         for i in range(cfg.max_new_tokens):

@@ -30,7 +30,10 @@ over the model ranks carries the whole gradient on every rank.
 
 `reduce` is the plain (no autograd) sum, for the gradients of leaves
 replicated over the batch axes: the data-axis sum of gradients that is
-the MAC superposition.
+the MAC superposition. Serving, under `torch.no_grad`, takes `reduce`
+(decode's partial scores over the head_dim columns, the row-parallel
+outputs) and `gather` (decode's head_dim columns, the logits'
+vocabulary columns).
 """
 from __future__ import annotations
 
@@ -173,6 +176,21 @@ def reduce(xs: list, mesh, axes: Sequence[str]) -> list:
     for g in groups(mesh, axes):
         got = _per_member(g, mesh.devices, lambda dev: _sum_in_order(
             (xs[i] for i in g), dev))
+        for j, t in got.items():
+            outs[j] = t
+    return outs
+
+
+@torch.no_grad()
+def gather(xs: list, mesh, axes: Sequence[str], dim: int) -> list:
+    """Each member's tensor concatenated along `dim` in rank order over
+    `axes`, on every member (no autograd)."""
+    if _trivial(mesh, axes):
+        return list(xs)
+    outs = [None] * len(xs)
+    for g in groups(mesh, axes):
+        got = _per_member(g, mesh.devices, lambda dev: torch.cat(
+            [xs[i].to(dev) for i in g], dim))
         for j, t in got.items():
             outs[j] = t
     return outs

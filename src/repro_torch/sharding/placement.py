@@ -10,6 +10,11 @@ A `Sharded` is one leaf of `core.tree`, so the trees keep the
 reference's structure and leaf order (the noise keys follow it);
 `leafwise` applies an elementwise update to every local tensor, which
 is how the optimizers update shards in place of leaves.
+
+Serving places its KV caches the same way (`shard_cache`, `cache_zeros`:
+each leaf by `specs.cache_spec`; each entry's block is updated in place
+by its own prefill and decode steps) and its inputs' rows by
+`specs.batch_spec` (`split_rows`; `gather_rows` puts the rows back).
 """
 from __future__ import annotations
 
@@ -182,3 +187,73 @@ def split_batch(x: torch.Tensor, mesh, axes: Sequence[str]) -> list:
         r = axes_rank(mesh, axes, i)
         out.append(x[r * per:(r + 1) * per].to(dev))
     return out
+
+
+def _distinct(spec: tuple) -> tuple:
+    """`spec` with each axis kept at its first dimension only. Under
+    `use_dp_over_model` the reference's `cache_spec` names "model" on the
+    batch and on the heads, which its `NamedSharding` refuses (ROADMAP
+    §3 R8); the batch keeps it and the heads stay whole."""
+    seen, out = set(), []
+    for entry in spec:
+        axes = tuple(a for a in spec_axes(entry) if a not in seen)
+        seen.update(axes)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return tuple(out)
+
+
+def _cache_walk(tree: Any, mesh, place: Callable) -> Any:
+    """`place(leaf, spec)` at every leaf of a cache tree, its spec by
+    `specs.cache_specs` (the reference's paths), duplicates dropped."""
+    by_path = specs.cache_specs(tree, mesh)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}" if path else str(k))
+                    for k, v in t.items()}
+        return place(t, _distinct(by_path[path.lower()]))
+
+    return walk(tree, "")
+
+
+def shard_cache(cache: Any, mesh) -> Any:
+    """A KV cache tree with every leaf a `Sharded` laid out by the
+    reference's `cache_spec`: each entry a copy of its block."""
+    return _cache_walk(cache, mesh,
+                       lambda t, spec: shard_tensor(t, spec, mesh))
+
+
+def cache_zeros(cache_meta: Any, mesh) -> Any:
+    """The empty cache of `cache_meta`'s shapes and dtypes (meta tensors)
+    placed by `cache_spec`, each entry's block allocated on its device:
+    zeros, and `pos_ids` -1 (empty), as `attention.init_kv_cache`."""
+
+    def place(t, spec):
+        shards = []
+        for i, dev in enumerate(mesh.devices):
+            shape = t[box(t.shape, spec, mesh, i)].shape
+            shards.append(torch.full(shape, -1 if t.dtype == torch.int32
+                                     else 0, dtype=t.dtype, device=dev))
+        return Sharded(spec, tuple(t.shape), shards, mesh)
+
+    return _cache_walk(cache_meta, mesh, place)
+
+
+def split_rows(x: torch.Tensor, mesh) -> list:
+    """Entry i's rows of an input `x` (leading dim the batch) laid out by
+    `specs.batch_spec`, on its device: the rows split over the data axes,
+    or every row on every entry where they do not divide."""
+    spec = specs.batch_spec(tuple(x.shape), mesh)
+    return [x[box(x.shape, spec, mesh, i)].to(dev)
+            for i, dev in enumerate(mesh.devices)]
+
+
+def gather_rows(xs: list, mesh, rows: int) -> torch.Tensor:
+    """The global batch of `rows` rows from each entry's rows in
+    `split_rows`' layout, on the first entry's device."""
+    if specs.batch_spec((rows,), mesh)[0] is None:  # replicated rows
+        return xs[0]
+    dev = mesh.devices[0]
+    return torch.cat([xs[i].to(dev)
+                      for i in leads(mesh, specs.data_axes(mesh))], 0)

@@ -15,8 +15,9 @@ model axis are replicated, as in the reference).
 
 The current mesh and the pure data-parallel switch are thread-local, as
 the reference's: `use_mesh(mesh)` around `build_train_step` builds the
-mesh step (`training.train_step`). A mesh is any object with
-`.axis_names` and `.shape[axis]` (`launch.mesh.Mesh`).
+mesh step (`training.train_step`), and around `Model.prefill`,
+`Model.decode_step` or `Engine.generate` serves on the mesh. A mesh is
+any object with `.axis_names` and `.shape[axis]` (`launch.mesh.Mesh`).
 """
 from __future__ import annotations
 
@@ -167,9 +168,10 @@ def param_spec(path: str, shape: Sequence[int], fsdp: bool,
 def cache_spec(path: str, shape: Sequence[int], mesh=None) -> tuple:
     """The spec of a KV or state cache leaf (leading dim the layer
     stack): k / v (L, B, H, S, hd) batch over the data axes and heads over
-    "model" where they divide (else head_dim over "model"); MLA's latent
-    caches the rank over "model"; other states the batch; pos_ids
-    whole. (A rule only: placing caches is serving's mesh path.)"""
+    "model" where they divide (else head_dim over "model"; an int8
+    cache's (.., 1) scales then stay whole on it); MLA's latent caches
+    the rank over "model"; other states the batch; pos_ids whole.
+    `sharding.placement.shard_cache` places a cache by it."""
     mesh = mesh or current_mesh()
     if mesh is None:
         return ()
@@ -193,9 +195,20 @@ def cache_spec(path: str, shape: Sequence[int], mesh=None) -> tuple:
     return fit_spec(shape, spec, mesh)
 
 
+def cache_specs(tree: Any, mesh=None) -> dict:
+    """{path: spec} of every cache leaf of `tree`, by `cache_spec` over the
+    reference's path of the leaf ("/" and the keys joined, lowercased:
+    `/seg{i}/sub{j}/kv/{k,v,k_scale,v_scale,pos_ids}`), the counterpart
+    of the reference's `cache_shardings`."""
+    return {path: cache_spec("/" + path, tuple(leaf.shape), mesh)
+            for path, leaf in leaf_paths(tree)}
+
+
 def batch_spec(shape: Sequence[int], mesh=None) -> tuple:
     """An input's spec: the leading (batch) dim over the data axes, a
-    scalar whole (the reference's `batch_shardings`, one leaf)."""
+    scalar whole (the reference's `batch_shardings`, one leaf). A batch
+    the data axes do not divide (B = 1 over 2 data ranks) is replicated,
+    by `fit_spec`'s fallback, as the reference's is."""
     mesh = mesh or current_mesh()
     if not len(shape):
         return ()

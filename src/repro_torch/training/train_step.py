@@ -221,7 +221,7 @@ def _mesh_value_and_grad(model, gcfg: GBMAConfig, mesh) -> Callable:
     `mesh`, for the dense decoder (`models.meshed`); the nodes are the
     batch ranks."""
     meshed.check_supported(model.cfg)
-    lay = meshed.MeshLayout(mesh, specs.tp_axis(), specs.data_axes(mesh))
+    lay = meshed.MeshLayout.of(mesh)
     nodes = 1
     for a in ("pod", "data"):
         nodes *= mesh.shape.get(a, 1)

@@ -33,7 +33,10 @@ four mesh entries of the card equals the unplaced call bit for bit. The MC sweep
 on the card: the launcher's selftests, and a served mix through K1 held
 to the plain route. The fused training step over a (2, 2) mesh of four
 entries of the card launches K2 on each entry's heads and stays within
-the training bar of the unmeshed step, bit for bit run after run.
+the training bar of the unmeshed step, bit for bit run after run; served
+over the same mesh, the reduced olmo-1b launches K2 once a layer an
+entry in the prefill and its logits and placed cache stay within 1e-4
+of the unmeshed card run's and of the mesh run on the CPU.
 """
 import dataclasses
 
@@ -1357,3 +1360,62 @@ def test_mesh_train_step_on_four_entries_of_the_card(cuda, fsdp):
     for x, y in zip(tree_leaves(meshed), tree_leaves(again)):
         for s, t in zip(x.shards, y.shards):
             assert torch.equal(s, t)
+
+
+def test_mesh_serving_on_four_entries_of_the_card(cuda):
+    """Serving over a (2, 2) ("data", "model") mesh of ["cuda:0"] * 4
+    (M12b) on the reduced olmo-1b in f32: K2 once a layer on each entry's
+    heads in the prefill; the prefill's and 4 decode steps' logits and
+    the placed cache within atol 1e-4 + rtol 1e-4 of the unmeshed card
+    run's and of the same mesh run on the CPU, every cache shard its
+    block of `unshard`."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.placement import shard_params, unshard
+    from repro_torch.sharding.specs import use_mesh
+
+    cfg = get_config("olmo-1b").reduced()
+    model = build_model(cfg)
+    params0 = model.init_params(device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 40), device=cuda,
+                           generator=gen)
+    steps = torch.randint(0, cfg.vocab_size, (4, 4), device=cuda,
+                          generator=gen)
+
+    def run(devices, on_mesh: bool):
+        mesh = make_mesh((2, 2), ("data", "model"), devices)
+        params = tree_map(lambda x: x.to(mesh.devices[0]), params0)
+        if on_mesh:
+            params = shard_params(params, False, mesh)
+        with use_mesh(mesh if on_mesh else None):
+            before = attn_ops.launch_count
+            logits, cache = model.prefill(
+                params, {"tokens": prompt.to(mesh.devices[0])}, 44)
+            launched = attn_ops.launch_count - before
+            seq = [logits]
+            for j in range(4):
+                logits, cache = model.decode_step(
+                    params, cache, steps[:, j].to(mesh.devices[0]), 40 + j)
+                seq.append(logits)
+        if on_mesh:
+            whole = unshard(cache)
+            for leaf, full in zip(tree_leaves(cache), tree_leaves(whole)):
+                for i, s in enumerate(leaf.shards):
+                    assert torch.equal(s, full[leaf.box(i)])
+            cache = whole
+        return [x.cpu() for x in seq], \
+            [x.cpu() for x in tree_leaves(cache)], launched
+
+    ref, ref_cache, n_ref = run(["cuda:0"] * 4, False)
+    got, got_cache, n_mesh = run(["cuda:0"] * 4, True)
+    cpu, cpu_cache, _ = run(["cpu"] * 4, True)
+    assert n_ref == cfg.n_layers and n_mesh == cfg.n_layers * 4
+    for other, other_cache in ((ref, ref_cache), (cpu, cpu_cache)):
+        for a, b in zip(got + got_cache, other + other_cache):
+            if a.dtype == torch.int32:
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -96,6 +96,15 @@ ANALYSIS_MODULES = {"repro_torch.launch.analytic",
 MESH_MODULES = {"repro_torch.sharding", "repro_torch.sharding.specs",
                 "repro_torch.sharding.placement", "repro_torch.sharding.comm",
                 "repro_torch.launch.mesh", "repro_torch.models.meshed"}
+# serving over a mesh (M12b): the model's and the engine's mesh dispatch,
+# the cache placement and the mesh prefill and decode
+MESH_SERVE_MODULES = {"repro_torch.models.model",
+                      "repro_torch.serving.engine",
+                      "repro_torch.models.attention",
+                      "repro_torch.models.meshed",
+                      "repro_torch.sharding.placement",
+                      "repro_torch.sharding.specs",
+                      "repro_torch.sharding.comm"}
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -139,6 +148,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert S4_S5_MODULES <= names, S4_S5_MODULES - names
     assert ANALYSIS_MODULES <= names, ANALYSIS_MODULES - names
     assert MESH_MODULES <= names, MESH_MODULES - names
+    assert MESH_SERVE_MODULES <= names, MESH_SERVE_MODULES - names
     assert loaded == "[]", f"repro_torch pulled in: {loaded}"
 
 
@@ -146,9 +156,11 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                                           | TRAINING_MODULES
                                           | MODEL_TRAINING_MODULES
                                           | ANALYSIS_MODULES
-                                          | MESH_MODULES))
+                                          | MESH_MODULES
+                                          | MESH_SERVE_MODULES))
 def test_transport_module_alone_loads_no_jax_and_no_reference(module):
-    """Each M7, training, model-training and mesh module imported first
+    """Each M7, training, model-training, mesh and mesh-serving module
+    imported first
     in a fresh interpreter
     (its own import order, the package's re-exports included) loads
     neither JAX nor the reference."""

@@ -21,8 +21,9 @@ host devices.
   (False)` runs every case), the losses within 1e-5 relative, every
   shard its block of `unshard`, at (2, 2), (4, 1), (1, 4), (2, 1, 2),
   `use_dp_over_model`, 3 heads over a 2-way model axis (replicated
-  heads) and 2 kv heads over a 4-way one (each rank's kv columns
-  gathered). Two runs give the same bits. The collectives' gradients
+  heads, or under `opt_pad_heads` padded to 4, 2 a rank, the losses
+  within 1e-5 of the unpadded mesh step's) and 2 kv heads over a 4-way
+  one (each rank's kv columns gathered). Two runs give the same bits. The collectives' gradients
   equal the global functions'.
 * What the mesh path does not take raises: the transport route,
   microbatches and the non-dense families (ROADMAP M12c), and `n_nodes`
@@ -77,11 +78,15 @@ CASES = {
     "2x2_dp_fsdp": ((2, 2), True, True, {}),
     "2x2_3heads_fsdp": ((2, 2), True, False,
                         {"n_heads": 3, "n_kv_heads": 3}),
+    "2x2_3heads_pad_fsdp": ((2, 2), True, False,
+                            {"n_heads": 3, "n_kv_heads": 3,
+                             "opt_pad_heads": True}),
     "1x4_2kv_fsdp": ((1, 4), True, False, {"n_kv_heads": 2}),
 }
-# the cases the reference's subprocess runs (the GQA case is held to the
-# unmeshed step only: each case costs the subprocess a compile)
-REFERENCE_CASES = [n for n in CASES if n != "1x4_2kv_fsdp"]
+# the cases the reference's subprocess runs (the GQA and padded cases are
+# held to the unmeshed step only: each case costs the subprocess a compile)
+REFERENCE_CASES = [n for n in CASES
+                   if n not in ("1x4_2kv_fsdp", "2x2_3heads_pad_fsdp")]
 
 _REFERENCE = """
 import sys
@@ -450,6 +455,21 @@ def test_mesh_step_matches_the_unmeshed_step(name):
                             / np.abs(ref_losses)))
     margin = _margin(leaves, [x.numpy() for x in tree_leaves(ref_params)])
     print(f"{name}: vs the unmeshed step losses {loss_rel:.3e} rel, params "
+          f"at {margin:.3f} of the bar")
+    assert loss_rel <= LOSS_RTOL and margin <= 1.0
+
+
+def test_padded_heads_step_matches_the_unpadded_mesh_step():
+    """`opt_pad_heads` on the 3-head mesh: q / k / v padded to 4 heads,
+    each model rank its 2 through the attention, the padded heads dropped
+    before `wo`; the same losses (1e-5 relative) and parameters as the
+    replicated heads."""
+    losses, leaves = _run("2x2_3heads_pad_fsdp")
+    ref_losses, ref_leaves = _run("2x2_3heads_fsdp")
+    loss_rel = float(np.max(np.abs(losses - ref_losses)
+                            / np.abs(ref_losses)))
+    margin = _margin(leaves, ref_leaves)
+    print(f"padded vs replicated heads: losses {loss_rel:.3e} rel, params "
           f"at {margin:.3f} of the bar")
     assert loss_rel <= LOSS_RTOL and margin <= 1.0
 
